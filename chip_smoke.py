@@ -1,0 +1,409 @@
+"""Drive eges_tpu_torch's batched sender recovery on one CUDA card.
+
+Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
+machine with a card and the CUDA toolkit.  Phases, one JSON line each:
+
+1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a;
+   seconds, and registers and spills per kernel.
+2. kernel: each of the eleven kernels at the main path's shapes
+   (B = 8192 rows; 16*B = 131072 for fp_mul, fp_canon and the table
+   pow) on seeded random and extreme inputs, held bit for bit against
+   its plain PyTorch version on the same CUDA tensors (tolerance 0: the
+   arithmetic is integer), and timed against it with CUDA events.
+3. slice: one block of BASELINE config 4 (1024 validators / 32-member
+   committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
+   signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
+   every row held against the host model, with the launch counts of
+   that run (18 per batch).
+4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
+   summed time; p50 and p90 of the batch times beside it), p50/p99
+   latency of recover_addresses at 1024 rows (1000 calls), peak device
+   memory.
+
+Then the ``kernels`` line, the card's name and power limit as nvidia-smi
+gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
+raises and exits nonzero; without a CUDA card the script exits 2 and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 20261016
+B_MAIN = 8192                       # the bucket 5024 rows pad to
+ROWS_BASELINE4 = 4000 + 1024        # txn senders + vote signatures
+DISTINCT = 256                      # distinct signed rows, tiled
+RUNS_8192 = 20                      # timed batches at 8192 rows
+RUNS_1024 = 1000                    # p99 with ten samples beyond it
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+# Integer peak, derived from the Hopper SM layout (no published figure):
+# 132 SMs, each issuing at most 4 warp-instructions (128 lanes) a clock.
+# 64 INT32 lanes a clock is no bound here: IMAD issues on the FMA pipe
+# beside the INT32 pipe, and the pow kernel has run 1.47x faster than
+# 64 lanes allow (PERF.md).
+SMS, LANES_PER_CLOCK = 132, 128
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def bound(nbytes: int, ops: float, clock_hz: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the u32 operations (``ops/opcount.py``) over the
+    issue rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (SMS * LANES_PER_CLOCK * clock_hz)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` runs, CUDA events, after warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """One run of ``fn``: (result, ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_abs_err(got, want) -> int:
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        d = ((g.to(torch.int64) & 0xFFFFFFFF)
+             - (w.to(torch.int64) & 0xFFFFFFFF)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from eges_tpu_torch.ops import build, kernels as K
+
+    info = build.build()
+    K.library()
+    emit({"phase": "build", "seconds": round(info["seconds"], 3),
+          "compiled": info["built"], "library": os.path.basename(
+              info["path"]), "ptxas": info["ptxas"]})
+    return info
+
+
+def _affine_points(rng, n):
+    """n consecutive multiples of G from a random start: cheap real
+    points for the table kernel."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.crypto import secp256k1 as host
+
+    pt = host.point_mul(1 + tt.rand_int(rng, host.N - 1), host.G)
+    xs, ys = [], []
+    for _ in range(n):
+        xs.append(pt[0])
+        ys.append(pt[1])
+        pt = host.point_add(pt, host.G)
+    return tt.limb_rows(xs), tt.limb_rows(ys)
+
+
+def phase_kernels(rng, dev, clock_hz):
+    """Each kernel at the main path's shapes against its plain version.
+    Returns per-kernel records (ms and bounds cover all of a kernel's
+    launches in one batch)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K, opcount
+    from eges_tpu_torch.ops.bigint import N, P
+
+    B, M = B_MAIN, 16 * B_MAIN
+    wide = K.bpad(B)
+
+    def limbs(n, bound=1 << 256):
+        return K.from_reference(tt.limb_rows(tt.field_values(rng, n, bound)),
+                                dev)
+
+    sig_s, sig_h, _ = tt.signed_rows(rng, 64)
+    sigs = rng.integers(0, 256, (B, 65), dtype=np.uint8)
+    sigs[:, 64] = rng.integers(0, 6, B)
+    sigs[::2] = np.resize(sig_s, (B // 2, 65))
+    hashes = rng.integers(0, 256, (B, 32), dtype=np.uint8)
+    hashes[::2] = np.resize(sig_h, (B // 2, 32))
+    sigs_t, hashes_t = (torch.from_numpy(a).to(dev) for a in (sigs, hashes))
+
+    a_b, b_b, c_b = limbs(B), limbs(B), limbs(B)
+    n1, n2 = limbs(B, N), limbs(B, N)
+    a_m, b_m = limbs(M), limbs(M)
+    v = K.from_reference(rng.integers(0, 6, B).astype(np.uint32), dev)
+    ok_in = K.from_reference(rng.integers(0, 2, B).astype(np.uint32), dev)
+    px, py = (K.from_reference(t, dev) for t in _affine_points(rng, B))
+    dig = torch.zeros(33, 8, wide, dtype=torch.int32, device=dev)
+    dig[:, :4, :B] = torch.from_numpy(
+        rng.integers(0, 16, (33, 4, B)).astype(np.int32)).to(dev)
+    neg = torch.zeros(8, wide, dtype=torch.int32, device=dev)
+    neg[:4, :B] = torch.from_numpy(
+        rng.integers(0, 2, (4, B)).astype(np.int32)).to(dev)
+    tabs = [K.from_reference(rng.integers(0, 1 << 16, (256, wide)).astype(
+        np.uint32), dev) for _ in range(3)]
+    words = K.from_reference(rng.integers(0, 1 << 32, (34, wide),
+                                          dtype=np.uint64).astype(np.uint32),
+                             dev)
+    # the ladder negates its point on 33 windows of each set sign flag;
+    # its random R tables meet the accumulator (the doubling path) with
+    # odds of 2^-256 an add, so this run's data takes no ladder doubling
+    OPS = opcount.per_row(negations=33 * float(neg[:4, :B].sum()) / B,
+                          ladder_doublings=0.0)
+
+    # (name, [(kernel call, plain call, bytes, ops)] one entry per launch
+    # of one batch on the main path)
+    def pw(a, e, mod):
+        return (lambda: K.pow_mod_pallas(a, e, mod),
+                lambda: K.pow_mod_plain(a, e, mod),
+                2 * nbytes(a), a.shape[0] * OPS["pow_mod_" + mod])
+
+    cases = [
+        ("recover_prelude", [(
+            lambda: K.recover_prelude_pallas(sigs_t, hashes_t),
+            lambda: K.recover_prelude_plain(sigs_t, hashes_t),
+            nbytes(sigs_t, hashes_t) + 5 * 64 * B + 8 * B,
+            B * OPS["recover_prelude"])]),
+        ("pow_mod", [pw(a_b, (P + 1) // 4, "p"), pw(n1, N - 2, "n"),
+                     pw(a_m, P - 2, "p"), pw(b_b, P - 2, "p")]),
+        ("y_fix", [(lambda: K.y_fix_pallas(a_b, b_b, v),
+                    lambda: K.y_fix_plain(a_b, b_b, v),
+                    nbytes(a_b, b_b, v) + 64 * B + 4 * B,
+                    B * OPS["y_fix"])]),
+        ("u1u2", [(lambda: K.u1u2_pallas(c_b, n1, n2),
+                   lambda: K.u1u2_plain(c_b, n1, n2),
+                   nbytes(c_b, n1, n2) + 2 * 64 * B,
+                   B * OPS["u1u2"])]),
+        ("glv_digits", [(lambda: K.glv_digits_pallas(n1, n2),
+                         lambda: K.glv_digits_plain(n1, n2),
+                         nbytes(n1, n2) + 4 * (33 * 8 + 8) * wide,
+                         wide * OPS["glv_digits"])]),
+        ("point_table", [(lambda: K.point_table_pallas(px, py),
+                          lambda: K.point_table_plain(px, py),
+                          nbytes(px, py) + 3 * 14 * 64 * B,
+                          B * OPS["point_table"])]),
+        ("fp_mul", [(lambda: K.fp_mul_pallas(a_m, b_m),
+                     lambda: K.fp_mul_plain(a_m, b_m),
+                     3 * nbytes(a_m), M * OPS["fp_mul"])] * 5),
+        ("fp_canon", [(lambda: K.fp_canon_pallas(a_m),
+                       lambda: K.fp_canon_plain(a_m),
+                       2 * nbytes(a_m), M * OPS["fp_canon"])]),
+        ("strauss_tab", [(
+            lambda: K.strauss_tab(dig, neg, *tabs, B),
+            lambda: K.strauss_tab_plain(dig, neg, *tabs, B),
+            nbytes(dig, neg, *tabs) + 3 * 64 * B,
+            B * OPS["strauss_tab"])]),
+        ("recover_finish", [(
+            lambda: K.recover_finish_pallas(a_b, b_b, c_b, n1, ok_in),
+            lambda: K.recover_finish_plain(a_b, b_b, c_b, n1, ok_in),
+            nbytes(a_b, b_b, c_b, n1, ok_in) + 2 * 64 * B + 4 * B
+            + 34 * 4 * wide, wide * OPS["recover_finish"])]),
+        ("keccak_rows", [(lambda: K.keccak_rows_pallas(words),
+                          lambda: K.keccak_rows_plain(words),
+                          nbytes(words) + 8 * 4 * wide,
+                          wide * OPS["keccak_rows"])]),
+    ]
+    records = {}
+    for name, launches in cases:
+        rec = {"name": name, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+               "bytes": 0, "ops": 0.0}
+        done = {}  # a launch repeated on the main path (fp_mul x5) runs once
+        for kern, plain, nb, ops in launches:
+            if kern not in done:
+                got = kern()
+                want, pms = timed(plain)
+                err = max_abs_err(got, want)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if err:
+                    raise AssertionError(f"{name}: kernel and plain version "
+                                         f"differ (max abs err {err})")
+                done[kern] = (cuda_ms(kern, 5), pms)
+            ms, pms = done[kern]
+            rec["ms"] += ms
+            rec["plain_ms"] += pms
+            rec["bytes"] += nb
+            rec["ops"] += ops
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
+                                                 clock_hz)
+        records[name] = rec
+        emit({"phase": "kernel", **{k: (round(v, 6) if isinstance(v, float)
+                                        else v) for k, v in rec.items()},
+              "equal": True})
+    return records
+
+
+def _baseline4_rows(rng):
+    """5024 rows: 256 distinct signed rows tiled, recovery ids 2 and 3,
+    and every invalid class, each row with its host-model answer."""
+    from eges_tpu_torch import testing as tt
+
+    sigs, hashes, addrs = tt.signed_rows(rng, DISTINCT)
+    hx_s, hx_h = tt.high_x_rows(rng, 8)
+    bad_s, bad_h = [], []
+    for i in range(4):  # every invalid class, built from four rows
+        s, h = tt.invalid_rows(rng, sigs[i], hashes[i])
+        bad_s.append(s)
+        bad_h.append(h)
+    uniq_s = np.concatenate([sigs, hx_s, *bad_s])
+    uniq_h = np.concatenate([hashes, hx_h, *bad_h])
+    answers = [tt.host_recover(s, h) for s, h in zip(uniq_s, uniq_h)]
+    for i in range(DISTINCT):
+        if answers[i] is None or answers[i][0] != addrs[i]:
+            raise AssertionError(f"host model disagrees with itself, row {i}")
+    idx = np.resize(np.arange(len(uniq_s)), ROWS_BASELINE4)
+    rng.shuffle(idx)
+    return uniq_s[idx], uniq_h[idx], [answers[i] for i in idx]
+
+
+def phase_slice(rng):
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.ops import kernels as K
+
+    sigs, hashes, answers = _baseline4_rows(rng)
+    verifier = BatchVerifier()
+    K.reset_launches()
+    addrs, ok = verifier.recover_addresses(sigs, hashes)
+    launches = dict(K.LAUNCHES)
+    want = {"recover_prelude": 1, "pow_mod": 4, "y_fix": 1, "u1u2": 1,
+            "glv_digits": 1, "point_table": 1, "fp_mul": 5, "fp_canon": 1,
+            "strauss_tab": 1, "recover_finish": 1, "keccak_rows": 1}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, want {want}")
+    n_valid = n_invalid = 0
+    for i, ans in enumerate(answers):
+        if ans is None:
+            if ok[i]:
+                raise AssertionError(f"row {i}: invalid row accepted")
+            n_invalid += 1
+        else:
+            if not ok[i] or bytes(addrs[i]) != ans[0]:
+                raise AssertionError(f"row {i}: address differs from the "
+                                     "host model")
+            n_valid += 1
+    emit({"phase": "slice", "rows": len(sigs), "bucket": verifier._pad(
+        len(sigs)), "valid_rows_matching_host": n_valid,
+        "invalid_rows_rejected": n_invalid, "launches": launches,
+        "launches_total": sum(launches.values())})
+    return launches, (sigs, hashes, answers)
+
+
+def phase_e2e(rows):
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    sigs, hashes, answers = rows
+    verifier = BatchVerifier()
+    s8 = np.ascontiguousarray(np.resize(sigs, (B_MAIN, 65)))
+    h8 = np.ascontiguousarray(np.resize(hashes, (B_MAIN, 32)))
+    verifier.recover_addresses(s8, h8)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(RUNS_8192):
+        t0 = time.perf_counter()
+        addrs, ok = verifier.recover_addresses(s8, h8)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    n_ok = int(ok.sum())
+    want_ok = sum(answers[i % len(answers)] is not None
+                  for i in range(B_MAIN))
+    if n_ok != want_ok:
+        raise AssertionError(f"8192-row run: {n_ok} ok, want {want_ok}")
+    s1, h1 = s8[:1024].copy(), h8[:1024].copy()
+    verifier.recover_addresses(s1, h1)                     # warm-up
+    lat = []
+    for _ in range(RUNS_1024):
+        t0 = time.perf_counter()
+        verifier.recover_addresses(s1, h1)
+        lat.append(time.perf_counter() - t0)
+    out = {"phase": "e2e", "rows": B_MAIN,
+           # every row of the timed window over its whole time
+           "verifies_per_s": RUNS_8192 * B_MAIN / sum(times),
+           "batch_ms_8192_p50": float(np.median(times)) * 1e3,
+           "batch_ms_8192_p90": float(np.percentile(times, 90)) * 1e3,
+           "runs_8192": RUNS_8192,
+           "p50_ms_1024": float(np.percentile(lat, 50)) * 1e3,
+           "p99_ms_1024": float(np.percentile(lat, 99)) * 1e3,
+           "runs_1024": RUNS_1024,
+           "peak_device_bytes_8192": int(peak)}
+    emit(out)
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from eges_tpu_torch.ops import build, kernels as K
+
+    dev = torch.device("cuda")
+    card = smi("name,power.limit")
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    emit({"phase": "device", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "card": card,
+          "clocks_max_sm_mhz": clock_hz / 1e6})
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    records = phase_kernels(rng, dev, clock_hz)
+    launches, rows = phase_slice(rng)
+    phase_e2e(rows)
+    src = os.path.relpath(build.CSRC / "recover.cu",
+                          os.path.dirname(os.path.abspath(__file__)))
+    emit({"kernels": [{
+        "name": name, "route": "cuda", "source": src,
+        "replaces": K.REPLACES[name], "launches": launches[name],
+        "max_abs_err": records[name]["max_abs_err"],
+        "ms": records[name]["ms"], "plain_ms": records[name]["plain_ms"],
+        "bound_ms": records[name]["bound_ms"],
+        "bound_by": records[name]["bound_by"], "library_ms": None}
+        for name in K.KERNELS]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,605 @@
+// Field library of the recovery kernels: secp256k1 arithmetic mod P and
+// mod N, the Jacobian group law, Keccak-f[1600] and the pipeline stages,
+// as __device__ functions on uint32_t[16] values.
+//
+// Each function is the CUDA twin of the `_k_<name>` helper of
+// eges_tpu/ops/pallas_kernels.py and of the function of the same name in
+// ops/field.py, and gives bit-identical results: 16-bit limbs held in
+// uint32_t, least significant first; the same fold constants and fold
+// order; the same relaxed F_P representation (any value in [0, 2^256)).
+// Every partial sum stays below 2^32, so uint32_t arithmetic never wraps
+// outside keccak, which uses native 64-bit lanes.
+//
+// The one thread per batch row that runs these functions keeps a value
+// in registers (arrays indexed only by unrolled constants); the compiler
+// spills what does not fit.  Constants live in __constant__ memory and
+// are uploaded once from Python (ops/kernels.py pack_constants), so the
+// limb values have one source.
+#pragma once
+
+#include <stdint.h>
+
+namespace eg {
+
+typedef uint32_t u32;
+
+#define EG_FD __device__ __forceinline__
+// The two point formulas are real calls: each is some thousands of
+// instructions, and inlining both into the ladder kernel made nvcc 12.9's
+// front end (cicc) crash while the code size grew past any use.
+#define EG_CALL __device__ __noinline__
+
+constexpr u32 MASK = 0xFFFFu;
+
+// Layout shared with ops/kernels.py pack_constants (992 words).
+struct Consts {
+  u32 p[16];        // field prime P
+  u32 subc[16];     // 2^256 - 2*(2^256 - P) + 1: a - b == a + (0xFFFF - b) + subc
+  u32 n[16];        // group order N
+  u32 ndelta[16];   // 2^256 - N, 9 limbs used
+  u32 fnsubc[16];   // 2N - 2^256 + 1: a - b == a + (0xFFFF - b) + fnsubc (mod N)
+  u32 glv[6][16];   // GLV lattice: g1, g2, a1, a2, -b1, b2
+  u32 gx[16][16];   // x of d*G, d = 0..15 (entry 0 zero)
+  u32 gy[16][16];   // y of d*G
+  u32 lx[16][16];   // x of d*(lambda*G) = beta * x of d*G
+  u32 rc[24][2];    // keccak round constants, (lo, hi)
+};
+
+__constant__ Consts K;
+
+// ---------------------------------------------------------------------------
+// helpers
+// ---------------------------------------------------------------------------
+
+EG_FD void copy16(u32* o, const u32* a) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = a[k];
+}
+
+EG_FD void zero16(u32* o) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = 0;
+}
+
+EG_FD void one16(u32* o) {
+  zero16(o);
+  o[0] = 1;
+}
+
+// o = flag ? a : b (o may alias a or b)
+EG_FD void select16(u32* o, u32 flag, const u32* a, const u32* b) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = flag ? a[k] : b[k];
+}
+
+// ---------------------------------------------------------------------------
+// mod P (relaxed)
+// ---------------------------------------------------------------------------
+
+// 16 columns (each < 2^31), in place -> relaxed 16-limb value: two full
+// carry chains with the 2^256 = 2^32 + 977 fold after each, then the
+// closing 5-step chain.
+EG_FD void carry_tail(u32* o) {
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    u32 c = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      u32 t = o[k] + c;
+      o[k] = t & MASK;
+      c = t >> 16;
+    }
+    o[0] += c * 977u;
+    o[2] += c;
+  }
+  u32 c = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    u32 t = o[k] + c;
+    o[k] = t & MASK;
+    c = t >> 16;
+  }
+}
+
+// Uncarried schoolbook columns of a (NA limbs) x b (NB limbs).
+template <int NA, int NB>
+EG_FD void mul_cols(const u32* a, const u32* b, u32* cols) {
+#pragma unroll
+  for (int k = 0; k < NA + NB; ++k) cols[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      u32 p = a[i] * b[j];
+      cols[i + j] += p & MASK;
+      cols[i + j + 1] += p >> 16;
+    }
+  }
+}
+
+EG_FD void fp_mul(u32* o, const u32* a, const u32* b) {
+  u32 c[32];
+  mul_cols<16, 16>(a, b, c);
+  // fold columns 16..31 (2^256 = 2^32 + 977): 32 -> 18 columns
+  u32 lo[18];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) lo[j] = c[j];
+  lo[16] = 0;
+  lo[17] = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    lo[j] += c[16 + j] * 977u;
+    lo[j + 2] += c[16 + j];
+  }
+  // fold columns 16, 17: 18 -> 16 columns
+  u32 r[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) r[j] = lo[j];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    r[j] += lo[16 + j] * 977u;
+    r[j + 2] += lo[16 + j];
+  }
+  carry_tail(r);
+  copy16(o, r);
+}
+
+EG_FD void fp_sqr(u32* o, const u32* a) { fp_mul(o, a, a); }
+
+EG_FD void fp_add(u32* o, const u32* a, const u32* b) {
+  u32 r[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) r[k] = a[k] + b[k];
+  carry_tail(r);
+  copy16(o, r);
+}
+
+// Branchless a - b: a + (0xFFFF - b) + subc, columns never borrow.
+EG_FD void fp_sub(u32* o, const u32* a, const u32* b) {
+  u32 r[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) r[k] = a[k] + (MASK - b[k]) + K.subc[k];
+  carry_tail(r);
+  copy16(o, r);
+}
+
+EG_FD void fp_neg(u32* o, const u32* a) {
+  u32 z[16];
+  zero16(z);
+  fp_sub(o, z, a);
+}
+
+EG_FD void fp_mul_small(u32* o, const u32* a, u32 k) {
+  u32 r[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) r[i] = a[i] * k;
+  carry_tail(r);
+  copy16(o, r);
+}
+
+// Relaxed a == 0 (mod P): exactly 0 or exactly P.
+EG_FD u32 is_zero_mod(const u32* a) {
+  u32 z = 1, p = 1;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    z &= (a[k] == 0);
+    p &= (a[k] == K.p[k]);
+  }
+  return z | p;
+}
+
+// Jacobian doubling, a = 0 (dbl-2009-l).  Outputs may alias inputs.
+EG_CALL void jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
+                      const u32* Y1, const u32* Z1) {
+  u32 A[16], B[16], C[16], t[16], D[16], E[16], F[16];
+  fp_sqr(A, X1);
+  fp_sqr(B, Y1);
+  fp_sqr(C, B);
+  fp_add(t, X1, B);
+  fp_sqr(t, t);
+  fp_sub(D, t, A);
+  fp_sub(D, D, C);
+  fp_mul_small(D, D, 2);
+  fp_mul_small(E, A, 3);
+  fp_sqr(F, E);
+  u32 x3[16], y3[16], z3[16];
+  fp_mul_small(t, D, 2);
+  fp_sub(x3, F, t);
+  fp_sub(t, D, x3);
+  fp_mul(y3, E, t);
+  fp_mul_small(t, C, 8);
+  fp_sub(y3, y3, t);
+  fp_mul(z3, Y1, Z1);
+  fp_mul_small(z3, z3, 2);
+  copy16(X3, x3);
+  copy16(Y3, y3);
+  copy16(Z3, z3);
+}
+
+// Jacobian + affine (madd-2007-bl) with the exceptional cases of the
+// reference: P1 at infinity, equal points (the doubling path), opposite
+// points (infinity).  The reference computes the doubling on every row
+// and selects it; here it runs only where it is taken, which gives the
+// same bits: at the first entry of the point table (R + R) on every row,
+// and in the ladder only when the accumulator equals the added point.
+// Outputs may alias the Jacobian inputs.
+EG_CALL void jac_add_mixed(u32* X, u32* Y, u32* Z, const u32* X1,
+                         const u32* Y1, const u32* Z1, const u32* x2,
+                         const u32* y2) {
+  u32 Z1Z1[16], U2[16], S2[16], H[16], r[16], t[16];
+  fp_sqr(Z1Z1, Z1);
+  fp_mul(U2, x2, Z1Z1);
+  fp_mul(S2, y2, Z1);
+  fp_mul(S2, S2, Z1Z1);
+  fp_sub(H, U2, X1);
+  fp_sub(r, S2, Y1);
+
+  u32 I[16], J[16], rr[16], V[16], X3[16], Y3[16], Z3[16];
+  fp_sqr(I, H);
+  fp_mul_small(I, I, 4);
+  fp_mul(J, H, I);
+  fp_mul_small(rr, r, 2);
+  fp_mul(V, X1, I);
+  fp_sqr(X3, rr);
+  fp_sub(X3, X3, J);
+  fp_mul_small(t, V, 2);
+  fp_sub(X3, X3, t);
+  fp_sub(t, V, X3);
+  fp_mul(Y3, rr, t);
+  fp_mul(t, Y1, J);
+  fp_mul_small(t, t, 2);
+  fp_sub(Y3, Y3, t);
+  fp_mul_small(t, Z1, 2);
+  fp_mul(Z3, t, H);
+
+  const u32 h0 = is_zero_mod(H);
+  const u32 r0 = is_zero_mod(r);
+  const u32 p1_inf = is_zero_mod(Z1);
+  const u32 dbl = h0 & r0;
+  const u32 opp = h0 & (1u - r0);
+  if (dbl) jac_double(X3, Y3, Z3, X1, Y1, Z1);
+
+  u32 one[16], zero[16];
+  one16(one);
+  zero16(zero);
+  select16(Z3, opp, zero, Z3);
+  select16(Y3, opp, one, Y3);
+  select16(X, p1_inf, x2, X3);
+  select16(Y, p1_inf, y2, Y3);
+  select16(Z, p1_inf, one, Z3);
+}
+
+// ---------------------------------------------------------------------------
+// mod N (canonical)
+// ---------------------------------------------------------------------------
+
+// Carry chain over NC small (< 2^31) columns -> NOUT limbs.
+template <int NC, int NOUT>
+EG_FD void carry(const u32* cols, u32* out) {
+  u32 c = 0;
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    u32 t = cols[k] + c;
+    if (k < NOUT) out[k] = t & MASK;
+    c = t >> 16;
+  }
+#pragma unroll
+  for (int k = NC; k < NOUT; ++k) {
+    out[k] = c & MASK;
+    c >>= 16;
+  }
+}
+
+// Borrow chain a - m: difference into o, returns 1 iff a < m.
+EG_FD u32 sub_const_chain(u32* o, const u32* a, const u32* m) {
+  u32 borrow = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    u32 t = a[k] + 0x10000u - m[k] - borrow;
+    o[k] = t & MASK;
+    borrow = 1u - (t >> 16);
+  }
+  return borrow;
+}
+
+EG_FD u32 lt_const(const u32* a, const u32* m) {
+  u32 d[16];
+  return sub_const_chain(d, a, m);
+}
+
+// One conditional subtract of the constant m (o may alias a).
+EG_FD void cond_sub(u32* o, const u32* a, const u32* m) {
+  u32 d[16];
+  const u32 borrow = sub_const_chain(d, a, m);
+  select16(o, borrow, a, d);
+}
+
+EG_FD void cond_sub_p(u32* o, const u32* a) { cond_sub(o, a, K.p); }
+EG_FD void cond_sub_n(u32* o, const u32* a) { cond_sub(o, a, K.n); }
+
+// W small columns (16 <= W <= 32) -> canonical mod N: delta folds
+// (32 -> 26 -> 20 -> 16 columns for a product), two top-limb folds and
+// two conditional subtracts.
+template <int W>
+EG_FD void fn_red_cols(const u32* cols, u32* o) {
+  if constexpr (W > 16) {
+    constexpr int NH = W - 16 + 1;
+    constexpr int NP = NH + 9;
+    constexpr int W2 = NP > 16 ? NP : 16;
+    u32 hi[NH];
+    carry<W - 16, NH>(cols + 16, hi);
+    u32 prod[NP];
+    mul_cols<NH, 9>(hi, K.ndelta, prod);
+    u32 nc[W2];
+#pragma unroll
+    for (int k = 0; k < W2; ++k)
+      nc[k] = (k < 16 ? cols[k] : 0u) + (k < NP ? prod[k] : 0u);
+    fn_red_cols<W2>(nc, o);
+  } else {
+    static_assert(W == 16, "fn_red_cols takes 16..32 columns");
+    u32 a17[17];
+    carry<16, 17>(cols, a17);
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      u32 fold[10];
+      mul_cols<1, 9>(&a17[16], K.ndelta, fold);
+      u32 s[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) s[k] = a17[k] + (k < 10 ? fold[k] : 0u);
+      carry<16, 17>(s, a17);
+    }
+    u32 r[16];
+    cond_sub_n(r, a17);
+    cond_sub_n(o, r);
+  }
+}
+
+EG_FD void fn_mul(u32* o, const u32* a, const u32* b) {
+  u32 c[32];
+  mul_cols<16, 16>(a, b, c);
+  fn_red_cols<32>(c, o);
+}
+
+// Canonical a - b mod N (both canonical).
+EG_FD void fn_sub(u32* o, const u32* a, const u32* b) {
+  u32 c[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) c[k] = a[k] + (MASK - b[k]) + K.fnsubc[k];
+  fn_red_cols<16>(c, o);
+}
+
+EG_FD u32 is_zero(const u32* a) {
+  u32 z = 1;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) z &= (a[k] == 0);
+  return z;
+}
+
+// Canonical -a mod N (0 -> 0).
+EG_FD void fn_neg(u32* o, const u32* a) {
+  u32 z[16], t[16];
+  zero16(z);
+  const u32 a0 = is_zero(a);
+  fn_sub(t, z, a);
+  select16(o, a0, z, t);
+}
+
+// ---------------------------------------------------------------------------
+// keccak-f[1600] over one padded 136-byte block, native 64-bit lanes
+// ---------------------------------------------------------------------------
+
+EG_FD uint64_t rotl64(uint64_t x, int r) {
+  return r ? (x << r) | (x >> (64 - r)) : x;
+}
+
+// 34 little-endian words of the block -> 8 digest words.
+EG_FD void keccak_words(const u32* w, u32* out) {
+  const int ROT[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
+                       25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
+  uint64_t a[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l)
+    a[l] = l < 17 ? ((uint64_t)w[2 * l] | ((uint64_t)w[2 * l + 1] << 32)) : 0;
+#pragma unroll 1
+  for (int rnd = 0; rnd < 24; ++rnd) {
+    uint64_t c[5];
+#pragma unroll
+    for (int x = 0; x < 5; ++x)
+      c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
+#pragma unroll
+    for (int x = 0; x < 5; ++x) {
+      const uint64_t d = c[(x + 4) % 5] ^ rotl64(c[(x + 1) % 5], 1);
+#pragma unroll
+      for (int y = 0; y < 5; ++y) a[x + 5 * y] ^= d;
+    }
+    uint64_t bb[25];
+#pragma unroll
+    for (int x = 0; x < 5; ++x) {
+#pragma unroll
+      for (int y = 0; y < 5; ++y)
+        bb[y + 5 * ((2 * x + 3 * y) % 5)] = rotl64(a[x + 5 * y], ROT[x + 5 * y]);
+    }
+#pragma unroll
+    for (int y = 0; y < 5; ++y) {
+#pragma unroll
+      for (int x = 0; x < 5; ++x)
+        a[x + 5 * y] = bb[x + 5 * y] ^
+                       (~bb[(x + 1) % 5 + 5 * y] & bb[(x + 2) % 5 + 5 * y]);
+    }
+    a[0] ^= (uint64_t)K.rc[rnd][0] | ((uint64_t)K.rc[rnd][1] << 32);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = (u32)a[i];
+    out[2 * i + 1] = (u32)(a[i] >> 32);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pipeline stages
+// ---------------------------------------------------------------------------
+
+// 32 big-endian bytes -> 16 limbs.
+EG_FD void unpack_be(u32* o, const uint8_t* bytes) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    o[k] = (u32)bytes[31 - 2 * k] | ((u32)bytes[30 - 2 * k] << 8);
+}
+
+// Range checks, the x candidate and y^2 = x^3 + 7 (relaxed).  v is the
+// raw recovery byte.  Returns ok.
+EG_FD u32 recover_prelude(u32* x, u32* y_sq, const u32* r, const u32* s,
+                          u32 v) {
+  const u32 r_ok = (1u - is_zero(r)) * lt_const(r, K.n);
+  const u32 s_ok = (1u - is_zero(s)) * lt_const(s, K.n);
+  const u32 v_ok = v < 4;
+  const u32 hi = v >= 2;
+  // x = r + (v >= 2 ? N : 0), 17-limb carry chain
+  u32 c = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    u32 t = r[k] + hi * K.n[k] + c;
+    x[k] = t & MASK;
+    c = t >> 16;
+  }
+  const u32 x_ok = (c == 0) * lt_const(x, K.p);
+  u32 t[16];
+  fp_sqr(t, x);
+  fp_mul(t, t, x);
+  t[0] += 7;
+  carry_tail(t);
+  copy16(y_sq, t);
+  return r_ok * s_ok * v_ok * x_ok;
+}
+
+// After the sqrt pow: canonicalise the root, check root^2 == y^2, flip
+// y to the parity v & 1.  Returns y_ok.
+EG_FD u32 y_fix(u32* y, const u32* root, const u32* y_sq, u32 v) {
+  u32 rc[16], ac[16];
+  fp_sqr(rc, root);
+  cond_sub_p(rc, rc);
+  cond_sub_p(ac, y_sq);
+  u32 ok = 1;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) ok &= (rc[k] == ac[k]);
+  u32 y0[16], ny[16];
+  cond_sub_p(y0, root);
+  fp_neg(ny, y0);
+  const u32 flip = (v & 1u) ^ (y0[0] & 1u);
+  select16(y, flip, ny, y0);
+  return ok;
+}
+
+// u1 = -(z mod N) * r^-1, u2 = s * r^-1 (canonical mod N).
+EG_FD void u1u2(u32* u1, u32* u2, const u32* z, const u32* s,
+                const u32* r_inv) {
+  u32 z17[17];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) z17[k] = z[k];
+  z17[16] = 0;
+  u32 zm[16], t[16];
+  fn_red_cols<17>(z17, zm);
+  fn_mul(t, zm, r_inv);
+  fn_neg(u1, t);
+  fn_mul(u2, s, r_inv);
+}
+
+constexpr int GLV_WINDOWS = 33;
+
+// Negative residues are recognised by size: |k| < 2^140 always.
+EG_FD u32 glv_sign_split(u32* mag, const u32* v) {
+  u32 hi = v[8] >> 12;
+#pragma unroll
+  for (int k = 9; k < 16; ++k) hi |= v[k];
+  const u32 n = hi != 0;
+  u32 nv[16];
+  fn_neg(nv, v);
+  select16(mag, n, nv, v);
+  return n;
+}
+
+EG_FD void glv_digits33(u32* d, const u32* v) {
+#pragma unroll
+  for (int w = 0; w < GLV_WINDOWS; ++w) {
+    const int j = GLV_WINDOWS - 1 - w;  // LSD window index
+    d[w] = (v[j / 4] >> (4 * (j % 4))) & 0xFu;
+  }
+}
+
+// One scalar's GLV split: canonical mod-N u -> MSD-first digits of |k1|
+// and |k2| with their signs, u = +-k1 + lambda * (+-k2) (mod N).
+EG_FD void glv_track(u32* d1, u32* n1, u32* d2, u32* n2, const u32* u) {
+  u32 cols[32], lim[32], c1[16], c2[16];
+  // c_i = (u * g_i) >> 384: limbs 24..31 of the product
+  mul_cols<16, 16>(u, K.glv[0], cols);
+  carry<32, 32>(cols, lim);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) c1[k] = k < 8 ? lim[24 + k] : 0u;
+  mul_cols<16, 16>(u, K.glv[1], cols);
+  carry<32, 32>(cols, lim);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) c2[k] = k < 8 ? lim[24 + k] : 0u;
+
+  u32 t[16], k1[16], k2[16];
+  // k1 = u - c1*a1 - c2*a2;  k2 = c1*(-b1) - c2*b2  (mod N)
+  mul_cols<16, 16>(c1, K.glv[2], cols);
+  fn_red_cols<32>(cols, t);
+  fn_sub(k1, u, t);
+  mul_cols<16, 16>(c2, K.glv[3], cols);
+  fn_red_cols<32>(cols, t);
+  fn_sub(k1, k1, t);
+  mul_cols<16, 16>(c1, K.glv[4], cols);
+  fn_red_cols<32>(cols, k2);
+  mul_cols<16, 16>(c2, K.glv[5], cols);
+  fn_red_cols<32>(cols, t);
+  fn_sub(k2, k2, t);
+
+  *n1 = glv_sign_split(k1, k1);
+  *n2 = glv_sign_split(k2, k2);
+  glv_digits33(d1, k1);
+  glv_digits33(d2, k2);
+}
+
+// 16 limbs -> 8 little-endian words of the big-endian byte string.
+EG_FD void limbs_to_words_be(u32* w, const u32* a) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const u32 hi = a[15 - 2 * i], lo = a[14 - 2 * i];
+    w[i] = (hi >> 8) | ((hi & 0xFFu) << 8) | ((lo >> 8) << 16) |
+           ((lo & 0xFFu) << 24);
+  }
+}
+
+// Jacobian result + raw Z^-1 + accumulated validity -> affine (qx, qy)
+// masked by the final ok, and the 34 padded keccak block words of
+// qx || qy.  Returns ok.
+EG_FD u32 recover_finish(u32* qx, u32* qy, u32* words, const u32* X,
+                         const u32* Y, const u32* Z, const u32* zi_raw,
+                         u32 ok_in) {
+  const u32 inf = is_zero_mod(Z);
+  u32 zi[16], zi2[16], x[16], y[16], t[16];
+  cond_sub_p(zi, zi_raw);
+  fp_sqr(zi2, zi);
+  fp_mul(x, X, zi2);
+  cond_sub_p(x, x);
+  fp_mul(t, zi, zi2);
+  fp_mul(y, Y, t);
+  cond_sub_p(y, y);
+  const u32 ok = ok_in * (1u - inf);
+  u32 zero[16];
+  zero16(zero);
+  select16(x, inf, zero, x);
+  select16(y, inf, zero, y);
+  select16(qx, ok, x, zero);
+  select16(qy, ok, y, zero);
+  limbs_to_words_be(words, qx);
+  limbs_to_words_be(words + 8, qy);
+  // keccak padding of a 64-byte message: byte 64 = 0x01, byte 135 = 0x80
+  words[16] = 1;
+#pragma unroll
+  for (int k = 17; k < 33; ++k) words[k] = 0;
+  words[33] = 0x80000000u;
+  return ok;
+}
+
+}  // namespace eg

@@ -1,0 +1,543 @@
+"""The eleven kernels of batched sender recovery, each with its plain
+PyTorch version and its launch count.
+
+Every public function keeps the name, signature and array layouts of
+the reference wrapper in ``eges_tpu/ops/pallas_kernels.py`` it replaces,
+so tests compare array with array.  Limb and word tensors are
+``torch.int32`` (read as ``uint32_t`` by the kernels); wire bytes are
+``torch.uint8``.  ``Bpad`` is the batch rounded up to a multiple of 256,
+the reference's ``LANE_BLOCK``.
+
+A wrapper given CUDA tensors launches its kernel from ``csrc/recover.cu``
+on the current stream and adds one to ``LAUNCHES[name]``; given CPU
+tensors it runs the plain version (``*_plain``), which repeats the
+kernel's arithmetic with ``ops/field.py`` and is also what
+``chip_smoke.py`` holds each kernel against on the card.  There is no
+fallback from one to the other.
+
+What bounds each kernel on the H100: the work is 16-bit limb products
+and carry chains on u32, one thread per row.  The card issues about ten
+u32 operations in the time it moves one byte of device memory.
+``fp_mul``, ``fp_canon`` and ``recover_prelude`` do fewer than that per
+byte they read and write, so bytes bound them; the other eight do more
+(``y_fix`` only just, ``pow_mod`` and ``strauss_tab`` over a hundred
+times more) and integer operations bound them.  Each reads its
+inputs and writes its outputs once and keeps every intermediate in
+registers.  ``PERF.md`` has each one's time beside its bound.  The
+reference's TPU-only variants map onto
+these kernels unchanged: ``pow_mod_rows8`` and ``strauss_tab_rows8``
+(``EGES_TPU_ROWS8``, an (8, 128) sublane packing) compute what
+``pow_mod_pallas`` and ``strauss_tab`` compute, and the keccak grid
+variant (``EGES_TPU_KECCAK_GRID``, rounds on the grid) what
+``keccak_rows_pallas`` computes; Hopper has no such tiling to choose.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from eges_tpu_torch.ops import build, curve, field
+from eges_tpu_torch.ops.bigint import NLIMBS
+
+LANE_BLOCK = 256
+POW_WINDOWS = 64
+M32 = 0xFFFFFFFF
+
+KERNELS = ("recover_prelude", "pow_mod", "y_fix", "u1u2", "glv_digits",
+           "point_table", "fp_mul", "fp_canon", "strauss_tab",
+           "recover_finish", "keccak_rows")
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _LAUNCHES_LOCK:
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+
+
+def bpad(b: int) -> int:
+    """``b`` rounded up to a multiple of LANE_BLOCK."""
+    return -(-b // LANE_BLOCK) * LANE_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# the reference's numpy uint32 arrays <-> the port's int32 tensors
+# ---------------------------------------------------------------------------
+
+def from_reference(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """numpy uint32 array (any layout: ``[B, 16]`` rows or ``[rows,
+    Bpad]`` limb-major) -> int32 tensor with the same bits and shape."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def to_reference(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor -> numpy uint32 array with the same bits and shape."""
+    return t.detach().to("cpu").contiguous().numpy().view(np.uint32).copy()
+
+
+def _u(t: torch.Tensor) -> torch.Tensor:
+    """int32 (or uint8) -> int64 holding the unsigned value."""
+    return t.to(torch.int64) & M32
+
+
+def _i(t: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with the low 32 bits (wraps)."""
+    return t.to(torch.int32)
+
+
+def _one(rows: int, device) -> torch.Tensor:
+    one = torch.zeros(rows, NLIMBS, dtype=torch.int64, device=device)
+    one[:, 0] = 1
+    return one
+
+
+def pow_digits(e: int) -> bytes:
+    """The 64 four-bit digits of a constant exponent, MSD first."""
+    if e < 0 or e.bit_length() > 4 * POW_WINDOWS:
+        raise ValueError("exponent must fit 256 bits")
+    return bytes((e >> (4 * (POW_WINDOWS - 1 - w))) & 0xF
+                 for w in range(POW_WINDOWS))
+
+
+# ---------------------------------------------------------------------------
+# plain versions (nothing here has a gradient: inference mode trims the
+# per-operation overhead that bounds them on small batches)
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def recover_prelude_plain(sigs, hashes):
+    s = sigs.to(torch.int64)
+    r = field.unpack_be(s, 0)
+    sv = field.unpack_be(s, 32)
+    v = s[:, 64]
+    z = field.unpack_be(hashes.to(torch.int64), 0)
+    x, y_sq, ok = field.recover_prelude(r, sv, v)
+    return tuple(_i(t) for t in (x, y_sq, ok, r, sv, z, v))
+
+
+@torch.inference_mode()
+def pow_mod_plain(a, e: int, modulus: str):
+    mul = field.mul if modulus == "p" else field.fn_mul
+    A = _u(a)
+    one = _one(A.shape[0], A.device)
+    tab = [one, A]
+    cur = A
+    for _ in range(2, 16):
+        cur = mul(cur, A)
+        tab.append(cur)
+    acc = one
+    for d in pow_digits(e):
+        for _ in range(4):
+            acc = mul(acc, acc)
+        acc = mul(acc, tab[d])
+    return _i(acc)
+
+
+@torch.inference_mode()
+def y_fix_plain(root, y_sq, v):
+    y, ok = field.y_fix(_u(root), _u(y_sq), _u(v))
+    return _i(y), _i(ok)
+
+
+@torch.inference_mode()
+def u1u2_plain(z, s, r_inv):
+    u1, u2 = field.u1u2(_u(z), _u(s), _u(r_inv))
+    return _i(u1), _i(u2)
+
+
+@torch.inference_mode()
+def glv_digits_plain(u1, u2):
+    B = u1.shape[0]
+    wide = bpad(B)
+    consts = curve.glv_consts()
+    dig = torch.zeros(curve.GLV_WINDOWS, 8, wide, dtype=torch.int64,
+                      device=u1.device)
+    neg = torch.zeros(8, wide, dtype=torch.int64, device=u1.device)
+    for half, u in enumerate((u1, u2)):
+        U = F.pad(_u(u), (0, 0, 0, wide - B))
+        d1, n1, d2, n2 = field.glv_track(U, consts)
+        dig[:, 2 * half] = d1.T
+        dig[:, 2 * half + 1] = d2.T
+        neg[2 * half] = n1
+        neg[2 * half + 1] = n2
+    return _i(dig), _i(neg)
+
+
+@torch.inference_mode()
+def point_table_plain(px, py):
+    PX, PY = _u(px), _u(py)
+    X, Y, Z = PX, PY, _one(PX.shape[0], PX.device)
+    outs = []
+    for _ in range(14):
+        X, Y, Z = field.jac_add_mixed(X, Y, Z, PX, PY)
+        outs.append((X, Y, Z))
+    return tuple(_i(torch.stack([o[c] for o in outs])) for c in range(3))
+
+
+@torch.inference_mode()
+def fp_mul_plain(a, b):
+    return _i(field.mul(_u(a), _u(b)))
+
+
+@torch.inference_mode()
+def fp_canon_plain(a):
+    return _i(field.cond_sub_p(_u(a)))
+
+
+@functools.lru_cache(maxsize=4)
+def _g_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
+    tgx, tgy = curve._g_table16()
+    tlx, _ = curve._g_lam_table16()
+    return tuple(torch.from_numpy(t.astype(np.int64)).to(device)
+                 for t in (tgx, tgy, tlx))
+
+
+@torch.inference_mode()
+def strauss_tab_plain(dig, neg, trx, tlrx, try_, batch: int):
+    B = batch
+    W = dig.shape[0]
+    D = _u(dig[:, :4, :B])
+    NG = _u(neg[:4, :B])
+    gx, gy, lx = _g_tables(dig.device)
+
+    def entries(rows):  # [256, Bpad] -> [B, 16 entries, 16 limbs]
+        return _u(rows[:, :B]).reshape(16, NLIMBS, B).permute(2, 0, 1)
+
+    tr, tlr, ty = entries(trx), entries(tlrx), entries(try_)
+    ar = torch.arange(B, device=dig.device)
+    X = torch.zeros(B, NLIMBS, dtype=torch.int64, device=dig.device)
+    Y = _one(B, dig.device)
+    Z = torch.zeros_like(X)
+    for w in range(W):
+        for _ in range(4):
+            X, Y, Z = field.jac_double(X, Y, Z)
+        for t in range(4):
+            d = D[w, t]
+            if t == 0:
+                px, py = gx[d], gy[d]
+            elif t == 1:
+                px, py = lx[d], gy[d]
+            else:
+                px = (tr if t == 2 else tlr)[ar, d]
+                py = ty[ar, d]
+            py = field.select(NG[t], field.neg(py), py)
+            AX, AY, AZ = field.jac_add_mixed(X, Y, Z, px, py)
+            nz = d != 0
+            X = field.select(nz, AX, X)
+            Y = field.select(nz, AY, Y)
+            Z = field.select(nz, AZ, Z)
+    return _i(X), _i(Y), _i(Z)
+
+
+@torch.inference_mode()
+def recover_finish_plain(X, Y, Z, zi_raw, ok_in):
+    B = X.shape[0]
+    pad = bpad(B) - B
+    rows = [F.pad(_u(t), (0, 0, 0, pad)) for t in (X, Y, Z, zi_raw)]
+    qx, qy, ok, words = field.recover_finish(*rows, F.pad(_u(ok_in),
+                                                          (0, pad)))
+    return _i(qx[:B]), _i(qy[:B]), _i(ok[:B]), _i(words.T.contiguous())
+
+
+@torch.inference_mode()
+def keccak_rows_plain(words):
+    return _i(field.keccak_words(_u(words).T).T.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the CUDA library
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "eg_init": [_P, _I],
+    "eg_recover_prelude": [_P] * 2 + [_I] + [_P] * 7 + [_P],
+    "eg_pow_mod": [_P, _P, _I, _P, _I, _P],
+    "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
+    "eg_u1u2": [_P, _P, _P, _I, _P, _P, _P],
+    "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _P],
+    "eg_point_table": [_P, _P, _I, _P, _P, _P, _P],
+    "eg_fp_mul": [_P, _P, _I, _P, _P],
+    "eg_fp_canon": [_P, _I, _P, _P],
+    "eg_strauss": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
+    "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_P],
+    "eg_keccak_rows": [_P, _I, _P, _P],
+}
+
+
+def pack_constants() -> np.ndarray:
+    """The ``Consts`` block of ``csrc/field.cuh``, field by field."""
+    tgx, tgy = curve._g_table16()
+    tlx, _ = curve._g_lam_table16()
+    ndelta = list(field.N_DELTA_LIMBS) + [0] * (16 - len(field.N_DELTA_LIMBS))
+    rc = [(c & M32, c >> 32) for c in field.KECCAK_RC]
+    parts = [field.P_LIMBS, field.SUBC_LIMBS, field.N_LIMBS, ndelta,
+             field.FN_SUBC_LIMBS, curve.glv_consts(), tgx, tgy, tlx, rc]
+    return np.concatenate([np.asarray(p, np.uint32).reshape(-1)
+                           for p in parts])
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """Build (at first use), load and initialise the kernel library."""
+    lib = ctypes.CDLL(build.build()["path"])
+    for name, args in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    consts = pack_constants()
+    err = lib.eg_init(consts.ctypes.data, consts.size)
+    if err:
+        raise RuntimeError(f"eg_init failed: {err}")
+    return lib
+
+
+def _launch(name: str, fn_name: str, *args) -> None:
+    fn = getattr(library(), fn_name)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+               for a in args], stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+
+
+def _check(t: torch.Tensor, what: str, shape, dtype=torch.int32) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _on_card(*ts: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on a mix or on
+    another device type."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("all operands must be on one device")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _empty(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, device=like.device)
+
+
+def _rows(t: torch.Tensor) -> int:
+    if t.dim() != 2:
+        raise ValueError(f"expected a [rows, 16] tensor, got {tuple(t.shape)}")
+    return t.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# public kernels (names and layouts of the reference wrappers)
+# ---------------------------------------------------------------------------
+
+def recover_prelude_pallas(sigs, hashes):
+    """``sigs [B, 65]`` u8 wire signatures, ``hashes [B, 32]`` u8 ->
+    ``(x, y_sq, ok, r, s, z, v)``: limbs ``[B, 16]``, flags ``[B]``.
+    Replaces ``recover_prelude_pallas`` (pallas_kernels.py:1519)."""
+    B = _rows(sigs)
+    _check(sigs, "sigs", (B, 65), torch.uint8)
+    _check(hashes, "hashes", (B, 32), torch.uint8)
+    if not _on_card(sigs, hashes):
+        return recover_prelude_plain(sigs, hashes)
+    x, ysq, r, s, z = (_empty((B, NLIMBS), sigs) for _ in range(5))
+    ok, v = _empty((B,), sigs), _empty((B,), sigs)
+    _launch("recover_prelude", "eg_recover_prelude", sigs, hashes, B, x, ysq,
+            ok, r, s, z, v)
+    return x, ysq, ok, r, s, z, v
+
+
+def pow_mod_pallas(a, e: int, modulus: str):
+    """``[M, 16] -> [M, 16]``: per-row ``a^e`` for a constant e, relaxed
+    mod P (``modulus="p"``) or canonical mod N (``"n"``).  Replaces
+    ``pow_mod_pallas`` (pallas_kernels.py:525); the one-hot digit input
+    of the TPU kernel becomes 64 digit bytes passed with the launch."""
+    if modulus not in ("p", "n"):
+        raise ValueError("modulus must be 'p' or 'n'")
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    digits = pow_digits(e)
+    if not _on_card(a):
+        return pow_mod_plain(a, e, modulus)
+    out = _empty((M, NLIMBS), a)
+    buf = ctypes.create_string_buffer(digits, POW_WINDOWS)
+    _launch("pow_mod", "eg_pow_mod", a, out, M, ctypes.addressof(buf),
+            int(modulus == "n"))
+    return out
+
+
+def y_fix_pallas(root, y_sq, v):
+    """``(root, y_sq) [B, 16]``, ``v [B]`` -> ``(y [B, 16], y_ok [B])``.
+    Replaces ``y_fix_pallas`` (pallas_kernels.py:1569)."""
+    B = _rows(root)
+    _check(root, "root", (B, NLIMBS))
+    _check(y_sq, "y_sq", (B, NLIMBS))
+    _check(v, "v", (B,))
+    if not _on_card(root, y_sq, v):
+        return y_fix_plain(root, y_sq, v)
+    y, ok = _empty((B, NLIMBS), root), _empty((B,), root)
+    _launch("y_fix", "eg_y_fix", root, y_sq, v, B, y, ok)
+    return y, ok
+
+
+def u1u2_pallas(z, s, r_inv):
+    """``(z, s, r_inv) [B, 16]`` -> ``(u1, u2) [B, 16]`` canonical mod N.
+    Replaces ``u1u2_pallas`` (pallas_kernels.py:1610)."""
+    B = _rows(z)
+    for t, what in ((z, "z"), (s, "s"), (r_inv, "r_inv")):
+        _check(t, what, (B, NLIMBS))
+    if not _on_card(z, s, r_inv):
+        return u1u2_plain(z, s, r_inv)
+    u1, u2 = _empty((B, NLIMBS), z), _empty((B, NLIMBS), z)
+    _launch("u1u2", "eg_u1u2", z, s, r_inv, B, u1, u2)
+    return u1, u2
+
+
+def glv_digits_pallas(u1, u2):
+    """``u1/u2 [B, 16]`` canonical mod-N scalars -> ``(dig [33, 8, Bpad],
+    neg [8, Bpad])`` for :func:`strauss_tab`.  Replaces
+    ``glv_digits_pallas`` (pallas_kernels.py:1389)."""
+    B = _rows(u1)
+    _check(u1, "u1", (B, NLIMBS))
+    _check(u2, "u2", (B, NLIMBS))
+    if not _on_card(u1, u2):
+        return glv_digits_plain(u1, u2)
+    wide = bpad(B)
+    dig = _empty((curve.GLV_WINDOWS, 8, wide), u1)
+    neg = _empty((8, wide), u1)
+    _launch("glv_digits", "eg_glv_digits", u1, u2, B, wide, dig, neg)
+    return dig, neg
+
+
+def point_table_pallas(px, py):
+    """``[B, 16]`` affine R -> Jacobian ``d*R`` for d in 2..15, each of X,
+    Y, Z ``[14, B, 16]``.  Replaces ``point_table_pallas``
+    (pallas_kernels.py:611); the entry walk on the TPU grid is a loop in
+    the thread."""
+    B = _rows(px)
+    _check(px, "px", (B, NLIMBS))
+    _check(py, "py", (B, NLIMBS))
+    if not _on_card(px, py):
+        return point_table_plain(px, py)
+    X, Y, Z = (_empty((14, B, NLIMBS), px) for _ in range(3))
+    _launch("point_table", "eg_point_table", px, py, B, X, Y, Z)
+    return X, Y, Z
+
+
+def fp_mul_pallas(a, b):
+    """``[M, 16] x [M, 16] -> [M, 16]`` relaxed F_P product.  Replaces
+    ``fp_mul_pallas`` (pallas_kernels.py:279)."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    _check(b, "b", (M, NLIMBS))
+    if not _on_card(a, b):
+        return fp_mul_plain(a, b)
+    out = _empty((M, NLIMBS), a)
+    _launch("fp_mul", "eg_fp_mul", a, b, M, out)
+    return out
+
+
+def fp_canon_pallas(a):
+    """``[M, 16]`` relaxed F_P -> canonical [0, P).  Replaces
+    ``fp_canon_pallas`` (pallas_kernels.py:1282)."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    if not _on_card(a):
+        return fp_canon_plain(a)
+    out = _empty((M, NLIMBS), a)
+    _launch("fp_canon", "eg_fp_canon", a, M, out)
+    return out
+
+
+def strauss_tab(dig, neg, trx, tlrx, try_, batch: int):
+    """GLV/Strauss ladder ``u1*G + u2*R``: ``dig [W, 8, Bpad]`` (rows 0-3
+    the window digits of g1/g2/r1/r2, MSD first), ``neg [8, Bpad]`` (rows
+    0-3 the half-scalar signs), ``trx/tlrx/try_ [256, Bpad]`` (R and
+    lambda*R x, shared y; row ``16*d + k`` = limb k of entry d).
+    Returns Jacobian ``(X, Y, Z)`` each ``[batch, 16]``.  Replaces
+    ``strauss_tab`` (pallas_kernels.py:384)."""
+    W, _, wide = dig.shape
+    if batch <= 0 or batch > wide:
+        raise ValueError("batch must be in 1..Bpad")
+    _check(dig, "dig", (W, 8, wide))
+    _check(neg, "neg", (8, wide))
+    for t, what in ((trx, "trx"), (tlrx, "tlrx"), (try_, "try_")):
+        _check(t, what, (16 * NLIMBS, wide))
+    if not _on_card(dig, neg, trx, tlrx, try_):
+        return strauss_tab_plain(dig, neg, trx, tlrx, try_, batch)
+    X, Y, Z = (_empty((batch, NLIMBS), dig) for _ in range(3))
+    _launch("strauss_tab", "eg_strauss", dig, neg, trx, tlrx, try_, batch,
+            wide, W, X, Y, Z)
+    return X, Y, Z
+
+
+def recover_finish_pallas(X, Y, Z, zi_raw, ok_in):
+    """``(X, Y, Z, zi_raw) [B, 16]``, ``ok_in [B]`` -> ``(qx, qy [B, 16]
+    canonical and masked, ok [B], words [34, Bpad])``.  Replaces
+    ``recover_finish_pallas`` (pallas_kernels.py:1685)."""
+    B = _rows(X)
+    for t, what in ((X, "X"), (Y, "Y"), (Z, "Z"), (zi_raw, "zi_raw")):
+        _check(t, what, (B, NLIMBS))
+    _check(ok_in, "ok_in", (B,))
+    if not _on_card(X, Y, Z, zi_raw, ok_in):
+        return recover_finish_plain(X, Y, Z, zi_raw, ok_in)
+    wide = bpad(B)
+    qx, qy = _empty((B, NLIMBS), X), _empty((B, NLIMBS), X)
+    ok, words = _empty((B,), X), _empty((34, wide), X)
+    _launch("recover_finish", "eg_recover_finish", X, Y, Z, zi_raw, ok_in, B,
+            wide, qx, qy, ok, words)
+    return qx, qy, ok, words
+
+
+def keccak_rows_pallas(words):
+    """``[34, wide]`` padded block words -> ``[8, wide]`` digest words,
+    one Keccak-f[1600] per column.  Replaces ``keccak_rows_pallas``
+    (pallas_kernels.py:1781) and its grid variant; the kernel uses native
+    64-bit lanes."""
+    if words.dim() != 2:
+        raise ValueError("words must be [34, wide]")
+    wide = words.shape[1]
+    _check(words, "words", (34, wide))
+    if not _on_card(words):
+        return keccak_rows_plain(words)
+    out = _empty((8, wide), words)
+    _launch("keccak_rows", "eg_keccak_rows", words, wide, out)
+    return out
+
+
+# the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py)
+REPLACES = {
+    "recover_prelude": "eges_tpu/ops/pallas_kernels.py:1519",
+    "pow_mod": "eges_tpu/ops/pallas_kernels.py:525",
+    "y_fix": "eges_tpu/ops/pallas_kernels.py:1569",
+    "u1u2": "eges_tpu/ops/pallas_kernels.py:1610",
+    "glv_digits": "eges_tpu/ops/pallas_kernels.py:1389",
+    "point_table": "eges_tpu/ops/pallas_kernels.py:611",
+    "fp_mul": "eges_tpu/ops/pallas_kernels.py:279",
+    "fp_canon": "eges_tpu/ops/pallas_kernels.py:1282",
+    "strauss_tab": "eges_tpu/ops/pallas_kernels.py:384",
+    "recover_finish": "eges_tpu/ops/pallas_kernels.py:1685",
+    "keccak_rows": "eges_tpu/ops/pallas_kernels.py:1781",
+}

@@ -1,0 +1,127 @@
+"""The CUDA kernels of eges_tpu_torch against their plain PyTorch versions
+on the card, bit for bit (the arithmetic is integer: tolerance 0), and
+the recovery path end to end against the host model.
+
+Marked ``gpu``; run on a machine with a card as
+``python -m pytest tests/test_torch_cuda.py -m gpu``.  Without a card
+each test skips with its reason.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eges_tpu_torch import testing as tt
+from eges_tpu_torch.ops import build, kernels as K
+from eges_tpu_torch.ops.bigint import N, P
+
+pytestmark = pytest.mark.gpu
+
+B = 300  # not a multiple of 256: exercises the ragged edge and Bpad
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def _limbs(rng, n, bound=1 << 256):
+    return tt.limb_rows(tt.field_values(rng, n, bound))
+
+
+def test_build_reports_every_kernel(dev):
+    info = build.build()
+    assert set(info["ptxas"]) >= {
+        "k_recover_prelude", "k_pow_p", "k_pow_n", "k_y_fix", "k_u1u2",
+        "k_glv_digits", "k_point_table", "k_fp_mul", "k_fp_canon",
+        "k_strauss", "k_recover_finish", "k_keccak_rows"}
+
+
+def test_fp_mul_and_canon(dev):
+    rng = np.random.default_rng(11)
+    a = K.from_reference(_limbs(rng, B), dev)
+    b = K.from_reference(_limbs(rng, B)[::-1].copy(), dev)
+    _same(K.fp_mul_pallas(a, b), K.fp_mul_plain(a, b))
+    _same(K.fp_canon_pallas(a), K.fp_canon_plain(a))
+
+
+@pytest.mark.parametrize("e,mod", [((P + 1) // 4, "p"), (P - 2, "p"),
+                                   (N - 2, "n")])
+def test_pow_mod(dev, e, mod):
+    rng = np.random.default_rng(12)
+    bound = N if mod == "n" else 1 << 256
+    a = K.from_reference(_limbs(rng, 64, bound), dev)
+    _same(K.pow_mod_pallas(a, e, mod), K.pow_mod_plain(a, e, mod))
+
+
+def test_prelude_y_fix_u1u2(dev):
+    rng = np.random.default_rng(13)
+    sigs = torch.from_numpy(rng.integers(0, 256, (B, 65), dtype=np.uint8))
+    sigs[:, 64] = torch.from_numpy(rng.integers(0, 6, B).astype(np.uint8))
+    hashes = torch.from_numpy(rng.integers(0, 256, (B, 32), dtype=np.uint8))
+    sigs, hashes = sigs.to(dev), hashes.to(dev)
+    _same(K.recover_prelude_pallas(sigs, hashes),
+          K.recover_prelude_plain(sigs, hashes))
+    a = K.from_reference(_limbs(rng, B), dev)
+    b = K.from_reference(_limbs(rng, B), dev)
+    v = K.from_reference(rng.integers(0, 4, B).astype(np.uint32), dev)
+    _same(K.y_fix_pallas(a, b, v), K.y_fix_plain(a, b, v))
+    n1 = K.from_reference(_limbs(rng, B, N), dev)
+    n2 = K.from_reference(_limbs(rng, B, N), dev)
+    _same(K.u1u2_pallas(a, n1, n2), K.u1u2_plain(a, n1, n2))
+    _same(K.glv_digits_pallas(n1, n2), K.glv_digits_plain(n1, n2))
+
+
+def test_point_table_strauss_finish_keccak(dev):
+    rng = np.random.default_rng(14)
+    px, py = (K.from_reference(t, dev) for t in tt.curve_points(rng, 40))
+    _same(K.point_table_pallas(px, py), K.point_table_plain(px, py))
+    wide = K.bpad(40)
+    dig = K.from_reference(rng.integers(0, 16, (33, 8, wide)).astype(
+        np.uint32), dev)
+    neg = K.from_reference(rng.integers(0, 2, (8, wide)).astype(np.uint32),
+                           dev)
+    tabs = [K.from_reference(rng.integers(0, 1 << 16, (256, wide)).astype(
+        np.uint32), dev) for _ in range(3)]
+    _same(K.strauss_tab(dig, neg, *tabs, 40),
+          K.strauss_tab_plain(dig, neg, *tabs, 40))
+    X, Y, Z, zi = (K.from_reference(_limbs(rng, B), dev) for _ in range(4))
+    ok = K.from_reference(rng.integers(0, 2, B).astype(np.uint32), dev)
+    _same(K.recover_finish_pallas(X, Y, Z, zi, ok),
+          K.recover_finish_plain(X, Y, Z, zi, ok))
+    words = K.from_reference(rng.integers(0, 1 << 32, (34, 512),
+                                          dtype=np.uint64).astype(np.uint32),
+                             dev)
+    _same(K.keccak_rows_pallas(words), K.keccak_rows_plain(words))
+
+
+def test_recover_addresses_on_card(dev):
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    rng = np.random.default_rng(15)
+    sigs, hashes, addrs = tt.signed_rows(rng, 8)
+    hs, hh = tt.high_x_rows(rng, 2)
+    bad_s, bad_h = tt.invalid_rows(rng, sigs[0], hashes[0])
+    sigs = np.concatenate([sigs, hs, bad_s])
+    hashes = np.concatenate([hashes, hh, bad_h])
+    K.reset_launches()
+    got, ok = BatchVerifier().recover_addresses(sigs, hashes)
+    assert sum(K.LAUNCHES.values()) == 18
+    for i in range(len(sigs)):
+        want = tt.host_recover(sigs[i], hashes[i])
+        if want is None:
+            assert not ok[i]
+        else:
+            assert ok[i] and bytes(got[i]) == want[0]
+    assert all(bytes(got[i]) == addrs[i] for i in range(8))

@@ -1,0 +1,74 @@
+"""eges_tpu_torch stands alone: importing any of its modules pulls in
+neither ``jax`` nor any module of the JAX package ``eges_tpu``, no source
+of the port or of chip_smoke.py imports them, and the entry points
+default to the card and raise where there is none."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "eges_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_importing_the_port_loads_no_jax_and_no_eges_tpu():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    mods = json.loads(out.splitlines()[-1])
+    assert "eges_tpu_torch.crypto.verifier" in mods
+    assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
+    assert not [m for m in mods
+                if m == "eges_tpu" or m.startswith("eges_tpu.")]
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*PKG.rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_source_imports_no_jax_and_no_eges_tpu(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "eges_tpu"), (path, name)
+
+
+def test_entry_points_default_to_the_card():
+    from eges_tpu_torch import resolve_device
+    from eges_tpu_torch.crypto.verifier import BatchVerifier, default_verifier
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert BatchVerifier().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchVerifier()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_verifier()

@@ -1,0 +1,90 @@
+"""The op count behind chip_smoke.py's bounds, held against the CUDA
+source it counts: every device function of ``field.cuh`` makes exactly
+the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it."""
+
+from __future__ import annotations
+
+import collections
+import pathlib
+import re
+
+import pytest
+
+from eges_tpu_torch.ops import opcount
+
+FIELD_CUH = (pathlib.Path(__file__).resolve().parents[1] / "eges_tpu_torch"
+             / "ops" / "csrc" / "field.cuh")
+# functions of field.cuh that move values and count no operations
+# (rotl64 is counted inside keccak_words' own operations)
+UNCOUNTED = {"copy16", "zero16", "one16", "rotl64"}
+
+_DEF = re.compile(r"^(template\s*<[^>]*>\s*)?(?:EG_FD|EG_CALL)\s+[\w\s*]*?"
+                  r"\b(\w+)\s*\(", re.M)
+_CALL = re.compile(r"\b([A-Za-z_]\w*)\s*(<[^<>;(){}]*>)?\s*\(")
+
+
+def _source() -> str:
+    return re.sub(r"//[^\n]*", "", FIELD_CUH.read_text())
+
+
+def _definitions(src: str) -> dict[str, tuple[bool, str]]:
+    """name -> (is a template, body between its outer braces)."""
+    out = {}
+    for m in _DEF.finditer(src):
+        start = src.index("{", m.end())
+        depth, i = 0, start
+        while True:
+            depth += {"{": 1, "}": -1}.get(src[i], 0)
+            i += 1
+            if depth == 0:
+                break
+        out[m.group(2)] = (m.group(1) is not None, src[start:i])
+    return out
+
+
+def _counted_calls(body: str) -> collections.Counter:
+    counted = set(opcount.HELPERS) | set(opcount.TEMPLATES)
+    calls = collections.Counter()
+    for m in _CALL.finditer(body):
+        if m.group(1) in counted:
+            targs = re.sub(r"\s+", "", m.group(2) or "")
+            calls[m.group(1) + targs] += 1
+    return calls
+
+
+def test_every_field_function_is_counted_or_moves_only():
+    defs = _definitions(_source())
+    plain = {n for n, (tmpl, _) in defs.items() if not tmpl}
+    templates = {n for n, (tmpl, _) in defs.items() if tmpl}
+    assert plain == set(opcount.HELPERS) | UNCOUNTED
+    assert templates == set(opcount.TEMPLATES)
+
+
+@pytest.mark.parametrize("name", sorted(opcount.HELPERS))
+def test_helper_calls_match_the_source(name):
+    _, body = _definitions(_source())[name]
+    assert dict(_counted_calls(body)) == opcount.HELPERS[name][1]
+
+
+@pytest.mark.parametrize("caller,callee", sorted(opcount.DATA_DEPENDENT))
+def test_data_dependent_calls_run_under_a_branch(caller, callee):
+    _, body = _definitions(_source())[caller]
+    assert re.search(r"\bif\s*\(\s*\w+\s*\)\s*" + callee + r"\s*\(", body)
+
+
+def test_the_mixed_add_count_leaves_the_doubling_out():
+    sqr_mul = opcount.ops("fp_mul")
+    assert opcount.ops("fp_sqr") == sqr_mul
+    assert opcount.ops("jac_double") == (
+        7 * sqr_mul + opcount.ops("fp_add") + 5 * opcount.ops("fp_sub")
+        + 5 * opcount.ops("fp_mul_small"))
+    assert opcount.ops("jac_add_mixed") == (
+        11 * sqr_mul + 6 * opcount.ops("fp_sub")
+        + 5 * opcount.ops("fp_mul_small") + 3 * opcount.ops("is_zero_mod")
+        + 5 * opcount.ops("select16") + 3)
+    rows = opcount.per_row()
+    assert rows["point_table"] == (14 * opcount.ops("jac_add_mixed")
+                                   + opcount.ops("jac_double"))
+    more = opcount.per_row(ladder_doublings=2.0)
+    assert more["strauss_tab"] - rows["strauss_tab"] == (
+        2 * opcount.ops("jac_double"))

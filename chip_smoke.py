@@ -1,15 +1,20 @@
-"""Drive eges_tpu_torch's batched sender recovery on one CUDA card.
+"""Drive eges_tpu_torch's three paths on one CUDA card: batched sender
+recovery, classic ECDSA verify and Keccak-256.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 
-1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a;
-   seconds, and registers and spills per kernel.
-2. kernel: each of the eleven kernels at the main path's shapes
-   (B = 8192 rows; 16*B = 131072 for fp_mul, fp_canon and the table
-   pow) on seeded random and extreme inputs, held bit for bit against
-   its plain PyTorch version on the same CUDA tensors (tolerance 0: the
-   arithmetic is integer), and timed against it with CUDA events.
+1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a (one
+   nvcc for each source, all started together); seconds, and registers
+   and spills per kernel.
+2. kernel: each of the fifteen kernels at its path's shapes on seeded
+   random and extreme inputs, held bit for bit against its plain
+   PyTorch version on the same CUDA tensors (tolerance 0: the arithmetic
+   is integer), and timed against it with CUDA events.  Recovery's
+   eleven at B = 8192 rows (16*B = 131072 for fp_mul, fp_canon and the
+   table pow); fn_mul, fn_red17 and fp_add at B = 1024 (the verify
+   batch cap); keccak_block at B = 4000 (a config-4 block's
+   transaction hashes).
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
@@ -19,11 +24,27 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
    memory.
+5. verify slice: a BASELINE config-3 vote round (256 committee
+   signatures against the validators' 64-byte keys) and a config-4 one
+   (1024 rows, the consensus verify batch cap), every row class of
+   ``testing.VERIFY_CLASSES`` among mostly valid rows, through
+   ``BatchVerifier().verify``; every row held against the host model's
+   ``ecdsa_verify``, with the launch counts of one batch (26).
+6. keccak slice: 4000 one-block messages of 110 bytes, 8192 public keys
+   through ``pubkey_to_address`` and 1024 two-block messages of 200
+   bytes through ``keccak256_fixed``, every digest held against the
+   host ``keccak256``.
+7. verify e2e: p50/p99 of ``verify`` at 1024 and 256 rows (1000 calls
+   each) and verifies/s over the 1024-row window; then, at 1024 rows
+   on device tensors, the host's time to enqueue one ``verify_batch``
+   and one ``ecrecover_batch`` against the time until the card is done
+   (p50 of 100 each).
 
-Then the ``kernels`` line, the card's name and power limit as nvidia-smi
-gives them, and last ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits nonzero; without a CUDA card the script exits 2 and
-prints no result.
+Then the ``kernels`` line (launches summed over the three paths' runs,
+and per path), the card's name and power limit as nvidia-smi gives
+them, and last ``{"ok": true, "device": {...}}``.  Any failure raises
+and exits nonzero; without a CUDA card the script exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -43,6 +64,18 @@ ROWS_BASELINE4 = 4000 + 1024        # txn senders + vote signatures
 DISTINCT = 256                      # distinct signed rows, tiled
 RUNS_8192 = 20                      # timed batches at 8192 rows
 RUNS_1024 = 1000                    # p99 with ten samples beyond it
+B_VERIFY = 1024                     # consensus verify_batch_rows cap
+B_KECCAK = 4000                     # transaction hashes of a config-4 block
+COMMITTEE = 256                     # BASELINE config 3 committee
+RUNS_VERIFY = 1000
+RUNS_SPLIT = 100                    # enqueue vs done, per path
+# launches of one classic-verify batch: on_curve (3 fp_mul, fp_add, 2
+# fp_canon), s^-1 (pow), z and px mod N (2 fn_red17), u1 and u2 (2
+# fn_mul), strauss_gR (glv_digits, point_table, pow, fp_canon, 5 fp_mul,
+# strauss_tab) and the x half of to_affine (pow, 2 fp_mul, 2 fp_canon)
+VERIFY_LAUNCHES = {"pow_mod": 3, "fp_mul": 10, "fp_canon": 5, "fp_add": 1,
+                   "fn_red17": 2, "fn_mul": 2, "glv_digits": 1,
+                   "point_table": 1, "strauss_tab": 1}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 # Integer peak, derived from the Hopper SM layout (no published figure):
 # 132 SMs, each issuing at most 4 warp-instructions (128 lanes) a clock.
@@ -244,6 +277,7 @@ def phase_kernels(rng, dev, clock_hz):
                           nbytes(words) + 8 * 4 * wide,
                           wide * OPS["keccak_rows"])]),
     ]
+    cases += _verify_kernel_cases(dev, OPS)
     records = {}
     for name, launches in cases:
         rec = {"name": name, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
@@ -271,6 +305,49 @@ def phase_kernels(rng, dev, clock_hz):
                                         else v) for k, v in rec.items()},
               "equal": True})
     return records
+
+
+def _verify_kernel_cases(dev, OPS):
+    """The four kernels of the verify and keccak paths, each at its
+    path's shape, with the launches of one batch: fn_mul, fn_red17 and
+    fp_add at 1024 rows, keccak_block at 4000.  Inputs come from their
+    own generator, so recovery's inputs stay as they were."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED + 1)
+    B = B_VERIFY
+
+    def limbs(n):
+        return K.from_reference(tt.limb_rows(tt.field_values(rng, n)), dev)
+
+    a, b = limbs(B), limbs(B)
+    b = b.flip(0).contiguous()           # the extremes meet each other
+    # 17 small columns: random limbs with a nonzero top column, and the
+    # extremes: all 0xFFFF, a zero top, one nonzero column only at the top
+    cols = rng.integers(0, 1 << 16, (B, 17)).astype(np.uint32)
+    cols[0], cols[1, :16], cols[2, 16], cols[3, :16] = 0xFFFF, 0xFFFF, 0, 0
+    cols[3, 16] = 1
+    c17 = K.from_reference(cols, dev)
+    kw = rng.integers(0, 1 << 32, (B_KECCAK, 34), dtype=np.uint64).astype(
+        np.uint32)
+    kw[0], kw[1] = 0, 0xFFFFFFFF
+    kwords = K.from_reference(kw, dev)
+    mul = (lambda: K.fn_mul_pallas(a, b), lambda: K.fn_mul_plain(a, b),
+           nbytes(a, b) + 64 * B, B * OPS["fn_mul"])
+    red = (lambda: K.fn_red17_pallas(c17), lambda: K.fn_red17_plain(c17),
+           nbytes(c17) + 64 * B, B * OPS["fn_red17"])
+    return [
+        ("fn_mul", [mul] * VERIFY_LAUNCHES["fn_mul"]),
+        ("fn_red17", [red] * VERIFY_LAUNCHES["fn_red17"]),
+        ("fp_add", [(lambda: K.fp_add_pallas(a, b),
+                     lambda: K.fp_add_plain(a, b),
+                     nbytes(a, b) + 64 * B, B * OPS["fp_add"])]),
+        ("keccak_block", [(lambda: K.keccak_block_pallas(kwords),
+                           lambda: K.keccak_block_plain(kwords),
+                           nbytes(kwords) + 32 * B_KECCAK,
+                           B_KECCAK * OPS["keccak_block"])]),
+    ]
 
 
 def _baseline4_rows(rng):
@@ -305,9 +382,11 @@ def phase_slice(rng):
     K.reset_launches()
     addrs, ok = verifier.recover_addresses(sigs, hashes)
     launches = dict(K.LAUNCHES)
-    want = {"recover_prelude": 1, "pow_mod": 4, "y_fix": 1, "u1u2": 1,
-            "glv_digits": 1, "point_table": 1, "fp_mul": 5, "fp_canon": 1,
-            "strauss_tab": 1, "recover_finish": 1, "keccak_rows": 1}
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update({"recover_prelude": 1, "pow_mod": 4, "y_fix": 1, "u1u2": 1,
+                 "glv_digits": 1, "point_table": 1, "fp_mul": 5,
+                 "fp_canon": 1, "strauss_tab": 1, "recover_finish": 1,
+                 "keccak_rows": 1})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, want {want}")
     n_valid = n_invalid = 0
@@ -370,6 +449,157 @@ def phase_e2e(rows):
     return out
 
 
+def _committee_rows():
+    """A BASELINE config-3 vote round: 256 rows, every class of
+    ``testing.VERIFY_CLASSES`` once among valid committee votes,
+    shuffled, with the host model's answer for each row."""
+    from eges_tpu_torch import testing as tt
+
+    rng = np.random.default_rng(SEED + 2)
+    n_other = len(tt.VERIFY_CLASSES) - 1
+    sigs, hashes, pubs, kinds = tt.verify_rows(rng, COMMITTEE - n_other)
+    answers = [tt.host_verify(*row) for row in zip(sigs, hashes, pubs)]
+    for kind, ans in zip(kinds, answers):
+        if ans != (kind in tt.VERIFY_VALID):
+            raise AssertionError(f"host model: class {kind} gave {ans}")
+    idx = rng.permutation(len(sigs))
+    return (sigs[idx], hashes[idx], pubs[idx], [kinds[i] for i in idx],
+            [answers[i] for i in idx])
+
+
+def _tiled(rows, n, seed):
+    """``n`` rows drawn from the distinct rows (each about n/256 times),
+    shuffled."""
+    idx = np.random.default_rng(seed).permutation(
+        np.resize(np.arange(len(rows[0])), n))
+    return tuple(r[idx] if isinstance(r, np.ndarray) else [r[i] for i in idx]
+                 for r in rows)
+
+
+def phase_verify():
+    """Config-3 and config-4 rounds through ``BatchVerifier().verify``;
+    returns (launches of the config-4 batch, the two row sets)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.ops import kernels as K
+
+    r3 = _committee_rows()
+    r4 = _tiled(r3, B_VERIFY, SEED + 3)
+    verifier = BatchVerifier()
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(VERIFY_LAUNCHES)
+    out = {"phase": "verify_slice"}
+    launches = None
+    for cfg, (sigs, hashes, pubs, kinds, answers) in (("config3", r3),
+                                                       ("config4", r4)):
+        K.reset_launches()
+        ok = verifier.verify(sigs, hashes, pubs)
+        launches = dict(K.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{cfg}: launch counts {launches}, want "
+                                 f"{want}")
+        by_class = {}
+        for i, (kind, ans) in enumerate(zip(kinds, answers)):
+            if bool(ok[i]) != ans:
+                raise AssertionError(f"{cfg} row {i} ({kind}): card says "
+                                     f"{bool(ok[i])}, host model {ans}")
+            by_class[kind] = by_class.get(kind, 0) + 1
+        ok64 = verifier.verify(np.ascontiguousarray(sigs[:, :64]), hashes,
+                               pubs)
+        if not np.array_equal(ok64, ok):
+            raise AssertionError(f"{cfg}: 64-byte signatures differ")
+        out[cfg] = {"rows": len(sigs), "bucket": verifier._pad(len(sigs)),
+                    "accepted": int(ok.sum()), "rows_by_class": by_class,
+                    "rows_matching_host": len(sigs),
+                    "sig64_matching": True}
+    assert set(out["config3"]["rows_by_class"]) == set(tt.VERIFY_CLASSES)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["launches_total"] = sum(launches.values())
+    emit(out)
+    return launches, r3, r4
+
+
+def phase_keccak(dev):
+    """The keccak path: one-block transaction hashes, address
+    derivation and two-block messages, against the host keccak256."""
+    from eges_tpu_torch.crypto.keccak import keccak256
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.keccak import keccak256_fixed, pubkey_to_address
+
+    rng = np.random.default_rng(SEED + 4)
+    txs = rng.integers(0, 256, (B_KECCAK, 110), dtype=np.uint8)
+    keys = rng.integers(0, 256, (B_MAIN, 64), dtype=np.uint8)
+    two = rng.integers(0, 256, (B_VERIFY, 200), dtype=np.uint8)
+    K.reset_launches()
+    d_tx = keccak256_fixed(torch.from_numpy(txs).to(dev))
+    k = torch.from_numpy(keys).to(dev)
+    d_addr = pubkey_to_address(k[:, :32], k[:, 32:])
+    d_two = keccak256_fixed(torch.from_numpy(two).to(dev))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = dict.fromkeys(K.KERNELS, 0)
+    want["keccak_block"] = 2
+    if launches != want:
+        raise AssertionError(f"keccak launch counts {launches}, want {want}")
+    out = {"phase": "keccak_slice"}
+    for what, msgs, got, cut in (("tx110", txs, d_tx, 0),
+                                 ("address", keys, d_addr, 12),
+                                 ("two_block200", two, d_two, 0)):
+        got = got.cpu().numpy()
+        for i in range(len(msgs)):
+            if bytes(got[i]) != keccak256(bytes(msgs[i]))[cut:]:
+                raise AssertionError(f"keccak {what} row {i} differs from "
+                                     "the host model")
+        out[what] = {"rows": len(msgs), "matching_host": len(msgs)}
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    emit(out)
+    return launches
+
+
+def phase_verify_e2e(r3, r4, dev):
+    from eges_tpu_torch.crypto.verifier import (BatchVerifier,
+                                                ecrecover_batch, verify_batch)
+
+    verifier = BatchVerifier()
+    out = {"phase": "verify_e2e", "runs": RUNS_VERIFY}
+    for rows, (sigs, hashes, pubs, _, answers) in ((B_VERIFY, r4),
+                                                   (COMMITTEE, r3)):
+        want = np.array(answers)
+        verifier.verify(sigs, hashes, pubs)                # warm-up
+        lat = []
+        for _ in range(RUNS_VERIFY):
+            t0 = time.perf_counter()
+            ok = verifier.verify(sigs, hashes, pubs)
+            lat.append(time.perf_counter() - t0)
+        if not np.array_equal(ok, want):
+            raise AssertionError(f"verify e2e at {rows} rows: wrong result")
+        out[f"p50_ms_{rows}"] = float(np.percentile(lat, 50)) * 1e3
+        out[f"p99_ms_{rows}"] = float(np.percentile(lat, 99)) * 1e3
+        if rows == B_VERIFY:
+            # every row of the timed window over its whole time
+            out["verifies_per_s_1024"] = RUNS_VERIFY * rows / sum(lat)
+    # where a 1024-row batch waits: the host's time to enqueue it (the
+    # call returns before the card finishes) against the time until the
+    # card is done, for verify and, beside it, recovery on the same rows
+    sigs, hashes, pubs = (torch.from_numpy(a).to(dev) for a in r4[:3])
+    for key, fn, args in (("verify", verify_batch, (sigs, hashes, pubs)),
+                          ("recover", ecrecover_batch, (sigs, hashes))):
+        enq, done = [], []
+        for _ in range(RUNS_SPLIT):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enq.append(t1 - t0)
+            done.append(time.perf_counter() - t0)
+        out[f"{key}_enqueue_ms_p50_1024"] = float(np.median(enq)) * 1e3
+        out[f"{key}_done_ms_p50_1024"] = float(np.median(done)) * 1e3
+    out["runs_split"] = RUNS_SPLIT
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -386,18 +616,28 @@ def main() -> int:
     phase_build()
     rng = np.random.default_rng(SEED)
     records = phase_kernels(rng, dev, clock_hz)
-    launches, rows = phase_slice(rng)
+    paths = {}
+    paths["recover"], rows = phase_slice(rng)
     phase_e2e(rows)
-    src = os.path.relpath(build.CSRC / "recover.cu",
-                          os.path.dirname(os.path.abspath(__file__)))
-    emit({"kernels": [{
-        "name": name, "route": "cuda", "source": src,
-        "replaces": K.REPLACES[name], "launches": launches[name],
-        "max_abs_err": records[name]["max_abs_err"],
-        "ms": records[name]["ms"], "plain_ms": records[name]["plain_ms"],
-        "bound_ms": records[name]["bound_ms"],
-        "bound_by": records[name]["bound_by"], "library_ms": None}
-        for name in K.KERNELS]})
+    paths["verify"], r3, r4 = phase_verify()
+    paths["keccak"] = phase_keccak(dev)
+    phase_verify_e2e(r3, r4, dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    kernels = []
+    for name in K.KERNELS:
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        if not by_path:
+            raise AssertionError(f"{name}: no path launched it")
+        rec = records[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(build.CSRC / K.SOURCE_OF[name], root),
+            "replaces": K.REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""eges-tpu on PyTorch and CUDA: the batched sender-recovery path on an
-NVIDIA H100.
+"""eges-tpu on PyTorch and CUDA: batched sender recovery, classic ECDSA
+verify and Keccak-256 on an NVIDIA H100 (the three model families of
+``models``).
 
 The JAX package ``eges_tpu`` stays the reference.  This package holds its
 own copy of what each ported slice needs and never imports ``jax`` or any

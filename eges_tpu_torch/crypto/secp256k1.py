@@ -155,3 +155,31 @@ def ecdsa_recover(msg_hash: bytes, sig: bytes) -> bytes:
     if q is None:
         raise ValueError("recovered point at infinity")
     return q[0].to_bytes(32, "big") + q[1].to_bytes(32, "big")
+
+
+def ecdsa_verify(msg_hash: bytes, sig: bytes, pub: bytes) -> bool:
+    """Classic ECDSA verify of ``r||s`` (the first 64 bytes of ``sig``)
+    against a 64-byte public key ``x || y``.  Rejects r or s out of
+    range, malleable high-s signatures (s > N // 2, as libsecp256k1's
+    verify does), keys off the curve and a result at infinity."""
+    if len(msg_hash) != 32:
+        return False
+    try:
+        r = int.from_bytes(sig[0:32], "big")
+        s = int.from_bytes(sig[32:64], "big")
+        if not (1 <= r < N and 1 <= s <= N // 2):
+            return False
+        qx = int.from_bytes(pub[-64:-32], "big")
+        qy = int.from_bytes(pub[-32:], "big")
+        if (qy * qy - qx * qx * qx - 7) % P != 0:
+            return False
+        z = int.from_bytes(msg_hash, "big")
+        s_inv = _inv(s, N)
+        u1 = z * s_inv % N
+        u2 = r * s_inv % N
+        pt = point_add(point_mul(u1, G), point_mul(u2, (qx, qy)))
+        if pt is None:
+            return False
+        return pt[0] % N == r
+    except (ValueError, AssertionError):
+        return False

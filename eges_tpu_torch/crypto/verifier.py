@@ -1,11 +1,14 @@
-"""Batched sender recovery on the card: ``ecrecover_batch`` and the
-``BatchVerifier`` facade that the transaction pool, the block validator
-and the consensus vote checks call.
+"""Batched sender recovery and classic verify on the card:
+``ecrecover_batch``, ``verify_batch`` and the ``BatchVerifier`` facade
+that the transaction pool, the block validator and the consensus vote
+checks call.
 
 The port of the fused path of ``eges_tpu/crypto/verifier.py``: 18 kernel
 launches turn ``[N, 65]`` wire signatures and ``[N, 32]`` hashes into
-20-byte addresses, 64-byte public keys and a validity mask, and nothing
-leaves the device until the facade copies the results back.
+20-byte addresses, 64-byte public keys and a validity mask; 26 turn
+signatures, hashes and known ``[N, 64]`` public keys into a validity
+mask.  Nothing leaves the device until the facade copies the results
+back.
 """
 
 from __future__ import annotations
@@ -15,11 +18,26 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from eges_tpu_torch import resolve_device
 from eges_tpu_torch.crypto.bucketing import bucket_round
-from eges_tpu_torch.ops import ec
+from eges_tpu_torch.ops import ec, field
 from eges_tpu_torch.ops import kernels as K
+
+
+def _limbs(rows: torch.Tensor, *offsets: int) -> list[torch.Tensor]:
+    """The big-endian 32-byte values at ``offsets`` of ``[B, n]`` uint8
+    rows -> ``[B, 16]`` int32 limb tensors."""
+    wide = rows.to(torch.int32)
+    return [field.unpack_be(wide, off) for off in offsets]
+
+
+def _unpack(sigs: torch.Tensor, hashes: torch.Tensor):
+    """``sigs [B, 65]`` u8 (r || s || v), ``hashes [B, 32]`` u8 -> ``(z,
+    r, s)`` limbs ``[B, 16]`` and ``v [B]``, all int32."""
+    z, r, s = _limbs(torch.cat([hashes, sigs[:, :64]], 1), 0, 32, 64)
+    return z, r, s, sigs[:, 64].to(torch.int32)
 
 
 def words_to_bytes(rows: torch.Tensor, B: int) -> torch.Tensor:
@@ -53,8 +71,25 @@ def ecrecover_batch(sigs: torch.Tensor, hashes: torch.Tensor):
     return addrs * ok[:, None].to(torch.uint8), pubs, ok
 
 
+@torch.inference_mode()
+def verify_batch(sigs: torch.Tensor, hashes: torch.Tensor,
+                 pubs: torch.Tensor) -> torch.Tensor:
+    """Batched classic ECDSA verify against known public keys.
+
+    ``sigs [N, 64]`` or ``[N, 65]`` uint8 (r || s, the recovery byte
+    ignored), ``hashes [N, 32]`` uint8, ``pubs [N, 64]`` uint8 (x || y,
+    big-endian), on one device.  Returns ``ok [N]`` int32.
+    """
+    if sigs.dim() != 2 or sigs.shape[1] not in (64, 65):
+        raise ValueError("sigs must be [N, 64] or [N, 65]")
+    if sigs.shape[1] == 64:
+        sigs = F.pad(sigs, (0, 1))
+    z, r, s, _ = _unpack(sigs, hashes)
+    return ec.ecdsa_verify_point(z, r, s, *_limbs(pubs, 0, 32))
+
+
 class BatchVerifier:
-    """Host facade over :func:`ecrecover_batch`.
+    """Host facade over :func:`ecrecover_batch` and :func:`verify_batch`.
 
     Pads each request up to a power-of-two bucket, stages it through a
     pool of host buffers (pinned when the device is a card), runs the
@@ -90,17 +125,23 @@ class BatchVerifier:
     def _pad(self, n: int) -> int:
         return bucket_round(max(n, 1), self._min_bucket)
 
-    def _stage_acquire(self, b: int) -> dict[str, torch.Tensor]:
-        """A host staging buffer set from the per-bucket pool."""
+    def _stage_acquire(self, b: int,
+                       with_pubs: bool = False) -> dict[str, torch.Tensor]:
+        """A host staging buffer set from the per-bucket pool; with
+        ``with_pubs`` it also holds a ``[b, 64]`` public-key buffer."""
         with self._staging_lock:
             pool = self._stage_bufs.setdefault(b, [])
             st = pool.pop() if pool else None
         if st is None:
-            st = {"sigs": torch.zeros((b, 65), dtype=torch.uint8,
-                                      pin_memory=self._pinned),
-                  "hashes": torch.zeros((b, 32), dtype=torch.uint8,
-                                        pin_memory=self._pinned)}
+            st = {"sigs": self._host_buf(b, 65),
+                  "hashes": self._host_buf(b, 32)}
+        if with_pubs and "pubs" not in st:
+            st["pubs"] = self._host_buf(b, 64)
         return st
+
+    def _host_buf(self, b: int, width: int) -> torch.Tensor:
+        return torch.zeros((b, width), dtype=torch.uint8,
+                           pin_memory=self._pinned)
 
     def _stage_release(self, b: int, st: dict[str, torch.Tensor]) -> None:
         # only after the results are back: the upload has been consumed
@@ -149,6 +190,41 @@ class BatchVerifier:
         """``(addrs [N, 20] u8, ok [N] bool)``."""
         addrs, _, ok = self.ecrecover(sigs, hashes)
         return addrs, ok
+
+    def verify(self, sigs: np.ndarray, hashes: np.ndarray,
+               pubs: np.ndarray) -> np.ndarray:
+        """Classic verify: ``sigs [N, 64 or 65]`` u8, ``hashes [N, 32]``
+        u8, ``pubs [N, 64]`` u8 -> ``ok [N]`` bool as numpy, after the
+        device has finished.  Bucketed and staged like :meth:`ecrecover`;
+        the padded rows of every staging buffer are zeroed, so no row of
+        an earlier batch reaches this one."""
+        n = sigs.shape[0]
+        if n == 0:
+            return np.zeros((0,), bool)
+        if sigs.shape[1] not in (64, 65):
+            raise ValueError("sigs must be [N, 64] or [N, 65]")
+        self._maybe_fail(n)
+        b = self._pad(n)
+        st = self._stage_acquire(b, with_pubs=True)
+        try:
+            hs, hh, hq = st["sigs"], st["hashes"], st["pubs"]
+            hs[:n, :sigs.shape[1]] = torch.from_numpy(
+                np.asarray(sigs, np.uint8))
+            hs[:n, sigs.shape[1]:] = 0
+            hs[n:] = 0
+            hh[:n] = torch.from_numpy(np.asarray(hashes, np.uint8))
+            hh[n:] = 0
+            hq[:n] = torch.from_numpy(np.asarray(pubs, np.uint8))
+            hq[n:] = 0
+            ds, dh, dq = (t.to(self.device, non_blocking=self._pinned)
+                          for t in (hs, hh, hq))
+            ok = verify_batch(ds, dh, dq)
+            # copying back waits for the device: the staging buffers are
+            # free for the next batch after this
+            out = ok[:n].cpu().numpy().astype(bool)
+        finally:
+            self._stage_release(b, st)
+        return out
 
 
 @functools.lru_cache(maxsize=1)

@@ -3,7 +3,9 @@
 The sources in ``ops/csrc`` compile at first use into a shared library
 with a plain C interface under ``build/eges_tpu_torch/`` in the
 checkout, named by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads at once.  A failed build raises.
+rebuilds and an unchanged one loads at once.  Each source compiles in
+its own ``nvcc`` process, all started together, and one more links the
+objects.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -17,12 +19,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("recover.cu",)
-HEADERS = ("field.cuh",)
+SOURCES = ("recover.cu", "verify.cu")
+HEADERS = ("field.cuh", "launch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eges_tpu_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-         "-Xptxas", "-v")
+FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -51,9 +52,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libeges_recover_{source_hash()}.so"
 
 
-def nvcc_command(out: Path) -> list[str]:
-    return [nvcc_path(), *FLAGS, "-o", str(out),
-            *(str(CSRC / s) for s in SOURCES)]
+def compile_command(source: str, obj: Path) -> list[str]:
+    return [nvcc_path(), *FLAGS, "-c", "-o", str(obj), str(CSRC / source)]
+
+
+def link_command(objs: list[Path], out: Path) -> list[str]:
+    return [nvcc_path(), ARCH, "-shared", "-o", str(out),
+            *(str(o) for o in objs)]
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
@@ -86,6 +91,23 @@ def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
     return out
 
 
+def _run_all(commands: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise with the
+    output of every one that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    logs, failed = [], []
+    for cmd, proc in zip(commands, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> dict:
     """Compile the kernels unless the library for these sources exists.
     Returns ``{"path", "seconds", "built", "ptxas"}``; ``ptxas`` maps each
@@ -97,14 +119,19 @@ def build() -> dict:
         return {"path": str(out), "seconds": 0.0, "built": False,
                 "ptxas": parse_ptxas(log)}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{source_hash()}.tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}_{tag}.o" for s in SOURCES]
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
     t0 = time.monotonic()
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+    try:
+        log = _run_all([compile_command(s, o)
+                        for s, o in zip(SOURCES, objs)])
+        _run_all([link_command(objs, tmp)])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.monotonic() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log_path.write_text(proc.stdout + proc.stderr)
+    log_path.write_text(log)
     os.replace(tmp, out)
     return {"path": str(out), "seconds": seconds, "built": True,
-            "ptxas": parse_ptxas(proc.stdout + proc.stderr)}
+            "ptxas": parse_ptxas(log)}

@@ -13,8 +13,8 @@
 // The one thread per batch row that runs these functions keeps a value
 // in registers (arrays indexed only by unrolled constants); the compiler
 // spills what does not fit.  Constants live in __constant__ memory and
-// are uploaded once from Python (ops/kernels.py pack_constants), so the
-// limb values have one source.
+// are uploaded once per translation unit from Python (ops/kernels.py
+// pack_constants), so the limb values have one source.
 #pragma once
 
 #include <stdint.h>
@@ -27,7 +27,7 @@ typedef uint32_t u32;
 // The two point formulas are real calls: each is some thousands of
 // instructions, and inlining both into the ladder kernel made nvcc 12.9's
 // front end (cicc) crash while the code size grew past any use.
-#define EG_CALL __device__ __noinline__
+#define EG_CALL static __device__ __noinline__
 
 constexpr u32 MASK = 0xFFFFu;
 
@@ -45,7 +45,9 @@ struct Consts {
   u32 rc[24][2];    // keccak round constants, (lo, hi)
 };
 
-__constant__ Consts K;
+// static: every translation unit that includes this header has its own
+// copy, which its init entry point (launch.cuh eg_upload_consts) fills.
+static __constant__ Consts K;
 
 // ---------------------------------------------------------------------------
 // helpers

@@ -25,28 +25,11 @@
 // the stream arrive as void*, the kernel is queued on that stream, and
 // the launcher returns cudaGetLastError() so a refused launch is seen.
 
-#include <cuda_runtime.h>
 #include <string.h>
 
-#include "field.cuh"
+#include "launch.cuh"
 
 using namespace eg;
-
-#define EG_THREADS 128
-
-#define EG_ROW(n)                                      \
-  const int b = blockIdx.x * blockDim.x + threadIdx.x; \
-  if (b >= (n)) return;
-
-static __device__ __forceinline__ void load16(u32* o, const u32* p) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) o[k] = p[k];
-}
-
-static __device__ __forceinline__ void store16(u32* p, const u32* v) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) p[k] = v[k];
-}
 
 // #1 recover_prelude_pallas: wire bytes -> r, s, z, v, the x candidate,
 // y^2 and the range checks.
@@ -321,17 +304,8 @@ k_keccak_rows(const u32* words, int wide, u32* out) {
 // launchers
 // ---------------------------------------------------------------------------
 
-static inline dim3 eg_grid(int n) {
-  return dim3((unsigned)((n + EG_THREADS - 1) / EG_THREADS));
-}
-
-#define EG_STREAM(s) ((cudaStream_t)(s))
-
 extern "C" int eg_init(const u32* host_consts, int count) {
-  if (count != (int)(sizeof(Consts) / sizeof(u32))) return -1;
-  if (cudaMemcpyToSymbol(K, host_consts, sizeof(Consts)) != cudaSuccess)
-    return (int)cudaGetLastError();
-  return (int)cudaDeviceSynchronize();
+  return eg_upload_consts(host_consts, count);
 }
 
 extern "C" int eg_recover_prelude(const void* sigs, const void* hashes, int B,

@@ -258,9 +258,27 @@ def cond_sub_p(a: torch.Tensor) -> torch.Tensor:
     return cond_sub(a, P_LIMBS)
 
 
+@functools.lru_cache(maxsize=16)
+def _limb_row(m_limbs: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(m_limbs, dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=4)
+def _limb_index(device: torch.device) -> torch.Tensor:
+    return torch.arange(NLIMBS, device=device)
+
+
 def lt_const(a: torch.Tensor, m_limbs) -> torch.Tensor:
-    """a < const as a 0/1 flag."""
-    return sub_const_chain(a, m_limbs)[1]
+    """a < const as a 0/1 flag, for limbs below 2^16: the most
+    significant limb where the two differ decides.  The same flag as the
+    borrow of ``sub_const_chain``, in a few whole-value operations (on
+    the card the borrow chain is some eighty small launches), with the
+    constant made once per device."""
+    d = a - _limb_row(tuple(m_limbs), a.device)
+    top = torch.where(d != 0, _limb_index(a.device), -1).amax(-1,
+                                                            keepdim=True)
+    lt = torch.gather(d, -1, top.clamp(min=0)) < 0
+    return (lt & (top >= 0)).squeeze(-1).to(torch.int64)
 
 
 def fn_red_cols(cols: torch.Tensor) -> torch.Tensor:
@@ -376,9 +394,10 @@ def keccak_words(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def unpack_be(rows: torch.Tensor, off: int) -> torch.Tensor:
-    """32 big-endian bytes of ``rows[..., off:off+32]`` -> 16 limbs."""
-    k = torch.arange(16, device=rows.device)
-    return rows[..., off + 31 - 2 * k] | (rows[..., off + 30 - 2 * k] << 8)
+    """32 big-endian bytes of ``rows[..., off:off+32]`` (an integer type
+    wider than a byte) -> 16 limbs, least significant first."""
+    pairs = rows[..., off:off + 32].reshape(*rows.shape[:-1], 16, 2)
+    return ((pairs[..., 0] << 8) | pairs[..., 1]).flip(-1)
 
 
 def recover_prelude(r, s, v):

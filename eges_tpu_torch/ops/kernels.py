@@ -1,5 +1,6 @@
-"""The eleven kernels of batched sender recovery, each with its plain
-PyTorch version and its launch count.
+"""The fifteen kernels of batched sender recovery, classic ECDSA verify
+and one-block keccak256, each with its plain PyTorch version and its
+launch count.
 
 Every public function keeps the name, signature and array layouts of
 the reference wrapper in ``eges_tpu/ops/pallas_kernels.py`` it replaces,
@@ -9,7 +10,7 @@ so tests compare array with array.  Limb and word tensors are
 the reference's ``LANE_BLOCK``.
 
 A wrapper given CUDA tensors launches its kernel from ``csrc/recover.cu``
-on the current stream and adds one to ``LAUNCHES[name]``; given CPU
+or ``csrc/verify.cu`` on the current stream and adds one to ``LAUNCHES[name]``; given CPU
 tensors it runs the plain version (``*_plain``), which repeats the
 kernel's arithmetic with ``ops/field.py`` and is also what
 ``chip_smoke.py`` holds each kernel against on the card.  There is no
@@ -18,10 +19,11 @@ fallback from one to the other.
 What bounds each kernel on the H100: the work is 16-bit limb products
 and carry chains on u32, one thread per row.  The card issues about ten
 u32 operations in the time it moves one byte of device memory.
-``fp_mul``, ``fp_canon`` and ``recover_prelude`` do fewer than that per
-byte they read and write, so bytes bound them; the other eight do more
-(``y_fix`` only just, ``pow_mod`` and ``strauss_tab`` over a hundred
-times more) and integer operations bound them.  Each reads its
+``fp_mul``, ``fp_canon``, ``recover_prelude``, ``fp_add`` and
+``fn_red17`` do fewer than that per byte they read and write, so bytes
+bound them; the other ten do more (``y_fix`` only just, ``pow_mod`` and
+``strauss_tab`` over a hundred times more) and integer operations bound
+them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.  The
 reference's TPU-only variants map onto
@@ -51,7 +53,8 @@ M32 = 0xFFFFFFFF
 
 KERNELS = ("recover_prelude", "pow_mod", "y_fix", "u1u2", "glv_digits",
            "point_table", "fp_mul", "fp_canon", "strauss_tab",
-           "recover_finish", "keccak_rows")
+           "recover_finish", "keccak_rows", "fn_mul", "fn_red17", "fp_add",
+           "keccak_block")
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -254,6 +257,26 @@ def keccak_rows_plain(words):
     return _i(field.keccak_words(_u(words).T).T.contiguous())
 
 
+@torch.inference_mode()
+def fn_mul_plain(a, b):
+    return _i(field.fn_mul(_u(a), _u(b)))
+
+
+@torch.inference_mode()
+def fn_red17_plain(a):
+    return _i(field.fn_red_cols(_u(a)))
+
+
+@torch.inference_mode()
+def fp_add_plain(a, b):
+    return _i(field.add(_u(a), _u(b)))
+
+
+@torch.inference_mode()
+def keccak_block_plain(words):
+    return _i(field.keccak_words(_u(words)))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -273,7 +296,14 @@ _ARGTYPES = {
     "eg_strauss": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
     "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_P],
     "eg_keccak_rows": [_P, _I, _P, _P],
+    "eg_init_verify": [_P, _I],
+    "eg_fn_mul": [_P, _P, _I, _P, _P],
+    "eg_fn_red17": [_P, _I, _P, _P],
+    "eg_fp_add": [_P, _P, _I, _P, _P],
+    "eg_keccak_block": [_P, _I, _P, _P],
 }
+# one per source: each translation unit has its own constants block
+_INITS = ("eg_init", "eg_init_verify")
 
 
 def pack_constants() -> np.ndarray:
@@ -297,9 +327,10 @@ def library() -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     consts = pack_constants()
-    err = lib.eg_init(consts.ctypes.data, consts.size)
-    if err:
-        raise RuntimeError(f"eg_init failed: {err}")
+    for init in _INITS:
+        err = getattr(lib, init)(consts.ctypes.data, consts.size)
+        if err:
+            raise RuntimeError(f"{init} failed: {err}")
     return lib
 
 
@@ -345,7 +376,7 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 
 def _rows(t: torch.Tensor) -> int:
     if t.dim() != 2:
-        raise ValueError(f"expected a [rows, 16] tensor, got {tuple(t.shape)}")
+        raise ValueError(f"expected a [rows, n] tensor, got {tuple(t.shape)}")
     return t.shape[0]
 
 
@@ -527,6 +558,59 @@ def keccak_rows_pallas(words):
     return out
 
 
+def fn_mul_pallas(a, b):
+    """``[M, 16] x [M, 16] -> [M, 16]`` canonical mod-N product.  Replaces
+    ``fn_mul_pallas`` (pallas_kernels.py:1114)."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    _check(b, "b", (M, NLIMBS))
+    if not _on_card(a, b):
+        return fn_mul_plain(a, b)
+    out = _empty((M, NLIMBS), a)
+    _launch("fn_mul", "eg_fn_mul", a, b, M, out)
+    return out
+
+
+def fn_red17_pallas(a):
+    """``[M, 17]`` small (below 2^16) columns -> ``[M, 16]`` canonical
+    mod N.  Replaces ``fn_red17_pallas`` (pallas_kernels.py:1294)."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS + 1))
+    if not _on_card(a):
+        return fn_red17_plain(a)
+    out = _empty((M, NLIMBS), a)
+    _launch("fn_red17", "eg_fn_red17", a, M, out)
+    return out
+
+
+def fp_add_pallas(a, b):
+    """``[M, 16] + [M, 16] -> [M, 16]`` relaxed F_P sum.  Replaces
+    ``fp_add_pallas`` (pallas_kernels.py:1270)."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    _check(b, "b", (M, NLIMBS))
+    if not _on_card(a, b):
+        return fp_add_plain(a, b)
+    out = _empty((M, NLIMBS), a)
+    _launch("fp_add", "eg_fp_add", a, b, M, out)
+    return out
+
+
+def keccak_block_pallas(words):
+    """``[B, 34]`` little-endian words of one padded block per row ->
+    ``[B, 8]`` digest words.  Replaces ``keccak_block_pallas``
+    (pallas_kernels.py:745), which padded B to LANE_BLOCK and transposed
+    for the column kernel; this kernel reads the rows as they are and
+    masks the ragged edge."""
+    B = _rows(words)
+    _check(words, "words", (B, 34))
+    if not _on_card(words):
+        return keccak_block_plain(words)
+    out = _empty((B, 8), words)
+    _launch("keccak_block", "eg_keccak_block", words, B, out)
+    return out
+
+
 # the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py)
 REPLACES = {
     "recover_prelude": "eges_tpu/ops/pallas_kernels.py:1519",
@@ -540,4 +624,13 @@ REPLACES = {
     "strauss_tab": "eges_tpu/ops/pallas_kernels.py:384",
     "recover_finish": "eges_tpu/ops/pallas_kernels.py:1685",
     "keccak_rows": "eges_tpu/ops/pallas_kernels.py:1781",
+    "fn_mul": "eges_tpu/ops/pallas_kernels.py:1114",
+    "fn_red17": "eges_tpu/ops/pallas_kernels.py:1294",
+    "fp_add": "eges_tpu/ops/pallas_kernels.py:1270",
+    "keccak_block": "eges_tpu/ops/pallas_kernels.py:745",
 }
+
+# the source file each kernel is in (under ops/csrc)
+SOURCE_OF = {name: "verify.cu" if name in ("fn_mul", "fn_red17", "fp_add",
+                                           "keccak_block") else "recover.cu"
+             for name in KERNELS}

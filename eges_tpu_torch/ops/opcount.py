@@ -1,5 +1,5 @@
-"""u32 operations per row of each recovery kernel: the operation half of
-the bound that ``chip_smoke.py`` sets beside each kernel's time.
+"""u32 operations per row of each kernel: the operation half of the
+bound that ``chip_smoke.py`` sets beside each kernel's time.
 
 Counted from ``csrc/field.cuh`` and ``csrc/recover.cu``: each add, sub,
 mul, and, or, xor, shift, compare or select of one 32-bit lane is one
@@ -100,6 +100,16 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
 # (caller, callee): calls that run only on some rows, left out of ops()
 DATA_DEPENDENT = {("jac_add_mixed", "jac_double")}
 
+# the kernels of csrc/verify.cu: kernel name -> (__global__ function,
+# {counted field.cuh callee: call sites}); each is one call over one row,
+# and tests/test_torch_opcount.py holds the calls against the source
+VERIFY_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
+    "fn_mul": ("k_fn_mul", {"fn_mul": 1}),
+    "fn_red17": ("k_fn_red17", {"fn_red_cols<17>": 1}),
+    "fp_add": ("k_fp_add", {"fp_add": 1}),
+    "keccak_block": ("k_keccak_block", {"keccak_words": 1}),
+}
+
 
 @functools.cache
 def ops(name: str) -> int:
@@ -117,6 +127,8 @@ def per_row(windows: int = 33, negations: float = 0.0,
             ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations per row of each kernel (per padded row for
     glv_digits, recover_finish and keccak_rows, which cover Bpad).
+    ``fn_red17`` counts one row of 17 columns and ``keccak_block`` one
+    row of 34 words.
 
     ``negations`` is the mean number of ladder adds per row whose point
     is negated (``windows`` x the rows' set sign flags), and
@@ -143,4 +155,6 @@ def per_row(windows: int = 33, negations: float = 0.0,
         + negations * ops("fp_neg") + ladder_doublings * dbl,
         "recover_finish": ops("recover_finish"),
         "keccak_rows": ops("keccak_words"),
+        **{name: sum(n * ops(callee) for callee, n in calls.items())
+           for name, (_, calls) in VERIFY_KERNELS.items()},
     }

@@ -1,6 +1,7 @@
 """Seeded inputs for the tests and ``chip_smoke.py``: field values with
 the extremes, curve points, signed recovery rows and one row of each
-invalid class.  Everything is made from a ``numpy.random.Generator``,
+invalid class, and classic-verify rows of every class with the host
+model's answer.  Everything is made from a ``numpy.random.Generator``,
 so a seed fixes every byte.
 """
 
@@ -108,3 +109,145 @@ def host_recover(sig: np.ndarray, msg: np.ndarray):
     except ValueError:
         return None
     return host.pubkey_to_address(pub), pub
+
+
+# ---------------------------------------------------------------------------
+# classic verify
+# ---------------------------------------------------------------------------
+
+# every row class of classic verify, in the order verify_rows makes them;
+# VERIFY_VALID are the classes the host model accepts
+VERIFY_CLASSES = (
+    "valid",          # a signed row (low s)
+    "high_s_twin",    # (r, N - s) of a valid row: satisfies the curve
+                      # equation, rejected by the low-s rule
+    "wrong_pub",      # a valid row checked against another key
+    "wrong_hash",     # a valid row checked against another hash
+    "r_zero", "r_ge_n", "s_zero",
+    "pub_off_curve",  # y + 1
+    "pub_zero",       # (0, 0)
+    "hash_zero",      # signed over 32 zero bytes: u1 = 0
+    "hash_ge_n",      # signed over a hash >= N: z is reduced mod N
+    "pub_x_plus_p",   # a key whose x is sent as x + P (relaxed encoding)
+    "rx_ge_n",        # u1*G + u2*Q has x >= N: px is reduced mod N
+    "s_half",         # s = N // 2, the largest s accepted
+    "s_half_plus_1",  # s = N // 2 + 1, rejected by the low-s rule
+)
+VERIFY_VALID = ("valid", "hash_zero", "hash_ge_n", "pub_x_plus_p",
+                "rx_ge_n", "s_half")
+
+
+def _be(x: int, n: int = 32) -> np.ndarray:
+    return np.frombuffer(x.to_bytes(n, "big"), np.uint8)
+
+
+def _row(r: int, s: int, z: int, q, v: int = 0):
+    """(sig [65], hash [32], pub [64]) uint8 of ints (the key's x may be
+    a relaxed encoding below 2^256)."""
+    return (np.concatenate([_be(r), _be(s), [v]]).astype(np.uint8), _be(z),
+            np.concatenate([_be(q[0]), _be(q[1])]))
+
+
+def _rand_point(rng: np.random.Generator):
+    return host.point_mul(1 + rand_int(rng, N - 1), host.G)
+
+
+def forge_for_pub(rng: np.random.Generator, q):
+    """A signature ``(r, s, z)`` that verifies against the key ``q``
+    without its private key: R = u1*G + u2*Q for random u1, u2, then
+    r = R.x mod N, s = r / u2, z = u1 * s (mod N), drawn again until
+    s <= N // 2."""
+    while True:
+        u1, u2 = 1 + rand_int(rng, N - 1), 1 + rand_int(rng, N - 1)
+        pt = host.point_add(host.point_mul(u1, host.G),
+                            host.point_mul(u2, q))
+        if pt is None or pt[0] % N == 0:
+            continue
+        r = pt[0] % N
+        s = r * pow(u2, -1, N) % N
+        if s <= N // 2:
+            return r, s, u1 * s % N
+
+
+def forge_for_point(rng: np.random.Generator, pt, s: int):
+    """A key ``q`` and hash ``z`` for which ``(r, s)`` with r = pt.x mod N
+    verifies and u1*G + u2*Q lands on ``pt``: z = u1 * s for a random u1,
+    u2 = r / s, Q = (pt - u1*G) / u2.  Returns (r, z, q)."""
+    r = pt[0] % N
+    u1 = 1 + rand_int(rng, N - 1)
+    u2 = r * pow(s, -1, N) % N
+    diff = host.point_add(pt, host.point_mul(N - u1, host.G))
+    return r, u1 * s % N, host.point_mul(pow(u2, -1, N), diff)
+
+
+def _point_with_x(x: int, odd: int):
+    """The curve point with this x and y parity, or None."""
+    y_sq = (pow(x, 3, P) + 7) % P
+    y = pow(y_sq, (P + 1) // 4, P)
+    if y * y % P != y_sq:
+        return None
+    return (x, y if (y & 1) == odd else P - y)
+
+
+def verify_rows(rng: np.random.Generator, n_valid: int):
+    """``n_valid`` signed rows, then one row of each other class of
+    VERIFY_CLASSES.  Returns ``(sigs [n, 65], hashes [n, 32], pubs
+    [n, 64])`` uint8 and the class of each row."""
+    rows, kinds = [], []
+
+    def add(kind, sig, msg, pub):
+        rows.append((sig, msg, pub))
+        kinds.append(kind)
+
+    def signed(msg: bytes):
+        priv = (1 + rand_int(rng, N - 1)).to_bytes(32, "big")
+        sig = np.frombuffer(host.ecdsa_sign(msg, priv), np.uint8)
+        pub = np.frombuffer(host.privkey_to_pubkey(priv), np.uint8)
+        return sig, np.frombuffer(msg, np.uint8), pub
+
+    for _ in range(max(n_valid, 3)):
+        add("valid", *signed(rng.bytes(32)))
+    base = list(rows[:3])
+    del rows[n_valid:], kinds[n_valid:]
+    sig, msg, pub = base[0]
+    twin = sig.copy()
+    s = int.from_bytes(bytes(sig[32:64]), "big")
+    twin[32:64] = _be(N - s)
+    add("high_s_twin", twin, msg, pub)
+    add("wrong_pub", base[1][0], base[1][1], base[2][2])
+    add("wrong_hash", base[1][0], np.frombuffer(rng.bytes(32), np.uint8),
+        base[1][2])
+    for kind, lo, val in (("r_zero", 0, 0), ("r_ge_n", 0, N),
+                          ("s_zero", 32, 0)):
+        bad = sig.copy()
+        bad[lo:lo + 32] = _be(val)
+        add(kind, bad, msg, pub)
+    off = pub.copy()
+    off[32:] = _be((int.from_bytes(bytes(pub[32:]), "big") + 1) % P)
+    add("pub_off_curve", sig, msg, off)
+    add("pub_zero", sig, msg, np.zeros(64, np.uint8))
+    add("hash_zero", *signed(bytes(32)))
+    add("hash_ge_n", *signed(b"\xff" * 32))
+    x = 1
+    while (q := _point_with_x(x, 0)) is None:
+        x += 1
+    relaxed = (q[0] + P, q[1])             # x + P < 2^256 for x < 2^32 + 977
+    r, s, z = forge_for_pub(rng, q)
+    add("pub_x_plus_p", *_row(r, s, z, relaxed))
+    while True:
+        pt = _point_with_x(N + rand_int(rng, P - N), int(rng.integers(2)))
+        if pt is not None:
+            break
+    s = 1 + rand_int(rng, N // 2)
+    r, z, q = forge_for_point(rng, pt, s)
+    add("rx_ge_n", *_row(r, s, z, q))
+    for kind, s in (("s_half", N // 2), ("s_half_plus_1", N // 2 + 1)):
+        r, z, q = forge_for_point(rng, _rand_point(rng), s)
+        add(kind, *_row(r, s, z, q))
+    sigs, hashes, pubs = (np.stack(c).astype(np.uint8) for c in zip(*rows))
+    return sigs, hashes, pubs, kinds
+
+
+def host_verify(sig: np.ndarray, msg: np.ndarray, pub: np.ndarray) -> bool:
+    """The host model's answer for one classic-verify row."""
+    return host.ecdsa_verify(bytes(msg), bytes(sig[:64]), bytes(pub))

@@ -1,6 +1,7 @@
 """The CUDA kernels of eges_tpu_torch against their plain PyTorch versions
 on the card, bit for bit (the arithmetic is integer: tolerance 0), and
-the recovery path end to end against the host model.
+the recovery, classic-verify and keccak paths end to end against the
+host model.
 
 Marked ``gpu``; run on a machine with a card as
 ``python -m pytest tests/test_torch_cuda.py -m gpu``.  Without a card
@@ -45,7 +46,8 @@ def test_build_reports_every_kernel(dev):
     assert set(info["ptxas"]) >= {
         "k_recover_prelude", "k_pow_p", "k_pow_n", "k_y_fix", "k_u1u2",
         "k_glv_digits", "k_point_table", "k_fp_mul", "k_fp_canon",
-        "k_strauss", "k_recover_finish", "k_keccak_rows"}
+        "k_strauss", "k_recover_finish", "k_keccak_rows", "k_fn_mul",
+        "k_fn_red17", "k_fp_add", "k_keccak_block"}
 
 
 def test_fp_mul_and_canon(dev):
@@ -125,3 +127,52 @@ def test_recover_addresses_on_card(dev):
         else:
             assert ok[i] and bytes(got[i]) == want[0]
     assert all(bytes(got[i]) == addrs[i] for i in range(8))
+
+
+def test_fn_mul_fn_red17_fp_add(dev):
+    rng = np.random.default_rng(16)
+    a = K.from_reference(_limbs(rng, B), dev)
+    b = K.from_reference(_limbs(rng, B)[::-1].copy(), dev)
+    _same(K.fn_mul_pallas(a, b), K.fn_mul_plain(a, b))
+    _same(K.fp_add_pallas(a, b), K.fp_add_plain(a, b))
+    cols = rng.integers(0, 1 << 16, (B, 17)).astype(np.uint32)
+    cols[0] = 0xFFFF
+    cols[1, 16] = 0
+    c = K.from_reference(cols, dev)
+    _same(K.fn_red17_pallas(c), K.fn_red17_plain(c))
+
+
+def test_keccak_block_ragged(dev):
+    rng = np.random.default_rng(17)
+    for rows in (1, 127, 129, B):
+        w = K.from_reference(rng.integers(0, 1 << 32, (rows, 34),
+                                          dtype=np.uint64).astype(np.uint32),
+                             dev)
+        _same(K.keccak_block_pallas(w), K.keccak_block_plain(w))
+
+
+def test_keccak256_fixed_on_card(dev):
+    from eges_tpu_torch.crypto.keccak import keccak256
+    from eges_tpu_torch.ops.keccak import keccak256_fixed
+
+    rng = np.random.default_rng(18)
+    for length in (0, 64, 110, 135, 136, 200):
+        msgs = rng.integers(0, 256, (130, length), dtype=np.uint8)
+        K.reset_launches()
+        got = keccak256_fixed(torch.from_numpy(msgs).to(dev)).cpu().numpy()
+        assert K.LAUNCHES["keccak_block"] == (1 if length < 136 else 0)
+        for i in range(len(msgs)):
+            assert bytes(got[i]) == keccak256(bytes(msgs[i]))
+
+
+def test_verify_on_card(dev):
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    sigs, hashes, pubs, kinds = tt.verify_rows(np.random.default_rng(19), 4)
+    K.reset_launches()
+    ok = BatchVerifier().verify(sigs, hashes, pubs)
+    assert sum(K.LAUNCHES.values()) == 26
+    for i, kind in enumerate(kinds):
+        assert bool(ok[i]) == tt.host_verify(sigs[i], hashes[i], pubs[i]), kind
+    np.testing.assert_array_equal(
+        BatchVerifier().verify(sigs[:, :64].copy(), hashes, pubs), ok)

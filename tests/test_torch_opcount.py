@@ -1,6 +1,7 @@
 """The op count behind chip_smoke.py's bounds, held against the CUDA
 source it counts: every device function of ``field.cuh`` makes exactly
-the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it."""
+the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it,
+and so does every kernel of ``verify.cu``."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from eges_tpu_torch.ops import opcount
 
 FIELD_CUH = (pathlib.Path(__file__).resolve().parents[1] / "eges_tpu_torch"
              / "ops" / "csrc" / "field.cuh")
+VERIFY_CU = FIELD_CUH.with_name("verify.cu")
 # functions of field.cuh that move values and count no operations
 # (rotl64 is counted inside keccak_words' own operations)
 UNCOUNTED = {"copy16", "zero16", "one16", "rotl64"}
@@ -88,3 +90,43 @@ def test_the_mixed_add_count_leaves_the_doubling_out():
     more = opcount.per_row(ladder_doublings=2.0)
     assert more["strauss_tab"] - rows["strauss_tab"] == (
         2 * opcount.ops("jac_double"))
+
+
+_KERNEL = re.compile(r"__global__\s+void\s+__launch_bounds__\(\w+\)\s*"
+                     r"(k_\w+)\s*\(")
+
+
+def _kernel_bodies(path) -> dict[str, str]:
+    """``__global__`` function name -> its body, comments removed."""
+    src = re.sub(r"//[^\n]*", "", path.read_text())
+    out = {}
+    for m in _KERNEL.finditer(src):
+        start = src.index("{", m.end())
+        depth, i = 0, start
+        while True:
+            depth += {"{": 1, "}": -1}.get(src[i], 0)
+            i += 1
+            if depth == 0:
+                break
+        out[m.group(1)] = src[start:i]
+    return out
+
+
+def test_every_verify_kernel_is_counted():
+    assert set(_kernel_bodies(VERIFY_CU)) == {
+        fn for fn, _ in opcount.VERIFY_KERNELS.values()}
+
+
+@pytest.mark.parametrize("name", sorted(opcount.VERIFY_KERNELS))
+def test_verify_kernel_calls_match_the_source(name):
+    fn, calls = opcount.VERIFY_KERNELS[name]
+    assert dict(_counted_calls(_kernel_bodies(VERIFY_CU)[fn])) == calls
+
+
+def test_verify_kernel_counts():
+    rows = opcount.per_row()
+    assert rows["fn_mul"] == (opcount.mul_cols(16, 16)
+                              + opcount.fn_red_cols(32)) == 3419
+    assert rows["fn_red17"] == opcount.fn_red_cols(17) == 607
+    assert rows["fp_add"] == 16 + opcount.CARRY_TAIL == 133
+    assert rows["keccak_block"] == rows["keccak_rows"] == opcount.KECCAK

@@ -1,5 +1,6 @@
-"""Drive eges_tpu_torch's three paths on one CUDA card: batched sender
-recovery, classic ECDSA verify and Keccak-256.
+"""Drive eges_tpu_torch's paths on one CUDA card: batched sender
+recovery, classic ECDSA verify and Keccak-256, and the un-fused
+recovery and verify of stacked windows.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
@@ -7,14 +8,17 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a (one
    nvcc for each source, all started together); seconds, and registers
    and spills per kernel.
-2. kernel: each of the fifteen kernels at its path's shapes on seeded
-   random and extreme inputs, held bit for bit against its plain
+2. kernel: each of the twenty-one kernels at its path's shapes on
+   seeded random and extreme inputs, held bit for bit against its plain
    PyTorch version on the same CUDA tensors (tolerance 0: the arithmetic
-   is integer), and timed against it with CUDA events.  Recovery's
-   eleven at B = 8192 rows (16*B = 131072 for fp_mul, fp_canon and the
-   table pow); fn_mul, fn_red17 and fp_add at B = 1024 (the verify
-   batch cap); keccak_block at B = 4000 (a config-4 block's
-   transaction hashes).
+   is integer), and timed against it with CUDA events; registers and
+   spills beside each.  Recovery's eleven at B = 8192 rows (16*B =
+   131072 for fp_mul, fp_canon and the table pow); fn_mul, fn_red17
+   and fp_add at B = 1024 (the verify batch cap); keccak_block at
+   B = 4000 (a config-4 block's transaction hashes); the six glue
+   kernels of the un-fused path at its shapes for a [4, 1024] window
+   (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
+   checked at a ragged 4097 rows.
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
@@ -40,8 +44,17 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    and one ``ecrecover_batch`` against the time until the card is done
    (p50 of 100 each).
 
-Then the ``kernels`` line (launches summed over the three paths' runs,
-and per path), the card's name and power limit as nvidia-smi gives
+8. stacked: a [4, 1024, 65] window cut from phase 3's config-4 rows
+   (recovery ids 2 and 3 and every invalid class among them) through
+   ``ecrecover_batch``, and a [4, 256, ...] window of config-3 vote rows
+   through ``verify_batch``: the un-fused path, every row held byte for
+   byte against the fused path on the same rows flattened and against
+   the host model, launches by kernel equal to the pinned counts of
+   ``testing.UNFUSED_*_LAUNCHES`` (about 8,400 a batch); p50 of a few
+   batches, and the host's enqueue time against the done time.
+
+Then the ``kernels`` line (launches summed over the paths' runs, and per
+path), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits nonzero; without a CUDA card the script exits 2 and prints no
 result.
@@ -69,6 +82,16 @@ B_KECCAK = 4000                     # transaction hashes of a config-4 block
 COMMITTEE = 256                     # BASELINE config 3 committee
 RUNS_VERIFY = 1000
 RUNS_SPLIT = 100                    # enqueue vs done, per path
+STACK = (4, 1024)                   # a stacked recovery window, K x N
+STACK_VERIFY = (4, 256)             # a stacked window of config-3 votes
+RUNS_STACKED = 5                    # timed stacked batches per path
+RAGGED = 4097                       # glue kernels' ragged-edge check
+# fp_mul_small launches of one un-fused batch by k: each doubling takes
+# k = 2 three times, 3 and 8 once; each mixed add k = 2 four times and 4
+# once, besides its doubling; 33 windows of 4 + 4, 14 table adds
+MUL_SMALL_K = {2: 1418, 3: 278, 4: 146, 8: 278}
+# the __global__ functions of a kernel, where they are not k_<name>
+GLOBALS = {"pow_mod": ("k_pow_p", "k_pow_n"), "strauss_tab": ("k_strauss",)}
 # launches of one classic-verify batch: on_curve (3 fp_mul, fp_add, 2
 # fp_canon), s^-1 (pow), z and px mod N (2 fn_red17), u1 and u2 (2
 # fn_mul), strauss_gR (glv_digits, point_table, pow, fp_canon, 5 fp_mul,
@@ -179,7 +202,7 @@ def _affine_points(rng, n):
     return tt.limb_rows(xs), tt.limb_rows(ys)
 
 
-def phase_kernels(rng, dev, clock_hz):
+def phase_kernels(rng, dev, clock_hz, ptxas):
     """Each kernel at the main path's shapes against its plain version.
     Returns per-kernel records (ms and bounds cover all of a kernel's
     launches in one batch)."""
@@ -278,10 +301,12 @@ def phase_kernels(rng, dev, clock_hz):
                           wide * OPS["keccak_rows"])]),
     ]
     cases += _verify_kernel_cases(dev, OPS)
+    glue, ragged = _glue_kernel_cases(dev, OPS)
+    cases += glue
     records = {}
     for name, launches in cases:
         rec = {"name": name, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
-               "bytes": 0, "ops": 0.0}
+               "bytes": 0, "ops": 0.0, "launches_timed": len(launches)}
         done = {}  # a launch repeated on the main path (fp_mul x5) runs once
         for kern, plain, nb, ops in launches:
             if kern not in done:
@@ -300,6 +325,15 @@ def phase_kernels(rng, dev, clock_hz):
             rec["ops"] += ops
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
                                                  clock_hz)
+        for kern, plain in ragged.get(name, ()):
+            err = max_abs_err(kern(), plain())
+            if err:
+                raise AssertionError(f"{name}: kernel and plain version "
+                                     f"differ at {RAGGED} rows (max abs "
+                                     f"err {err})")
+            rec["ragged_rows_equal"] = RAGGED
+        rec["ptxas"] = {g: ptxas.get(g) for g in
+                        GLOBALS.get(name, ("k_" + name,))}
         records[name] = rec
         emit({"phase": "kernel", **{k: (round(v, 6) if isinstance(v, float)
                                         else v) for k, v in rec.items()},
@@ -348,6 +382,80 @@ def _verify_kernel_cases(dev, OPS):
                            nbytes(kwords) + 32 * B_KECCAK,
                            B_KECCAK * OPS["keccak_block"])]),
     ]
+
+
+def _glue_kernel_cases(dev, OPS):
+    """The six glue kernels of the un-fused path at its shapes for a
+    ``STACK`` window, with the launches of one stacked recovery
+    (``testing.UNFUSED_RECOVER_LAUNCHES``): the point formulas, y's
+    negation and u1's at K*N rows, the GLV split of both scalars at
+    2*K*N.  Returns (cases, {name: [(kernel call, plain call)] at
+    ``RAGGED`` rows}).  Inputs come from their own generator."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.bigint import N
+    from eges_tpu_torch.ops.curve import _G_G1, _G_G2
+
+    rng = np.random.default_rng(SEED + 5)
+    KN = STACK[0] * STACK[1]
+    pinned = tt.UNFUSED_RECOVER_LAUNCHES
+    if sum(MUL_SMALL_K.values()) != pinned["fp_mul_small"]:
+        raise AssertionError("MUL_SMALL_K does not add up to the pinned "
+                             "fp_mul_small launches")
+
+    def limbs(n, bound=1 << 256):
+        return K.from_reference(tt.limb_rows(tt.field_values(rng, n, bound)),
+                                dev)
+
+    def sets(rows):
+        """F_P operands (relaxed), mod-N operands (canonical), each
+        pair's second operand reversed so the extremes meet others."""
+        a, b = limbs(rows), limbs(rows).flip(0).contiguous()
+        n1, n2 = limbs(rows, N), limbs(rows, N).flip(0).contiguous()
+        return a, b, n1, n2
+
+    def entry(kern, plain, args, nb, ops_row, rows):
+        return (lambda: kern(*args), lambda: plain(*args), nb, rows * ops_row)
+
+    def calls(a, b, n1, n2):
+        """name -> [(kernel, plain, args)] of the six at these rows."""
+        return {
+            "fp_sub": [(K.fp_sub_pallas, K.fp_sub_plain, (a, b))],
+            "fp_neg": [(K.fp_neg_pallas, K.fp_neg_plain, (a,))],
+            "fp_mul_small": [(K.fp_mul_small_pallas, K.fp_mul_small_plain,
+                              (a, k)) for k in MUL_SMALL_K],
+            "fn_sub": [(K.fn_sub_pallas, K.fn_sub_plain, (n1, n2))],
+            "fn_neg": [(K.fn_neg_pallas, K.fn_neg_plain, (n1,))],
+            "mulhi8": [(K.mulhi8_pallas, K.mulhi8_plain, (n1, g))
+                       for g in (_G_G1, _G_G2)],
+        }
+
+    one, two = calls(*sets(KN)), calls(*sets(2 * KN))
+    row = 64  # bytes of one [16] u32 row
+    cases = [
+        ("fp_sub", [entry(*one["fp_sub"][0], 3 * row * KN, OPS["fp_sub"],
+                          KN)] * pinned["fp_sub"]),
+        ("fp_neg", [entry(*one["fp_neg"][0], 2 * row * KN, OPS["fp_neg"],
+                          KN)] * pinned["fp_neg"]),
+        ("fp_mul_small", [
+            e for (kern, plain, args), n in zip(one["fp_mul_small"],
+                                                MUL_SMALL_K.values())
+            for e in [entry(kern, plain, args, 2 * row * KN,
+                            OPS["fp_mul_small"], KN)] * n]),
+        ("fn_sub", [entry(*two["fn_sub"][0], 3 * row * 2 * KN,
+                          OPS["fn_sub"], 2 * KN)] * pinned["fn_sub"]),
+        # u1 = -(z * r^-1) at K*N rows, the two sign splits at 2*K*N
+        ("fn_neg", [entry(*one["fn_neg"][0], 2 * row * KN, OPS["fn_neg"],
+                          KN),
+                    *[entry(*two["fn_neg"][0], 2 * row * 2 * KN,
+                            OPS["fn_neg"], 2 * KN)] * (pinned["fn_neg"] - 1)]),
+        ("mulhi8", [entry(*c, (row + row // 2) * 2 * KN, OPS["mulhi8"],
+                          2 * KN) for c in two["mulhi8"]]),
+    ]
+    ragged = {name: [(lambda k=k, a=args: k(*a), lambda p=p, a=args: p(*a))
+                     for k, p, args in cs]
+              for name, cs in calls(*sets(RAGGED)).items()}
+    return cases, ragged
 
 
 def _baseline4_rows(rng):
@@ -584,20 +692,111 @@ def phase_verify_e2e(r3, r4, dev):
     sigs, hashes, pubs = (torch.from_numpy(a).to(dev) for a in r4[:3])
     for key, fn, args in (("verify", verify_batch, (sigs, hashes, pubs)),
                           ("recover", ecrecover_batch, (sigs, hashes))):
-        enq, done = [], []
-        for _ in range(RUNS_SPLIT):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(*args)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            enq.append(t1 - t0)
-            done.append(time.perf_counter() - t0)
-        out[f"{key}_enqueue_ms_p50_1024"] = float(np.median(enq)) * 1e3
-        out[f"{key}_done_ms_p50_1024"] = float(np.median(done)) * 1e3
+        enq, done = _split_times(lambda: fn(*args), RUNS_SPLIT)
+        out[f"{key}_enqueue_ms_p50_1024"] = enq
+        out[f"{key}_done_ms_p50_1024"] = done
     out["runs_split"] = RUNS_SPLIT
     emit(out)
     return out
+
+
+def _split_times(fn, runs: int):
+    """``runs`` calls of ``fn`` after a warm-up, each from an idle card:
+    (p50 ms of the host's enqueue, p50 ms until the card is done)."""
+    fn()
+    enq, done = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append(t1 - t0)
+        done.append(time.perf_counter() - t0)
+    return float(np.median(enq)) * 1e3, float(np.median(done)) * 1e3
+
+
+def phase_stacked(rows, r4, dev):
+    """The un-fused path on stacked windows: ``STACK`` rows of phase 3's
+    config-4 block through ``ecrecover_batch`` and ``STACK_VERIFY`` rows
+    of config-3 votes through ``verify_batch``, each held against the
+    fused path on the same rows flattened and against the host model,
+    with the launches of one batch.  Returns the launches of each."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch, verify_batch
+    from eges_tpu_torch.ops import kernels as K
+
+    out = {"phase": "stacked", "runs": RUNS_STACKED}
+    paths = {}
+
+    def run(what, fn, args, pinned):
+        K.reset_launches()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        want = dict.fromkeys(K.KERNELS, 0)
+        want.update(pinned)
+        if launches != want:
+            raise AssertionError(f"stacked {what}: launch counts {launches}, "
+                                 f"want {want}")
+        paths[what] = launches
+        return got
+
+    # recovery: the first K*N rows of the config-4 block
+    sigs, hashes, answers = rows
+    n = STACK[0] * STACK[1]
+    sigs, hashes, answers = sigs[:n], hashes[:n], answers[:n]
+    n_invalid = sum(a is None for a in answers)
+    high_ids = {int(sigs[i, 64]) for i, a in enumerate(answers)
+                if a is not None and sigs[i, 64] >= 2}
+    if n_invalid < 5 or high_ids != {2, 3}:
+        raise AssertionError("the stacked window lacks a row class")
+    s_dev = torch.from_numpy(sigs).to(dev)
+    h_dev = torch.from_numpy(hashes).to(dev)
+    args = (s_dev.reshape(*STACK, 65), h_dev.reshape(*STACK, 32))
+    got = run("recover", ecrecover_batch, args, tt.UNFUSED_RECOVER_LAUNCHES)
+    fused = ecrecover_batch(s_dev, h_dev)
+    for g, f, what in zip(got, fused, ("addrs", "pubs", "ok")):
+        if not torch.equal(g.reshape(n, *g.shape[2:]), f):
+            raise AssertionError(f"stacked recovery: {what} differ from the "
+                                 "fused path")
+    addrs, pubs, ok = (t.reshape(n, -1).cpu().numpy() for t in got)
+    for i, ans in enumerate(answers):
+        if ans is None:
+            if ok[i, 0] or addrs[i].any() or pubs[i].any():
+                raise AssertionError(f"stacked row {i}: invalid row accepted")
+        elif not ok[i, 0] or (bytes(addrs[i]), bytes(pubs[i])) != ans:
+            raise AssertionError(f"stacked row {i}: differs from the host "
+                                 "model")
+    enq, done = _split_times(lambda: ecrecover_batch(*args), RUNS_STACKED)
+    out["recover"] = {"shape": list(STACK), "rows_matching_fused": n,
+                      "rows_matching_host": n,
+                      "valid": int(ok[:, 0].sum()), "invalid": n_invalid,
+                      "launches_total": sum(paths["recover"].values()),
+                      "enqueue_ms_p50": enq, "done_ms_p50": done}
+
+    # verify: the 1024 tiled config-3 rows as a [4, 256] window
+    sigs, hashes, pubs, kinds, answers = r4
+    n = STACK_VERIFY[0] * STACK_VERIFY[1]
+    if set(kinds[:n]) != set(tt.VERIFY_CLASSES):
+        raise AssertionError("the stacked verify window lacks a row class")
+    flat = [torch.from_numpy(a[:n]).to(dev) for a in (sigs, hashes, pubs)]
+    args = [t.reshape(*STACK_VERIFY, -1) for t in flat]
+    got = run("verify", verify_batch, args, tt.UNFUSED_VERIFY_LAUNCHES)
+    if not torch.equal(got.reshape(n), verify_batch(*flat)):
+        raise AssertionError("stacked verify differs from the fused path")
+    ok = got.reshape(n).cpu().numpy()
+    if [bool(v) for v in ok] != list(answers[:n]):
+        raise AssertionError("stacked verify differs from the host model")
+    enq, done = _split_times(lambda: verify_batch(*args), RUNS_STACKED)
+    out["verify"] = {"shape": list(STACK_VERIFY), "rows_matching_fused": n,
+                     "rows_matching_host": n, "accepted": int(ok.sum()),
+                     "launches_total": sum(paths["verify"].values()),
+                     "enqueue_ms_p50": enq, "done_ms_p50": done}
+    out["launches"] = {p: {k: v for k, v in l.items() if v}
+                       for p, l in paths.items()}
+    emit(out)
+    return paths
 
 
 def main() -> int:
@@ -613,15 +812,18 @@ def main() -> int:
     emit({"phase": "device", "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card,
           "clocks_max_sm_mhz": clock_hz / 1e6})
-    phase_build()
+    info = phase_build()
     rng = np.random.default_rng(SEED)
-    records = phase_kernels(rng, dev, clock_hz)
+    records = phase_kernels(rng, dev, clock_hz, info["ptxas"])
     paths = {}
     paths["recover"], rows = phase_slice(rng)
     phase_e2e(rows)
     paths["verify"], r3, r4 = phase_verify()
     paths["keccak"] = phase_keccak(dev)
     phase_verify_e2e(r3, r4, dev)
+    stacked = phase_stacked(rows, r4, dev)
+    paths["stacked_recover"] = stacked["recover"]
+    paths["stacked_verify"] = stacked["verify"]
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name in K.KERNELS:
@@ -636,7 +838,8 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "ptxas": rec["ptxas"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,15 @@
 that the transaction pool, the block validator and the consensus vote
 checks call.
 
-The port of the fused path of ``eges_tpu/crypto/verifier.py``: 18 kernel
-launches turn ``[N, 65]`` wire signatures and ``[N, 32]`` hashes into
-20-byte addresses, 64-byte public keys and a validity mask; 26 turn
-signatures, hashes and known ``[N, 64]`` public keys into a validity
-mask.  Nothing leaves the device until the facade copies the results
-back.
+The port of ``eges_tpu/crypto/verifier.py``.  On a ``[N, ...]`` batch
+the fused path runs: 18 kernel launches turn ``[N, 65]`` wire
+signatures and ``[N, 32]`` hashes into 20-byte addresses, 64-byte
+public keys and a validity mask; 26 turn signatures, hashes and known
+``[N, 64]`` public keys into a validity mask.  A single row (``[65]``)
+or a stacked window (``[K, N, 65]``) takes the un-fused path of
+``ops/ec.py`` (about 8,400 launches, whatever the rows), as the
+reference does for every shape but 2-D.  Nothing leaves the device
+until the caller copies the results back.
 """
 
 from __future__ import annotations
@@ -22,22 +25,33 @@ import torch.nn.functional as F
 
 from eges_tpu_torch import resolve_device
 from eges_tpu_torch.crypto.bucketing import bucket_round
-from eges_tpu_torch.ops import ec, field
+from eges_tpu_torch.ops import ec, field, keccak
 from eges_tpu_torch.ops import kernels as K
+from eges_tpu_torch.ops.bigint import limbs_to_bytes_be
 
 
 def _limbs(rows: torch.Tensor, *offsets: int) -> list[torch.Tensor]:
-    """The big-endian 32-byte values at ``offsets`` of ``[B, n]`` uint8
-    rows -> ``[B, 16]`` int32 limb tensors."""
+    """The big-endian 32-byte values at ``offsets`` of ``[..., n]`` uint8
+    rows -> ``[..., 16]`` int32 limb tensors."""
     wide = rows.to(torch.int32)
     return [field.unpack_be(wide, off) for off in offsets]
 
 
 def _unpack(sigs: torch.Tensor, hashes: torch.Tensor):
-    """``sigs [B, 65]`` u8 (r || s || v), ``hashes [B, 32]`` u8 -> ``(z,
-    r, s)`` limbs ``[B, 16]`` and ``v [B]``, all int32."""
-    z, r, s = _limbs(torch.cat([hashes, sigs[:, :64]], 1), 0, 32, 64)
-    return z, r, s, sigs[:, 64].to(torch.int32)
+    """``sigs [..., 65]`` u8 (r || s || v), ``hashes [..., 32]`` u8 ->
+    ``(z, r, s)`` limbs ``[..., 16]`` and ``v [...]``, all int32."""
+    z, r, s = _limbs(torch.cat([hashes, sigs[..., :64]], -1), 0, 32, 64)
+    return z, r, s, sigs[..., 64].to(torch.int32)
+
+
+def _check_rows(sigs: torch.Tensor, hashes: torch.Tensor,
+                widths=(65,)) -> None:
+    if sigs.dim() == 0 or sigs.shape[-1] not in widths:
+        raise ValueError(f"sigs must be [..., {' or '.join(map(str, widths))}]"
+                         f", got {tuple(sigs.shape)}")
+    if tuple(hashes.shape) != (*sigs.shape[:-1], 32):
+        raise ValueError(f"hashes must be [..., 32] beside sigs "
+                         f"{tuple(sigs.shape)}, got {tuple(hashes.shape)}")
 
 
 def words_to_bytes(rows: torch.Tensor, B: int) -> torch.Tensor:
@@ -55,20 +69,32 @@ def addr_from_digest_rows(dig: torch.Tensor, B: int) -> torch.Tensor:
     return words_to_bytes(dig[3:8], B)
 
 
+@torch.inference_mode()
 def ecrecover_batch(sigs: torch.Tensor, hashes: torch.Tensor):
     """Batched sender recovery.
 
-    ``sigs [N, 65]`` uint8 wire signatures and ``hashes [N, 32]`` uint8
-    message hashes, on one device.  Returns ``(addrs [N, 20] uint8,
-    pubs [N, 64] uint8, ok [N] int32)``; invalid rows are zero with
-    ``ok == 0``.  The finish kernel already packed the masked keccak
-    block, whose first 16 words are the big-endian bytes of qx || qy.
+    ``sigs [..., 65]`` uint8 wire signatures and ``hashes [..., 32]``
+    uint8 message hashes, on one device.  Returns ``(addrs [..., 20]
+    uint8, pubs [..., 64] uint8, ok [...] int32)``; invalid rows are zero
+    with ``ok == 0``.  A ``[N, 65]`` batch takes the fused path, whose
+    finish kernel already packed the masked keccak block (its first 16
+    words are the big-endian bytes of qx || qy); any other shape the
+    un-fused ``ecrecover_point``, then keccak of the key bytes.
     """
-    B = sigs.shape[0]
-    _qx, _qy, ok, words = ec.ecrecover_point_fused(sigs, hashes)
-    addrs = addr_from_digest_rows(K.keccak_rows_pallas(words), B)
-    pubs = words_to_bytes(words[:16], B)
-    return addrs * ok[:, None].to(torch.uint8), pubs, ok
+    _check_rows(sigs, hashes)
+    if sigs.dim() == 2:
+        B = sigs.shape[0]
+        _qx, _qy, ok, words = ec.ecrecover_point_fused(sigs, hashes)
+        addrs = addr_from_digest_rows(K.keccak_rows_pallas(words), B)
+        pubs = words_to_bytes(words[:16], B)
+        return addrs * ok[:, None].to(torch.uint8), pubs, ok
+    z, r, s, v = _unpack(sigs, hashes)
+    qx, qy, ok = ec.ecrecover_point(z, r, s, v)
+    qx_b, qy_b = limbs_to_bytes_be(qx), limbs_to_bytes_be(qy)
+    mask = ok[..., None].to(torch.uint8)
+    addrs = keccak.pubkey_to_address(qx_b, qy_b)
+    pubs = torch.cat([qx_b, qy_b], -1) * mask
+    return addrs * mask, pubs, ok
 
 
 @torch.inference_mode()
@@ -76,13 +102,17 @@ def verify_batch(sigs: torch.Tensor, hashes: torch.Tensor,
                  pubs: torch.Tensor) -> torch.Tensor:
     """Batched classic ECDSA verify against known public keys.
 
-    ``sigs [N, 64]`` or ``[N, 65]`` uint8 (r || s, the recovery byte
-    ignored), ``hashes [N, 32]`` uint8, ``pubs [N, 64]`` uint8 (x || y,
-    big-endian), on one device.  Returns ``ok [N]`` int32.
+    ``sigs [..., 64]`` or ``[..., 65]`` uint8 (r || s, the recovery byte
+    ignored), ``hashes [..., 32]`` uint8, ``pubs [..., 64]`` uint8
+    (x || y, big-endian), on one device.  Returns ``ok [...]`` int32.  A
+    ``[N, ...]`` batch takes the fused path, any other shape the
+    un-fused one.
     """
-    if sigs.dim() != 2 or sigs.shape[1] not in (64, 65):
-        raise ValueError("sigs must be [N, 64] or [N, 65]")
-    if sigs.shape[1] == 64:
+    _check_rows(sigs, hashes, (64, 65))
+    if tuple(pubs.shape) != (*sigs.shape[:-1], 64):
+        raise ValueError(f"pubs must be [..., 64] beside sigs, got "
+                         f"{tuple(pubs.shape)}")
+    if sigs.shape[-1] == 64:
         sigs = F.pad(sigs, (0, 1))
     z, r, s, _ = _unpack(sigs, hashes)
     return ec.ecdsa_verify_point(z, r, s, *_limbs(pubs, 0, 32))

@@ -55,47 +55,43 @@ def const(limbs, like: torch.Tensor) -> torch.Tensor:
 def carry_tail(cols: torch.Tensor) -> torch.Tensor:
     """16 columns (each < 2^31) -> relaxed 16-limb value: two full carry
     chains with the 2^256 = 2^32 + 977 fold after each, then the closing
-    5-step chain."""
-    out = list(cols.unbind(-1))
+    5-step chain.  A chain is exact addition, so it runs here two limbs
+    to an int64 word (8 steps, not 16) with the same result bit for bit;
+    the closing chain drops the carry out of limb 4, as the kernel's
+    does."""
+    w = list((cols[..., 0::2] + (cols[..., 1::2] << 16)).unbind(-1))
     for _ in range(2):
         c = 0
-        for k in range(16):
-            t = out[k] + c
-            out[k] = t & MASK
-            c = t >> 16
-        out[0] = out[0] + c * 977
-        out[2] = out[2] + c
-    c = 0
-    for k in range(5):
-        t = out[k] + c
-        out[k] = t & MASK
-        c = t >> 16
-    return torch.stack(out, dim=-1)
-
-
-@functools.lru_cache(maxsize=None)
-def _diag(na: int, nb: int, device: torch.device):
-    """Gather index and mask lining the ``[na, nb]`` partial products up
-    along their anti-diagonals k = i + j."""
-    k = torch.arange(na + nb - 1)[None, :]
-    i = torch.arange(na)[:, None]
-    j = k - i
-    mask = ((j >= 0) & (j < nb)).to(torch.int64)
-    idx = j.clamp(0, nb - 1)
-    return idx.to(device), mask.to(device)
+        for j in range(8):
+            t = w[j] + c
+            w[j] = t & M32
+            c = t >> 32
+        w[0] = w[0] + c * 977      # limb 0
+        w[1] = w[1] + c            # limb 2
+    c = w[0] >> 32
+    w[0] = w[0] & M32
+    t = w[1] + c
+    w[1] = t & M32
+    w[2] = (w[2] & (MASK << 16)) | ((w[2] + (t >> 32)) & MASK)
+    words = torch.stack(w, dim=-1)
+    return torch.stack([words & MASK, words >> 16], dim=-1).reshape(
+        cols.shape)
 
 
 def mul_cols_vv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Uncarried schoolbook columns of ``a * b``: ``[..., na+nb]``.
     Column k sums lo(a_i b_j) over i+j = k and hi(a_i b_j) over
-    i+j = k-1 (each < 2^21 for 16 x 16 limbs)."""
+    i+j = k-1 (each < 2^21 for 16 x 16 limbs).  The ``[na, nb]`` partial
+    products are sheared so that row i moves i places right (pad each
+    row to na + nb, flatten, drop the last na, reshape to na + nb - 1
+    columns), which lines the anti-diagonals up as columns."""
     na, nb = a.shape[-1], b.shape[-1]
     prod = a[..., :, None] * b[..., None, :]
-    idx, mask = _diag(na, nb, a.device)
-    bidx = idx.expand(*prod.shape[:-2], na, na + nb - 1)
-    lo = (torch.gather(prod & MASK, -1, bidx) * mask).sum(-2)
-    hi = (torch.gather(prod >> 16, -1, bidx) * mask).sum(-2)
-    return F.pad(lo, (0, 1)) + F.pad(hi, (1, 0))
+    halves = torch.stack([prod & MASK, prod >> 16], dim=-3)
+    w = na + nb
+    sheared = F.pad(halves, (0, na)).flatten(-2)[..., :na * (w - 1)]
+    cols = sheared.reshape(*halves.shape[:-2], na, w - 1).sum(-2)
+    return F.pad(cols[..., 0, :], (0, 1)) + F.pad(cols[..., 1, :], (1, 0))
 
 
 def mul_cols(a: torch.Tensor, b_const) -> torch.Tensor:
@@ -319,6 +315,12 @@ def fn_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fn_red_cols(mul_cols_vv(a, b))
 
 
+def mulhi8(a: torch.Tensor, g_limbs) -> torch.Tensor:
+    """Limbs 24..31 of ``a`` times a 16-limb constant: ``(a * g) >> 384``
+    as ``[..., 8]``, the GLV rounding step."""
+    return carry(mul_cols(a, g_limbs), 32)[..., 24:32]
+
+
 # ---------------------------------------------------------------------------
 # keccak: 64-bit lanes as (lo, hi) pairs of 32-bit words held in int64
 # ---------------------------------------------------------------------------
@@ -443,15 +445,12 @@ def glv_track(u, consts):
     holds the limbs of (g1, g2, a1, a2, -b1, b2)."""
     g1, g2, a1, a2, b1n, b2 = consts
 
-    def mulhi8(a, g):
-        limbs = carry(mul_cols(a, g), 32)
-        return F.pad(limbs[..., 24:32], (0, 8))
-
     def fn_mul_const(a, c):
         return fn_red_cols(mul_cols(a, c))
 
-    c1 = mulhi8(u, g1)
-    c2 = mulhi8(u, g2)
+    # c_i = (u * g_i) >> 384, widened back to 16 limbs
+    c1 = F.pad(mulhi8(u, g1), (0, 8))
+    c2 = F.pad(mulhi8(u, g2), (0, 8))
     k1 = fn_sub(fn_sub(u, fn_mul_const(c1, a1)), fn_mul_const(c2, a2))
     k2 = fn_sub(fn_mul_const(c1, b1n), fn_mul_const(c2, b2))
 

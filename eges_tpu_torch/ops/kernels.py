@@ -1,5 +1,6 @@
-"""The fifteen kernels of batched sender recovery, classic ECDSA verify
-and one-block keccak256, each with its plain PyTorch version and its
+"""The twenty-one kernels of batched sender recovery, classic ECDSA
+verify, one-block keccak256 and the un-fused (stacked and single-row)
+recovery and verify path, each with its plain PyTorch version and its
 launch count.
 
 Every public function keeps the name, signature and array layouts of
@@ -9,8 +10,9 @@ so tests compare array with array.  Limb and word tensors are
 ``torch.uint8``.  ``Bpad`` is the batch rounded up to a multiple of 256,
 the reference's ``LANE_BLOCK``.
 
-A wrapper given CUDA tensors launches its kernel from ``csrc/recover.cu``
-or ``csrc/verify.cu`` on the current stream and adds one to ``LAUNCHES[name]``; given CPU
+A wrapper given CUDA tensors launches its kernel from ``csrc/recover.cu``,
+``csrc/verify.cu`` or ``csrc/glue.cu`` on the current stream and adds
+one to ``LAUNCHES[name]``; given CPU
 tensors it runs the plain version (``*_plain``), which repeats the
 kernel's arithmetic with ``ops/field.py`` and is also what
 ``chip_smoke.py`` holds each kernel against on the card.  There is no
@@ -19,11 +21,12 @@ fallback from one to the other.
 What bounds each kernel on the H100: the work is 16-bit limb products
 and carry chains on u32, one thread per row.  The card issues about ten
 u32 operations in the time it moves one byte of device memory.
-``fp_mul``, ``fp_canon``, ``recover_prelude``, ``fp_add`` and
-``fn_red17`` do fewer than that per byte they read and write, so bytes
-bound them; the other ten do more (``y_fix`` only just, ``pow_mod`` and
-``strauss_tab`` over a hundred times more) and integer operations bound
-them.  Each reads its
+``fp_mul``, ``fp_canon``, ``recover_prelude``, ``fp_add``,
+``fn_red17`` and the glue kernels ``fp_sub``, ``fp_neg``,
+``fp_mul_small``, ``fn_sub`` and ``fn_neg`` do fewer than that per byte
+they read and write, so bytes bound them; the other eleven do more
+(``y_fix`` only just, ``pow_mod`` and ``strauss_tab`` over a hundred
+times more) and integer operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.  The
 reference's TPU-only variants map onto
@@ -45,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from eges_tpu_torch.ops import build, curve, field
-from eges_tpu_torch.ops.bigint import NLIMBS
+from eges_tpu_torch.ops.bigint import NLIMBS, int_to_limbs
 
 LANE_BLOCK = 256
 POW_WINDOWS = 64
@@ -54,7 +57,8 @@ M32 = 0xFFFFFFFF
 KERNELS = ("recover_prelude", "pow_mod", "y_fix", "u1u2", "glv_digits",
            "point_table", "fp_mul", "fp_canon", "strauss_tab",
            "recover_finish", "keccak_rows", "fn_mul", "fn_red17", "fp_add",
-           "keccak_block")
+           "keccak_block", "fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
+           "fn_neg", "mulhi8")
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -277,6 +281,36 @@ def keccak_block_plain(words):
     return _i(field.keccak_words(_u(words)))
 
 
+@torch.inference_mode()
+def fp_sub_plain(a, b):
+    return _i(field.sub(_u(a), _u(b)))
+
+
+@torch.inference_mode()
+def fp_neg_plain(a):
+    return _i(field.neg(_u(a)))
+
+
+@torch.inference_mode()
+def fp_mul_small_plain(a, k: int):
+    return _i(field.mul_small(_u(a), k))
+
+
+@torch.inference_mode()
+def fn_sub_plain(a, b):
+    return _i(field.fn_sub(_u(a), _u(b)))
+
+
+@torch.inference_mode()
+def fn_neg_plain(a):
+    return _i(field.fn_neg(_u(a)))
+
+
+@torch.inference_mode()
+def mulhi8_plain(a, g: int):
+    return _i(field.mulhi8(_u(a), _g_limbs(g)))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -301,9 +335,16 @@ _ARGTYPES = {
     "eg_fn_red17": [_P, _I, _P, _P],
     "eg_fp_add": [_P, _P, _I, _P, _P],
     "eg_keccak_block": [_P, _I, _P, _P],
+    "eg_init_glue": [_P, _I],
+    "eg_fp_sub": [_P, _P, _I, _P, _P],
+    "eg_fp_neg": [_P, _I, _P, _P],
+    "eg_fp_mul_small": [_P, _I, _I, _P, _P],
+    "eg_fn_sub": [_P, _P, _I, _P, _P],
+    "eg_fn_neg": [_P, _I, _P, _P],
+    "eg_mulhi8": [_P, _P, _I, _P, _P],
 }
 # one per source: each translation unit has its own constants block
-_INITS = ("eg_init", "eg_init_verify")
+_INITS = ("eg_init", "eg_init_verify", "eg_init_glue")
 
 
 def pack_constants() -> np.ndarray:
@@ -477,29 +518,41 @@ def point_table_pallas(px, py):
     return X, Y, Z
 
 
-def fp_mul_pallas(a, b):
-    """``[M, 16] x [M, 16] -> [M, 16]`` relaxed F_P product.  Replaces
-    ``fp_mul_pallas`` (pallas_kernels.py:279)."""
+def _binary(name: str, a, b, plain):
+    """``[M, 16] op [M, 16] -> [M, 16]``: the launch of a two-operand
+    kernel ``eg_<name>``, or its plain version for CPU tensors."""
     M = _rows(a)
     _check(a, "a", (M, NLIMBS))
     _check(b, "b", (M, NLIMBS))
     if not _on_card(a, b):
-        return fp_mul_plain(a, b)
+        return plain(a, b)
     out = _empty((M, NLIMBS), a)
-    _launch("fp_mul", "eg_fp_mul", a, b, M, out)
+    _launch(name, "eg_" + name, a, b, M, out)
     return out
+
+
+def _unary(name: str, a, plain):
+    """``[M, 16] -> [M, 16]``: the launch of a one-operand kernel
+    ``eg_<name>``, or its plain version for CPU tensors."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    if not _on_card(a):
+        return plain(a)
+    out = _empty((M, NLIMBS), a)
+    _launch(name, "eg_" + name, a, M, out)
+    return out
+
+
+def fp_mul_pallas(a, b):
+    """``[M, 16] x [M, 16] -> [M, 16]`` relaxed F_P product.  Replaces
+    ``fp_mul_pallas`` (pallas_kernels.py:279)."""
+    return _binary("fp_mul", a, b, fp_mul_plain)
 
 
 def fp_canon_pallas(a):
     """``[M, 16]`` relaxed F_P -> canonical [0, P).  Replaces
     ``fp_canon_pallas`` (pallas_kernels.py:1282)."""
-    M = _rows(a)
-    _check(a, "a", (M, NLIMBS))
-    if not _on_card(a):
-        return fp_canon_plain(a)
-    out = _empty((M, NLIMBS), a)
-    _launch("fp_canon", "eg_fp_canon", a, M, out)
-    return out
+    return _unary("fp_canon", a, fp_canon_plain)
 
 
 def strauss_tab(dig, neg, trx, tlrx, try_, batch: int):
@@ -561,14 +614,7 @@ def keccak_rows_pallas(words):
 def fn_mul_pallas(a, b):
     """``[M, 16] x [M, 16] -> [M, 16]`` canonical mod-N product.  Replaces
     ``fn_mul_pallas`` (pallas_kernels.py:1114)."""
-    M = _rows(a)
-    _check(a, "a", (M, NLIMBS))
-    _check(b, "b", (M, NLIMBS))
-    if not _on_card(a, b):
-        return fn_mul_plain(a, b)
-    out = _empty((M, NLIMBS), a)
-    _launch("fn_mul", "eg_fn_mul", a, b, M, out)
-    return out
+    return _binary("fn_mul", a, b, fn_mul_plain)
 
 
 def fn_red17_pallas(a):
@@ -586,14 +632,7 @@ def fn_red17_pallas(a):
 def fp_add_pallas(a, b):
     """``[M, 16] + [M, 16] -> [M, 16]`` relaxed F_P sum.  Replaces
     ``fp_add_pallas`` (pallas_kernels.py:1270)."""
-    M = _rows(a)
-    _check(a, "a", (M, NLIMBS))
-    _check(b, "b", (M, NLIMBS))
-    if not _on_card(a, b):
-        return fp_add_plain(a, b)
-    out = _empty((M, NLIMBS), a)
-    _launch("fp_add", "eg_fp_add", a, b, M, out)
-    return out
+    return _binary("fp_add", a, b, fp_add_plain)
 
 
 def keccak_block_pallas(words):
@@ -608,6 +647,69 @@ def keccak_block_pallas(words):
         return keccak_block_plain(words)
     out = _empty((B, 8), words)
     _launch("keccak_block", "eg_keccak_block", words, B, out)
+    return out
+
+
+def fp_sub_pallas(a, b):
+    """``[M, 16] - [M, 16] -> [M, 16]`` relaxed F_P difference.  Replaces
+    ``fp_sub_pallas`` (pallas_kernels.py:1274)."""
+    return _binary("fp_sub", a, b, fp_sub_plain)
+
+
+def fp_neg_pallas(a):
+    """``[M, 16] -> [M, 16]`` relaxed F_P negation.  Replaces
+    ``fp_neg_pallas`` (pallas_kernels.py:1278)."""
+    return _unary("fp_neg", a, fp_neg_plain)
+
+
+def fp_mul_small_pallas(a, k: int):
+    """``[M, 16] -> [M, 16]`` relaxed F_P ``k * a`` for a small constant
+    0 <= k < 16.  Replaces ``fp_mul_small_pallas``
+    (pallas_kernels.py:1448), which compiled one kernel per k; here k
+    goes with the launch."""
+    if not 0 <= k < 16:
+        raise ValueError("fp_mul_small takes 0 <= k < 16")
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    if not _on_card(a):
+        return fp_mul_small_plain(a, k)
+    out = _empty((M, NLIMBS), a)
+    _launch("fp_mul_small", "eg_fp_mul_small", a, k, M, out)
+    return out
+
+
+def fn_sub_pallas(a, b):
+    """``[M, 16] - [M, 16] -> [M, 16]`` canonical mod-N difference of
+    canonical operands.  Replaces ``fn_sub_pallas``
+    (pallas_kernels.py:1286)."""
+    return _binary("fn_sub", a, b, fn_sub_plain)
+
+
+def fn_neg_pallas(a):
+    """``[M, 16] -> [M, 16]`` canonical mod-N negation (0 stays 0).
+    Replaces ``fn_neg_pallas`` (pallas_kernels.py:1290)."""
+    return _unary("fn_neg", a, fn_neg_plain)
+
+
+@functools.lru_cache(maxsize=8)
+def _g_limbs(g: int) -> tuple[int, ...]:
+    """The 16 limbs of a mulhi8 constant (raises unless 0 <= g < 2^256)."""
+    return tuple(int(v) for v in int_to_limbs(g))
+
+
+def mulhi8_pallas(a, g: int):
+    """``[M, 16] -> [M, 8]``: limbs 24..31 of ``a * g`` for a 256-bit
+    constant g, the GLV rounding ``(k * g) >> 384``.  Replaces
+    ``mulhi8_pallas`` (pallas_kernels.py:1299); g's limbs go with the
+    launch."""
+    limbs = _g_limbs(g)
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    if not _on_card(a):
+        return mulhi8_plain(a, g)
+    out = _empty((M, 8), a)
+    buf = (ctypes.c_uint32 * NLIMBS)(*limbs)
+    _launch("mulhi8", "eg_mulhi8", a, ctypes.addressof(buf), M, out)
     return out
 
 
@@ -628,9 +730,17 @@ REPLACES = {
     "fn_red17": "eges_tpu/ops/pallas_kernels.py:1294",
     "fp_add": "eges_tpu/ops/pallas_kernels.py:1270",
     "keccak_block": "eges_tpu/ops/pallas_kernels.py:745",
+    "fp_sub": "eges_tpu/ops/pallas_kernels.py:1274",
+    "fp_neg": "eges_tpu/ops/pallas_kernels.py:1278",
+    "fp_mul_small": "eges_tpu/ops/pallas_kernels.py:1448",
+    "fn_sub": "eges_tpu/ops/pallas_kernels.py:1286",
+    "fn_neg": "eges_tpu/ops/pallas_kernels.py:1290",
+    "mulhi8": "eges_tpu/ops/pallas_kernels.py:1299",
 }
 
 # the source file each kernel is in (under ops/csrc)
-SOURCE_OF = {name: "verify.cu" if name in ("fn_mul", "fn_red17", "fp_add",
-                                           "keccak_block") else "recover.cu"
-             for name in KERNELS}
+SOURCE_OF = dict.fromkeys(KERNELS, "recover.cu")
+SOURCE_OF.update(dict.fromkeys(("fn_mul", "fn_red17", "fp_add",
+                                "keccak_block"), "verify.cu"))
+SOURCE_OF.update(dict.fromkeys(("fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
+                                "fn_neg", "mulhi8"), "glue.cu"))

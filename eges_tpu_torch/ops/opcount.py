@@ -1,14 +1,15 @@
 """u32 operations per row of each kernel: the operation half of the
 bound that ``chip_smoke.py`` sets beside each kernel's time.
 
-Counted from ``csrc/field.cuh`` and ``csrc/recover.cu``: each add, sub,
+Counted from ``csrc/field.cuh`` and the kernel sources: each add, sub,
 mul, and, or, xor, shift, compare or select of one 32-bit lane is one
 operation, and a 64-bit keccak lane operation is two; copies, loads and
 stores are not counted.  ``HELPERS`` gives each device function of
 ``field.cuh`` its own operations (its loops, counted by hand) and the
 counted functions it calls, with how many call sites.
-``tests/test_torch_opcount.py`` parses ``field.cuh`` and holds every
-function's calls equal to its entry, so a changed formula fails a test
+``tests/test_torch_opcount.py`` parses ``field.cuh``, ``verify.cu`` and
+``glue.cu`` and holds every function's and kernel's calls equal to its
+entry, so a changed formula fails a test
 instead of moving the bound unseen.  Templates are counted by formula
 (``TEMPLATES``), keyed in ``HELPERS`` by their arguments, for example
 ``"mul_cols<16,16>"``.
@@ -110,6 +111,17 @@ VERIFY_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
     "keccak_block": ("k_keccak_block", {"keccak_words": 1}),
 }
 
+# the kernels of csrc/glue.cu, in the same form
+GLUE_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
+    "fp_sub": ("k_fp_sub", {"fp_sub": 1}),
+    "fp_neg": ("k_fp_neg", {"fp_neg": 1}),
+    "fp_mul_small": ("k_fp_mul_small", {"fp_mul_small": 1}),
+    "fn_sub": ("k_fn_sub", {"fn_sub": 1}),
+    "fn_neg": ("k_fn_neg", {"fn_neg": 1}),
+    # limbs 24..31 of a * g: the product's columns and their carry chain
+    "mulhi8": ("k_mulhi8", {"mul_cols<16,16>": 1, "carry<32,32>": 1}),
+}
+
 
 @functools.cache
 def ops(name: str) -> int:
@@ -156,5 +168,5 @@ def per_row(windows: int = 33, negations: float = 0.0,
         "recover_finish": ops("recover_finish"),
         "keccak_rows": ops("keccak_words"),
         **{name: sum(n * ops(callee) for callee, n in calls.items())
-           for name, (_, calls) in VERIFY_KERNELS.items()},
+           for name, (_, calls) in (VERIFY_KERNELS | GLUE_KERNELS).items()},
     }

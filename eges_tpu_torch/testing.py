@@ -251,3 +251,46 @@ def verify_rows(rng: np.random.Generator, n_valid: int):
 def host_verify(sig: np.ndarray, msg: np.ndarray, pub: np.ndarray) -> bool:
     """The host model's answer for one classic-verify row."""
     return host.ecdsa_verify(bytes(msg), bytes(sig[:64]), bytes(pub))
+
+
+# ---------------------------------------------------------------------------
+# the un-fused path (stacked [K, N, ...] windows and single rows)
+# ---------------------------------------------------------------------------
+
+# Kernel launches of one un-fused batch, whatever its rows.  The ladder
+# is 33 windows of 4 doublings (jac_double: 7 fp_mul, 5 fp_sub, 5
+# fp_mul_small, 1 fp_add) and 4 adds (an fp_neg of the looked-up y, then
+# jac_add_mixed: 11 fp_mul, 6 fp_sub, 5 fp_mul_small and a doubling);
+# the R table is 14 more adds, normalised by a pow, an fp_canon and 4
+# fp_mul, with 1 fp_mul for beta * x; the GLV split of both scalars is 2
+# mulhi8, 4 fn_mul, 3 fn_sub and 2 fn_neg; to_affine is a pow, 4 fp_mul
+# and 3 fp_canon.  Recovery adds y^2 (2 fp_mul, 1 fp_add), the root (a
+# pow, 1 fp_mul and 3 fp_canon, 1 fp_neg), r^-1 (a pow), z mod N
+# (fn_red17), u1 and u2 (2 fn_mul, 1 fn_neg); verify adds on_curve (3
+# fp_mul, 1 fp_add, 2 fp_canon), s^-1 (a pow), z and px mod N (2
+# fn_red17) and u1 and u2 (2 fn_mul).
+UNFUSED_RECOVER_LAUNCHES = {
+    "fp_mul": 3564, "fp_sub": 2266, "fp_mul_small": 2120, "fp_add": 279,
+    "fp_neg": 133, "fp_canon": 7, "fn_mul": 6, "pow_mod": 4, "fn_sub": 3,
+    "fn_neg": 3, "mulhi8": 2, "fn_red17": 1}
+UNFUSED_VERIFY_LAUNCHES = {
+    "fp_mul": 3564, "fp_sub": 2266, "fp_mul_small": 2120, "fp_add": 279,
+    "fp_neg": 132, "fp_canon": 6, "fn_mul": 6, "pow_mod": 3, "fn_sub": 3,
+    "fn_neg": 2, "mulhi8": 2, "fn_red17": 2}
+
+
+def recover_class_rows(rng: np.random.Generator, n_signed: int = 3):
+    """Rows of every recovery class: ``n_signed`` signed rows (more if
+    they lack a parity), two recovery-id 2/3 rows (R.x = r + N) and one
+    row of each of INVALID_CLASSES.  Returns ``(sigs [n, 65] u8, hashes [n, 32] u8,
+    kinds)``."""
+    sigs, hashes, _ = signed_rows(rng, n_signed)
+    while len(set(sigs[:, 64])) < 2:        # both parities
+        s, h, _ = signed_rows(rng, 1)
+        sigs, hashes = np.concatenate([sigs, s]), np.concatenate([hashes, h])
+    hx_s, hx_h = high_x_rows(rng, 2)
+    bad_s, bad_h = invalid_rows(rng, sigs[0], hashes[0])
+    kinds = (["signed"] * len(sigs) + ["high_x"] * 2
+             + list(INVALID_CLASSES))
+    return (np.concatenate([sigs, hx_s, bad_s]),
+            np.concatenate([hashes, hx_h, bad_h]), kinds)

@@ -1,7 +1,8 @@
 """The CUDA kernels of eges_tpu_torch against their plain PyTorch versions
 on the card, bit for bit (the arithmetic is integer: tolerance 0), and
 the recovery, classic-verify and keccak paths end to end against the
-host model.
+host model, the stacked (un-fused) windows also against the fused path
+on the same rows.
 
 Marked ``gpu``; run on a machine with a card as
 ``python -m pytest tests/test_torch_cuda.py -m gpu``.  Without a card
@@ -47,7 +48,8 @@ def test_build_reports_every_kernel(dev):
         "k_recover_prelude", "k_pow_p", "k_pow_n", "k_y_fix", "k_u1u2",
         "k_glv_digits", "k_point_table", "k_fp_mul", "k_fp_canon",
         "k_strauss", "k_recover_finish", "k_keccak_rows", "k_fn_mul",
-        "k_fn_red17", "k_fp_add", "k_keccak_block"}
+        "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
+        "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8"}
 
 
 def test_fp_mul_and_canon(dev):
@@ -176,3 +178,57 @@ def test_verify_on_card(dev):
         assert bool(ok[i]) == tt.host_verify(sigs[i], hashes[i], pubs[i]), kind
     np.testing.assert_array_equal(
         BatchVerifier().verify(sigs[:, :64].copy(), hashes, pubs), ok)
+
+
+def test_glue_kernels(dev):
+    from eges_tpu_torch.ops.curve import _G_G1, _G_G2
+
+    rng = np.random.default_rng(20)
+    a = K.from_reference(_limbs(rng, B), dev)
+    b = K.from_reference(_limbs(rng, B)[::-1].copy(), dev)
+    n1 = K.from_reference(_limbs(rng, B, N), dev)
+    n2 = K.from_reference(_limbs(rng, B, N)[::-1].copy(), dev)
+    _same(K.fp_sub_pallas(a, b), K.fp_sub_plain(a, b))
+    _same(K.fp_neg_pallas(a), K.fp_neg_plain(a))
+    for k in (0, 2, 3, 4, 8, 15):
+        _same(K.fp_mul_small_pallas(a, k), K.fp_mul_small_plain(a, k))
+    _same(K.fn_sub_pallas(n1, n2), K.fn_sub_plain(n1, n2))
+    _same(K.fn_sub_pallas(n1, n1), K.fn_sub_plain(n1, n1))
+    _same(K.fn_neg_pallas(n1), K.fn_neg_plain(n1))
+    for g in (_G_G1, _G_G2):
+        _same(K.mulhi8_pallas(n1, g), K.mulhi8_plain(n1, g))
+
+
+def test_stacked_paths_on_card(dev):
+    """A stacked recovery and a stacked verify window: launches as
+    pinned, results equal to the fused path on the same rows flattened
+    and to the host model."""
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch, verify_batch
+
+    sigs, hashes, _ = tt.recover_class_rows(np.random.default_rng(21))
+    s, h = (torch.from_numpy(x).to(dev) for x in (sigs, hashes))
+    K.reset_launches()
+    got = ecrecover_batch(s.reshape(2, 5, 65), h.reshape(2, 5, 32))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == \
+        tt.UNFUSED_RECOVER_LAUNCHES
+    for g, f in zip(got, ecrecover_batch(s, h)):
+        assert torch.equal(g.reshape(10, *g.shape[2:]), f)
+    addrs, pubs, ok = (t.reshape(10, -1).cpu().numpy() for t in got)
+    for i in range(10):
+        want = tt.host_recover(sigs[i], hashes[i])
+        if want is None:
+            assert not ok[i, 0] and not addrs[i].any() and not pubs[i].any()
+        else:
+            assert ok[i, 0] and (bytes(addrs[i]), bytes(pubs[i])) == want
+
+    rows = tt.verify_rows(np.random.default_rng(22), 1)
+    flat = [torch.from_numpy(x).to(dev) for x in rows[:3]]
+    K.reset_launches()
+    ok = verify_batch(*(t.reshape(3, 5, -1) for t in flat))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == \
+        tt.UNFUSED_VERIFY_LAUNCHES
+    assert torch.equal(ok.reshape(15), verify_batch(*flat))
+    assert [bool(v) for v in ok.reshape(15).cpu()] == [
+        tt.host_verify(*r) for r in zip(*rows[:3])]

@@ -1,7 +1,7 @@
 """The op count behind chip_smoke.py's bounds, held against the CUDA
 source it counts: every device function of ``field.cuh`` makes exactly
 the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it,
-and so does every kernel of ``verify.cu``."""
+and so does every kernel of ``verify.cu`` and ``glue.cu``."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from eges_tpu_torch.ops import opcount
 FIELD_CUH = (pathlib.Path(__file__).resolve().parents[1] / "eges_tpu_torch"
              / "ops" / "csrc" / "field.cuh")
 VERIFY_CU = FIELD_CUH.with_name("verify.cu")
+GLUE_CU = FIELD_CUH.with_name("glue.cu")
 # functions of field.cuh that move values and count no operations
 # (rotl64 is counted inside keccak_words' own operations)
 UNCOUNTED = {"copy16", "zero16", "one16", "rotl64"}
@@ -130,3 +131,26 @@ def test_verify_kernel_counts():
     assert rows["fn_red17"] == opcount.fn_red_cols(17) == 607
     assert rows["fp_add"] == 16 + opcount.CARRY_TAIL == 133
     assert rows["keccak_block"] == rows["keccak_rows"] == opcount.KECCAK
+
+
+def test_every_glue_kernel_is_counted():
+    assert set(_kernel_bodies(GLUE_CU)) == {
+        fn for fn, _ in opcount.GLUE_KERNELS.values()}
+
+
+@pytest.mark.parametrize("name", sorted(opcount.GLUE_KERNELS))
+def test_glue_kernel_calls_match_the_source(name):
+    fn, calls = opcount.GLUE_KERNELS[name]
+    assert dict(_counted_calls(_kernel_bodies(GLUE_CU)[fn])) == calls
+
+
+def test_glue_kernel_counts():
+    rows = opcount.per_row()
+    sub = 16 * 3 + opcount.CARRY_TAIL
+    assert rows["fp_sub"] == rows["fp_neg"] == sub == 165
+    assert rows["fp_mul_small"] == 16 + opcount.CARRY_TAIL == 133
+    assert rows["fn_sub"] == 16 * 3 + opcount.fn_red_cols(16) == 544
+    assert rows["fn_neg"] == (rows["fn_sub"] + opcount.ops("is_zero")
+                              + opcount.ops("select16")) == 592
+    assert rows["mulhi8"] == (opcount.mul_cols(16, 16)
+                              + opcount.carry(32, 32)) == 1376

@@ -34,17 +34,7 @@ N_SIGNED = 8
 def rows():
     """(sigs [n, 65] u8, hashes [n, 32] u8, kinds): signed rows with both
     parities, two recovery-id 2/3 rows, one row of each invalid class."""
-    rng = np.random.default_rng(2026)
-    sigs, hashes, _ = tt.signed_rows(rng, N_SIGNED)
-    while len(set(sigs[:, 64])) < 2:        # both parities
-        s, h, _ = tt.signed_rows(rng, 1)
-        sigs, hashes = np.concatenate([sigs, s]), np.concatenate([hashes, h])
-    hx_s, hx_h = tt.high_x_rows(rng, 2)
-    bad_s, bad_h = tt.invalid_rows(rng, sigs[0], hashes[0])
-    kinds = (["signed"] * len(sigs) + ["high_x"] * 2
-             + list(tt.INVALID_CLASSES))
-    return (np.concatenate([sigs, hx_s, bad_s]),
-            np.concatenate([hashes, hx_h, bad_h]), kinds)
+    return tt.recover_class_rows(np.random.default_rng(2026), N_SIGNED)
 
 
 def _twin_pipeline(sigs, hashes):

@@ -137,11 +137,13 @@ def test_new_kernels_are_listed():
     for name in ("fn_mul", "fn_red17", "fp_add", "keccak_block"):
         assert name in K.KERNELS and K.SOURCE_OF[name] == "verify.cu"
         assert K.REPLACES[name].startswith("eges_tpu/ops/pallas_kernels.py:")
-    assert len(K.KERNELS) == len(K.REPLACES) == 15
+    assert len(K.KERNELS) == len(K.REPLACES) == 21
 
 
 @pytest.mark.parametrize("name", ["fn_mul", "fn_red17", "fp_add",
-                                  "keccak_block"])
+                                  "keccak_block", "fp_sub", "fp_neg",
+                                  "fp_mul_small", "fn_sub", "fn_neg",
+                                  "mulhi8"])
 def test_replaces_names_the_pallas_wrapper(name):
     path, line = K.REPLACES[name].split(":")
     src = open(pk.__file__).read().splitlines()

@@ -1,6 +1,7 @@
 """Drive eges_tpu_torch's paths on one CUDA card: batched sender
-recovery, classic ECDSA verify and Keccak-256, and the un-fused
-recovery and verify of stacked windows.
+recovery, classic ECDSA verify and Keccak-256, the un-fused
+recovery and verify of stacked windows, and the same paths under the
+reference's TPU-tiling configuration.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
@@ -52,6 +53,29 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    the host model, launches by kernel equal to the pinned counts of
    ``testing.UNFUSED_*_LAUNCHES`` (about 8,400 a batch); p50 of a few
    batches, and the host's enqueue time against the done time.
+9. tiling: the reference's TPU-tiling configuration
+   (``EGES_TPU_LANE_BLOCK=1024 EGES_TPU_ROWS8=1 EGES_TPU_KECCAK_GRID=1``,
+   ``testing.tiling_config``).  First its three kernels (``tiling.cu``),
+   one ``tiling_kernel`` line each: pow_mod_rows8 at the four pow
+   launches of a recovery batch (8192 rows, 131072 for the table's pow;
+   p and n), strauss_tab_rows8 at 8192 rows, the keccak round kernel at
+   8192 columns, each held bit for bit against its plain version on the
+   same tiles, also at a ragged count (1030 pow rows, a 1000-row ladder
+   of two windows, 4097 keccak columns), and timed beside its
+   default-layout twin (#2, #9, #11) on the same values, with the
+   reference-contract wrapper's time (re-lay included), the plain
+   version's, the bound and registers and spills.  Then the slice under
+   the configuration: phase 3's block through ``recover_addresses``
+   (byte-equal to phase 3 and the host model, 18 launches as
+   ``testing.TILING_RECOVER_LAUNCHES`` pins them), the config-3 and
+   config-4 vote rounds through ``verify`` (26 launches), phase 6's 4000
+   one-block messages through ``keccak256_fixed`` (one round-kernel
+   launch) and a stacked ``[4, 1024]`` recovery window (equal to the
+   fused default path, 4 of its launches pow_mod_rows8).
+10. tiling_ab: the default and tiling configurations in turns (three
+   rounds each, ABBA order) in this one call: recovery verifies/s at
+   8192 rows and p50 at 1024 rows, verify p50 at 1024 and 256 rows;
+   each configuration's median and spread.
 
 Then the ``kernels`` line (launches summed over the paths' runs, and per
 path), the card's name and power limit as nvidia-smi gives
@@ -86,12 +110,21 @@ STACK = (4, 1024)                   # a stacked recovery window, K x N
 STACK_VERIFY = (4, 256)             # a stacked window of config-3 votes
 RUNS_STACKED = 5                    # timed stacked batches per path
 RAGGED = 4097                       # glue kernels' ragged-edge check
+RAGGED_POW8 = 1030                  # rows8 pow: two tiles, one ragged
+RAGGED_LADDER = (1000, 2)           # rows8 ladder: rows of one tile, windows
+AB_ROUNDS = ("default", "tiling", "tiling", "default", "default",
+             "tiling")              # the A/B's order, three rounds each
+AB_8192 = 5                         # timed 8192-row batches a round
+AB_CALLS = 100                      # timed calls a round for each p50
 # fp_mul_small launches of one un-fused batch by k: each doubling takes
 # k = 2 three times, 3 and 8 once; each mixed add k = 2 four times and 4
 # once, besides its doubling; 33 windows of 4 + 4, 14 table adds
 MUL_SMALL_K = {2: 1418, 3: 278, 4: 146, 8: 278}
 # the __global__ functions of a kernel, where they are not k_<name>
-GLOBALS = {"pow_mod": ("k_pow_p", "k_pow_n"), "strauss_tab": ("k_strauss",)}
+GLOBALS = {"pow_mod": ("k_pow_p", "k_pow_n"), "strauss_tab": ("k_strauss",),
+           "pow_mod_rows8": ("k_pow_rows8_p", "k_pow_rows8_n"),
+           "strauss_tab_rows8": ("k_strauss_rows8",),
+           "keccak_rows_grid": ("k_keccak_round",)}
 # launches of one classic-verify batch: on_curve (3 fp_mul, fp_add, 2
 # fp_canon), s^-1 (pow), z and px mod N (2 fn_red17), u1 and u2 (2
 # fn_mul), strauss_gR (glv_digits, point_table, pow, fp_canon, 5 fp_mul,
@@ -305,40 +338,50 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     cases += glue
     records = {}
     for name, launches in cases:
-        rec = {"name": name, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
-               "bytes": 0, "ops": 0.0, "launches_timed": len(launches)}
-        done = {}  # a launch repeated on the main path (fp_mul x5) runs once
-        for kern, plain, nb, ops in launches:
-            if kern not in done:
-                got = kern()
-                want, pms = timed(plain)
-                err = max_abs_err(got, want)
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                if err:
-                    raise AssertionError(f"{name}: kernel and plain version "
-                                         f"differ (max abs err {err})")
-                done[kern] = (cuda_ms(kern, 5), pms)
-            ms, pms = done[kern]
-            rec["ms"] += ms
-            rec["plain_ms"] += pms
-            rec["bytes"] += nb
-            rec["ops"] += ops
-        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
-                                                 clock_hz)
-        for kern, plain in ragged.get(name, ()):
-            err = max_abs_err(kern(), plain())
+        records[name] = _check_kernel(name, launches, ragged.get(name, ()),
+                                      RAGGED, clock_hz, ptxas, "kernel")
+    return records
+
+
+def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
+                  phase):
+    """One kernel's launches of a batch, each ``(kernel call, plain
+    call, bytes, ops)``: held bit for bit against the plain version and
+    timed; then its ragged ``(kernel call, plain call)`` pairs.  Emits
+    and returns the record (ms and bound cover all the launches)."""
+    rec = {"name": name, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+           "bytes": 0, "ops": 0.0, "launches_timed": len(launches)}
+    done = {}  # a launch repeated on the main path (fp_mul x5) runs once
+    for kern, plain, nb, ops in launches:
+        if kern not in done:
+            got = kern()
+            want, pms = timed(plain)
+            err = max_abs_err(got, want)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if err:
                 raise AssertionError(f"{name}: kernel and plain version "
-                                     f"differ at {RAGGED} rows (max abs "
-                                     f"err {err})")
-            rec["ragged_rows_equal"] = RAGGED
-        rec["ptxas"] = {g: ptxas.get(g) for g in
-                        GLOBALS.get(name, ("k_" + name,))}
-        records[name] = rec
-        emit({"phase": "kernel", **{k: (round(v, 6) if isinstance(v, float)
-                                        else v) for k, v in rec.items()},
-              "equal": True})
-    return records
+                                     f"differ (max abs err {err})")
+            done[kern] = (cuda_ms(kern, 5), pms)
+        ms, pms = done[kern]
+        rec["ms"] += ms
+        rec["plain_ms"] += pms
+        rec["bytes"] += nb
+        rec["ops"] += ops
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
+                                             clock_hz)
+    for kern, plain in ragged:
+        err = max_abs_err(kern(), plain())
+        if err:
+            raise AssertionError(f"{name}: kernel and plain version "
+                                 f"differ at {ragged_rows} rows (max abs "
+                                 f"err {err})")
+        rec["ragged_rows_equal"] = ragged_rows
+    rec["ptxas"] = {g: ptxas.get(g) for g in
+                    GLOBALS.get(name, ("k_" + name,))}
+    emit({"phase": phase, **{k: (round(v, 6) if isinstance(v, float)
+                                 else v) for k, v in rec.items()},
+          "equal": True})
+    return rec
 
 
 def _verify_kernel_cases(dev, OPS):
@@ -512,7 +555,7 @@ def phase_slice(rng):
         len(sigs)), "valid_rows_matching_host": n_valid,
         "invalid_rows_rejected": n_invalid, "launches": launches,
         "launches_total": sum(launches.values())})
-    return launches, (sigs, hashes, answers)
+    return launches, (sigs, hashes, answers), (addrs, ok)
 
 
 def phase_e2e(rows):
@@ -799,6 +842,252 @@ def phase_stacked(rows, r4, dev):
     return paths
 
 
+def _config(tiling: bool, fn):
+    """``fn`` run under the tiling configuration or the default one."""
+    from eges_tpu_torch import testing as tt
+
+    def run():
+        with tt.tiling_config(tiling):
+            return fn()
+    return run
+
+
+def phase_tiling_kernels(dev, clock_hz, ptxas):
+    """The three kernels of ``tiling.cu`` at the tiling path's shapes,
+    each against its plain version on the same tiles (``_check_kernel``)
+    and, on the same values, its default-layout twin and the
+    reference-contract wrapper (re-lay included).  Inputs come from
+    their own generator.  Returns the records."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K, opcount
+    from eges_tpu_torch.ops.bigint import N, P
+
+    rng = np.random.default_rng(SEED + 6)
+    B, M = B_MAIN, 16 * B_MAIN
+
+    def limbs(n, bound=1 << 256):
+        return K.from_reference(tt.limb_rows(tt.field_values(rng, n, bound)),
+                                dev)
+
+    a_b, b_b, n1, a_m = limbs(B), limbs(B), limbs(B, N), limbs(M)
+    dig = torch.from_numpy(rng.integers(0, 16, (33, 8, B)).astype(
+        np.int32)).to(dev)
+    dig[:, 4:] = 0
+    neg = torch.zeros(8, B, dtype=torch.int32, device=dev)
+    neg[:4] = torch.from_numpy(rng.integers(0, 2, (4, B)).astype(
+        np.int32)).to(dev)
+    tabs = [K.from_reference(rng.integers(0, 1 << 16, (256, B)).astype(
+        np.uint32), dev) for _ in range(3)]
+    words = K.from_reference(rng.integers(0, 1 << 32, (34, B),
+                                          dtype=np.uint64).astype(np.uint32),
+                             dev)
+    OPS = opcount.per_row(negations=33 * float(neg[:4].sum()) / B,
+                          ladder_doublings=0.0)
+
+    def pw(a, e, mod):
+        """(kernel, plain, bytes, ops), (twin, path) of one pow launch."""
+        at = K.to_rows8(a)
+        rows = a.shape[0]
+        return ((lambda: K.pow_rows8_tiles(at, e, mod, rows),
+                 lambda: K.pow_mod_rows8_plain(at, e, mod, rows),
+                 2 * nbytes(at), rows * OPS["pow_mod_rows8_" + mod]),
+                (_config(False, lambda: K.pow_mod_pallas(a, e, mod)),
+                 lambda: K.pow_mod_rows8(a, e, mod)))
+
+    pows = [pw(a_b, (P + 1) // 4, "p"), pw(n1, N - 2, "n"),
+            pw(a_m, P - 2, "p"), pw(b_b, P - 2, "p")]
+    laid = (K.lay_digits_rows8(dig), K.lay_rows8(neg),
+            *(K.lay_rows8(t) for t in tabs))
+    ladder = ((lambda: K.strauss_rows8_tiles(*laid, B),
+               lambda: K.strauss_tab_rows8_plain(*laid, B),
+               nbytes(*laid) + 3 * 64 * B, B * OPS["strauss_tab_rows8"]),
+              (_config(False, lambda: K.strauss_tab(dig, neg, *tabs, B)),
+               lambda: K.strauss_tab_rows8(dig, neg, *tabs, B)))
+    keccak = ((lambda: K.keccak_rows_grid(words),
+               lambda: K.keccak_rows_grid_plain(words),
+               nbytes(words) + 50 * 4 * B, B * OPS["keccak_rows_grid"]),
+              (_config(False, lambda: K.keccak_rows_pallas(words)),
+               _config(True, lambda: K.keccak_rows_pallas(words))))
+
+    # ragged counts: 1030 pow rows (p and n), a 1000-row ladder of two
+    # windows in one tile, 4097 keccak columns
+    ragged = {}
+    for mod, bound_ in (("p", 1 << 256), ("n", N)):
+        at = K.to_rows8(K.pad_rows8(limbs(RAGGED_POW8, bound_))[0])
+        e = P - 2 if mod == "p" else N - 2
+        ragged.setdefault("pow_mod_rows8", []).append(
+            (lambda at=at, e=e, m=mod: K.pow_rows8_tiles(at, e, m,
+                                                          RAGGED_POW8),
+             lambda at=at, e=e, m=mod: K.pow_mod_rows8_plain(at, e, m,
+                                                             RAGGED_POW8)))
+    rows_l, windows = RAGGED_LADDER
+    rl = (K.lay_digits_rows8(dig[:windows, :, :1024].contiguous()),
+          K.lay_rows8(neg[:, :1024].contiguous()),
+          *(K.lay_rows8(t[:, :1024].contiguous()) for t in tabs))
+    ragged["strauss_tab_rows8"] = [
+        (lambda: K.strauss_rows8_tiles(*rl, rows_l),
+         lambda: K.strauss_tab_rows8_plain(*rl, rows_l))]
+    wr = K.from_reference(rng.integers(0, 1 << 32, (34, RAGGED),
+                                       dtype=np.uint64).astype(np.uint32),
+                          dev)
+    ragged["keccak_rows_grid"] = [(lambda: K.keccak_rows_grid(wr),
+                                   lambda: K.keccak_rows_grid_plain(wr))]
+    counts = {"pow_mod_rows8": RAGGED_POW8, "strauss_tab_rows8": rows_l,
+              "keccak_rows_grid": RAGGED}
+
+    records = {}
+    for name, entries in (("pow_mod_rows8", pows),
+                          ("strauss_tab_rows8", [ladder]),
+                          ("keccak_rows_grid", [keccak])):
+        rec = _check_kernel(name, [e for e, _ in entries], ragged[name],
+                            counts[name], clock_hz, ptxas, "tiling_kernel")
+        # the default-layout twin and the reference-contract wrapper on
+        # the same values: equal, and timed the same way
+        rec["twin_ms"] = rec["path_ms"] = 0.0
+        for _, (twin, path) in entries:
+            if max_abs_err(path(), twin()):
+                raise AssertionError(f"{name}: tiling and default layout "
+                                     "differ")
+            rec["twin_ms"] += cuda_ms(twin, 5)
+            rec["path_ms"] += cuda_ms(path, 5)
+        emit({"phase": "tiling_kernel", "name": name,
+              "twin_ms": rec["twin_ms"], "path_ms": rec["path_ms"],
+              "ms": rec["ms"], "twin_equal": True})
+        records[name] = rec
+    return records
+
+
+def phase_tiling(rows, slice_out, r3, r4, dev):
+    """Recovery, verify, keccak and a stacked window through the entry
+    points under the tiling configuration, against phase 3, the host
+    model and the default path, with the pinned launches of each.
+    Returns the launches of each path."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.crypto.keccak import keccak256
+    from eges_tpu_torch.crypto.verifier import BatchVerifier, ecrecover_batch
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.keccak import keccak256_fixed
+
+    out = {"phase": "tiling", "env": tt.TILING_ENV}
+    paths = {}
+
+    def run(what, fn, pinned):
+        with tt.tiling_config():
+            K.reset_launches()
+            got = fn()
+            torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        want = dict.fromkeys(K.KERNELS, 0)
+        want.update(pinned)
+        if launches != want:
+            raise AssertionError(f"tiling {what}: launch counts {launches}, "
+                                 f"want {want}")
+        paths["tiling_" + what] = launches
+        return got
+
+    verifier = BatchVerifier()
+    sigs, hashes, answers = rows
+    addrs, ok = run("recover", lambda: verifier.recover_addresses(
+        sigs, hashes), tt.TILING_RECOVER_LAUNCHES)
+    if not (np.array_equal(addrs, slice_out[0])
+            and np.array_equal(ok, slice_out[1])):
+        raise AssertionError("tiling recovery differs from phase 3")
+    for i, ans in enumerate(answers):
+        if (ans is None) == bool(ok[i]) or (
+                ans is not None and bytes(addrs[i]) != ans[0]):
+            raise AssertionError(f"tiling recovery row {i} differs from the "
+                                 "host model")
+    out["recover"] = {"rows": len(sigs), "rows_matching_phase3": len(sigs),
+                      "rows_matching_host": len(sigs)}
+
+    for cfg, (vs, vh, vp, _, vans) in (("config3", r3), ("config4", r4)):
+        vok = run("verify", lambda: verifier.verify(vs, vh, vp),
+                  tt.TILING_VERIFY_LAUNCHES)
+        if [bool(v) for v in vok] != list(vans):
+            raise AssertionError(f"tiling verify {cfg} differs from the host "
+                                 "model")
+        out[cfg] = {"rows": len(vs), "rows_matching_host": len(vs),
+                    "accepted": int(vok.sum())}
+
+    txs = np.random.default_rng(SEED + 4).integers(0, 256, (B_KECCAK, 110),
+                                                   dtype=np.uint8)
+    dig = run("keccak", lambda: keccak256_fixed(torch.from_numpy(txs).to(
+        dev)), {"keccak_rows_grid": 1}).cpu().numpy()
+    for i in range(len(txs)):
+        if bytes(dig[i]) != keccak256(bytes(txs[i])):
+            raise AssertionError(f"tiling keccak row {i} differs from the "
+                                 "host model")
+    out["keccak"] = {"rows": len(txs), "matching_host": len(txs)}
+
+    n = STACK[0] * STACK[1]
+    s_dev = torch.from_numpy(sigs[:n]).to(dev)
+    h_dev = torch.from_numpy(hashes[:n]).to(dev)
+    fused = ecrecover_batch(s_dev, h_dev)
+    got = run("stacked_recover", lambda: ecrecover_batch(
+        s_dev.reshape(*STACK, 65), h_dev.reshape(*STACK, 32)),
+        tt.TILING_UNFUSED_RECOVER_LAUNCHES)
+    for g, f, what in zip(got, fused, ("addrs", "pubs", "ok")):
+        if not torch.equal(g.reshape(n, *g.shape[2:]), f):
+            raise AssertionError(f"tiling stacked recovery: {what} differ "
+                                 "from the default fused path")
+    out["stacked_recover"] = {"shape": list(STACK),
+                              "rows_matching_default": n}
+    out["launches"] = {p: {k: v for k, v in l.items() if v}
+                       for p, l in paths.items()}
+    emit(out)
+    return paths
+
+
+def phase_tiling_ab(rows, r3, r4):
+    """The default and tiling configurations in turns (``AB_ROUNDS``):
+    recovery verifies/s at 8192 rows, p50 of recovery at 1024 rows and of
+    verify at 1024 and 256 rows; each configuration's values, median and
+    spread.  Only pairs from this one call compare."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    sigs, hashes, _ = rows
+    s8 = np.ascontiguousarray(np.resize(sigs, (B_MAIN, 65)))
+    h8 = np.ascontiguousarray(np.resize(hashes, (B_MAIN, 32)))
+    s1, h1 = s8[:1024].copy(), h8[:1024].copy()
+    verifier = BatchVerifier()
+
+    def p50_ms(fn):
+        fn()                                               # warm-up
+        lat = []
+        for _ in range(AB_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            lat.append(time.perf_counter() - t0)
+        return float(np.median(lat)) * 1e3
+
+    vals = {cfg: {} for cfg in ("default", "tiling")}
+    for cfg in AB_ROUNDS:
+        with tt.tiling_config(cfg == "tiling"):
+            verifier.recover_addresses(s8, h8)             # warm-up
+            t0 = time.perf_counter()
+            for _ in range(AB_8192):
+                verifier.recover_addresses(s8, h8)
+            got = {"verifies_per_s_8192":
+                   AB_8192 * B_MAIN / (time.perf_counter() - t0),
+                   "recover_p50_ms_1024": p50_ms(
+                       lambda: verifier.recover_addresses(s1, h1)),
+                   "verify_p50_ms_1024": p50_ms(
+                       lambda: verifier.verify(*r4[:3])),
+                   "verify_p50_ms_256": p50_ms(
+                       lambda: verifier.verify(*r3[:3]))}
+        for k, v in got.items():
+            vals[cfg].setdefault(k, []).append(v)
+    out = {"phase": "tiling_ab", "order": list(AB_ROUNDS),
+           "runs_8192": AB_8192, "calls_per_p50": AB_CALLS}
+    for cfg, metrics in vals.items():
+        out[cfg] = {k: {"values": v, "median": float(np.median(v)),
+                        "min": min(v), "max": max(v)}
+                    for k, v in metrics.items()}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -816,7 +1105,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     records = phase_kernels(rng, dev, clock_hz, info["ptxas"])
     paths = {}
-    paths["recover"], rows = phase_slice(rng)
+    paths["recover"], rows, slice_out = phase_slice(rng)
     phase_e2e(rows)
     paths["verify"], r3, r4 = phase_verify()
     paths["keccak"] = phase_keccak(dev)
@@ -824,6 +1113,9 @@ def main() -> int:
     stacked = phase_stacked(rows, r4, dev)
     paths["stacked_recover"] = stacked["recover"]
     paths["stacked_verify"] = stacked["verify"]
+    records.update(phase_tiling_kernels(dev, clock_hz, info["ptxas"]))
+    paths.update(phase_tiling(rows, slice_out, r3, r4, dev))
+    phase_tiling_ab(rows, r3, r4)
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name in K.KERNELS:
@@ -839,7 +1131,8 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "ptxas": rec["ptxas"]})
+            "ptxas": rec["ptxas"],
+            **{k: rec[k] for k in ("twin_ms", "path_ms") if k in rec}})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

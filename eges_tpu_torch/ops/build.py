@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("recover.cu", "verify.cu", "glue.cu")
+SOURCES = ("recover.cu", "verify.cu", "glue.cu", "tiling.cu")
 HEADERS = ("field.cuh", "launch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eges_tpu_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"

@@ -17,6 +17,7 @@
 // pack_constants), so the limb values have one source.
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 namespace eg {
@@ -66,6 +67,27 @@ EG_FD void zero16(u32* o) {
 EG_FD void one16(u32* o) {
   zero16(o);
   o[0] = 1;
+}
+
+// The rows8 layout of the tiling configuration: an [R, M] limb-major
+// array (M a multiple of 1024) cut into tiles of 1024 columns, each tile
+// [R * 8, 128] with row r * 8 + sublane; column b = tile * 1024 +
+// sublane * 128 + lane.  Element (r, b) sits at (tile * R + r) * 1024 +
+// (b % 1024), so the 32 threads of a warp (consecutive b) read 128
+// contiguous bytes of each row.
+EG_FD size_t rows8_at(int R, int r, int b) {
+  return ((size_t)(b >> 10) * R + r) * 1024 + (b & 1023);
+}
+
+// Limb k of row b of a [nb, 128, 128] value tile (R = 16 limbs).
+EG_FD void load_rows8(u32* o, const u32* tile, int b) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = tile[rows8_at(16, k, b)];
+}
+
+EG_FD void store_rows8(u32* tile, int b, const u32* v) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) tile[rows8_at(16, k, b)] = v[k];
 }
 
 // o = flag ? a : b (o may alias a or b)

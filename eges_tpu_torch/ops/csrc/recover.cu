@@ -10,8 +10,9 @@
 //
 // Layouts are the reference wrappers': [rows, 16] for values, limb-major
 // [rows, Bpad] for the GLV digits, the strauss R tables and the keccak
-// block words, where Bpad is the batch rounded up to 256.  Every kernel
-// takes its row count and masks the ragged edge itself.
+// block words, where Bpad is the batch rounded up to the lane block (256
+// unless EGES_TPU_LANE_BLOCK sets another).  Every kernel takes its row
+// count and masks the ragged edge itself.
 //
 // What bounds each kernel on the H100 (about ten u32 operations issue in
 // the time one byte of device memory moves): fp_mul, fp_canon and

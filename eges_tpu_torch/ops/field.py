@@ -352,9 +352,22 @@ def rot64(lo: torch.Tensor, hi: torch.Tensor, r: int):
             ((hi << r) & M32) | (lo >> (32 - r)))
 
 
+# the digest words lo0 hi0 lo1 hi1 lo2 hi2 lo3 hi3 among the 50 words of
+# a keccak_state
+KECCAK_DIGEST_ROWS = (0, 25, 1, 26, 2, 27, 3, 28)
+
+
 def keccak_words(w: torch.Tensor) -> torch.Tensor:
     """``[..., 34]`` little-endian 32-bit words of one padded 136-byte
     block -> ``[..., 8]`` digest words (Keccak-f[1600], 24 rounds)."""
+    return keccak_state(w)[..., list(KECCAK_DIGEST_ROWS)]
+
+
+def keccak_state(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 34]`` little-endian 32-bit words of one padded 136-byte
+    block -> ``[..., 50]``: the state after Keccak-f[1600], the lo halves
+    of lanes 0..24 then their hi halves (the TPU round-grid kernel's
+    output block)."""
     words = w.unbind(-1)
     zero = torch.zeros_like(words[0])
     lo = [words[2 * i] for i in range(17)] + [zero] * 8
@@ -387,8 +400,7 @@ def keccak_words(w: torch.Tensor) -> torch.Tensor:
                                          & rh[(x + 2) % 5])
         lo[0] = lo[0] ^ (KECCAK_RC[rnd] & M32)
         hi[0] = hi[0] ^ (KECCAK_RC[rnd] >> 32)
-    return torch.stack([lo[0], hi[0], lo[1], hi[1], lo[2], hi[2], lo[3],
-                        hi[3]], dim=-1)
+    return torch.stack(lo + hi, dim=-1)
 
 
 # ---------------------------------------------------------------------------

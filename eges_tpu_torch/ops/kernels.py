@@ -1,18 +1,18 @@
-"""The twenty-one kernels of batched sender recovery, classic ECDSA
-verify, one-block keccak256 and the un-fused (stacked and single-row)
-recovery and verify path, each with its plain PyTorch version and its
-launch count.
+"""The twenty-four kernels of batched sender recovery, classic ECDSA
+verify, one-block keccak256, the un-fused (stacked and single-row)
+recovery and verify path and the reference's TPU-tiling configuration,
+each with its plain PyTorch version and its launch count.
 
 Every public function keeps the name, signature and array layouts of
 the reference wrapper in ``eges_tpu/ops/pallas_kernels.py`` it replaces,
 so tests compare array with array.  Limb and word tensors are
 ``torch.int32`` (read as ``uint32_t`` by the kernels); wire bytes are
-``torch.uint8``.  ``Bpad`` is the batch rounded up to a multiple of 256,
-the reference's ``LANE_BLOCK``.
+``torch.uint8``.  ``Bpad`` is the batch rounded up to a multiple of the
+lane block, the reference's ``LANE_BLOCK`` (:func:`lane_block`).
 
 A wrapper given CUDA tensors launches its kernel from ``csrc/recover.cu``,
-``csrc/verify.cu`` or ``csrc/glue.cu`` on the current stream and adds
-one to ``LAUNCHES[name]``; given CPU
+``csrc/verify.cu``, ``csrc/glue.cu`` or ``csrc/tiling.cu`` on the
+current stream and adds one to ``LAUNCHES[name]``; given CPU
 tensors it runs the plain version (``*_plain``), which repeats the
 kernel's arithmetic with ``ops/field.py`` and is also what
 ``chip_smoke.py`` holds each kernel against on the card.  There is no
@@ -24,23 +24,27 @@ u32 operations in the time it moves one byte of device memory.
 ``fp_mul``, ``fp_canon``, ``recover_prelude``, ``fp_add``,
 ``fn_red17`` and the glue kernels ``fp_sub``, ``fp_neg``,
 ``fp_mul_small``, ``fn_sub`` and ``fn_neg`` do fewer than that per byte
-they read and write, so bytes bound them; the other eleven do more
-(``y_fix`` only just, ``pow_mod`` and ``strauss_tab`` over a hundred
+they read and write, so bytes bound them; the other fourteen do more
+(``y_fix`` only just, the pow and ladder kernels over a hundred
 times more) and integer operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
-registers.  ``PERF.md`` has each one's time beside its bound.  The
-reference's TPU-only variants map onto
-these kernels unchanged: ``pow_mod_rows8`` and ``strauss_tab_rows8``
-(``EGES_TPU_ROWS8``, an (8, 128) sublane packing) compute what
-``pow_mod_pallas`` and ``strauss_tab`` compute, and the keccak grid
-variant (``EGES_TPU_KECCAK_GRID``, rounds on the grid) what
-``keccak_rows_pallas`` computes; Hopper has no such tiling to choose.
+registers.  ``PERF.md`` has each one's time beside its bound.
+
+The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
+sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
+``strauss_tab`` to their rows8 kernels (values re-laid into (8, 128)
+tiles of 1024 rows, see :func:`to_rows8`), and
+``EGES_TPU_KECCAK_GRID=1`` sends ``keccak_rows_pallas`` and
+``keccak_block_pallas`` to the round kernel, which leaves the whole
+50-word state.  Each has a CUDA kernel of its own in ``csrc/tiling.cu``
+and a launch count of its own, so a run shows which layout it took.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import threading
 
 import numpy as np
@@ -50,14 +54,15 @@ import torch.nn.functional as F
 from eges_tpu_torch.ops import build, curve, field
 from eges_tpu_torch.ops.bigint import NLIMBS, int_to_limbs
 
-LANE_BLOCK = 256
 POW_WINDOWS = 64
+ROWS8_BLOCK = 1024  # rows of one rows8 tile: 8 sublanes x 128 lanes
 M32 = 0xFFFFFFFF
 
 KERNELS = ("recover_prelude", "pow_mod", "y_fix", "u1u2", "glv_digits",
            "point_table", "fp_mul", "fp_canon", "strauss_tab",
            "recover_finish", "keccak_rows", "fn_mul", "fn_red17", "fp_add",
-           "keccak_block", "fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
+           "keccak_block", "pow_mod_rows8", "strauss_tab_rows8",
+           "keccak_rows_grid", "fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
            "fn_neg", "mulhi8")
 
 # launches of each kernel since the last reset_launches()
@@ -71,9 +76,94 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
+# ---------------------------------------------------------------------------
+# the configuration (pallas_kernels.py:73-78, 772-783, 1777)
+# ---------------------------------------------------------------------------
+
+def lane_block() -> int:
+    """Batch columns per lane block: ``EGES_TPU_LANE_BLOCK`` (256 unless
+    set), a positive multiple of 128, else ``ValueError``.  The reference
+    reads the variable once, when ``pallas_kernels`` is imported; this
+    reads it at every call, so one process (the tests,
+    ``chip_smoke.py``) can run both configurations between calls."""
+    block = int(os.environ.get("EGES_TPU_LANE_BLOCK", "256"))
+    if block <= 0 or block % 128:
+        raise ValueError(
+            f"EGES_TPU_LANE_BLOCK={block}: must be a positive multiple "
+            "of 128 (TPU lane width)")
+    return block
+
+
+def rows8_enabled() -> bool:
+    """``EGES_TPU_ROWS8=1``: the pow and ladder kernels take rows8 tiles.
+    Raises unless the lane block is a multiple of ROWS8_BLOCK."""
+    if os.environ.get("EGES_TPU_ROWS8", "") != "1":
+        return False
+    block = lane_block()
+    if block % ROWS8_BLOCK:
+        raise ValueError(
+            "EGES_TPU_ROWS8=1 requires EGES_TPU_LANE_BLOCK to be a "
+            f"multiple of {ROWS8_BLOCK} (got {block}) so every "
+            "padded batch width re-lays into (8, 128) tiles")
+    return True
+
+
+def keccak_grid_enabled() -> bool:
+    """``EGES_TPU_KECCAK_GRID=1``: keccak goes through the round kernel."""
+    return os.environ.get("EGES_TPU_KECCAK_GRID", "") == "1"
+
+
 def bpad(b: int) -> int:
-    """``b`` rounded up to a multiple of LANE_BLOCK."""
-    return -(-b // LANE_BLOCK) * LANE_BLOCK
+    """``b`` rounded up to a multiple of the lane block."""
+    block = lane_block()
+    return -(-b // block) * block
+
+
+# ---------------------------------------------------------------------------
+# the rows8 layout (pallas_kernels.py:800-818, 958-965)
+# ---------------------------------------------------------------------------
+
+def lay_rows8(rows: torch.Tensor) -> torch.Tensor:
+    """``[R, wide]`` limb-major rows (wide a ROWS8_BLOCK multiple) ->
+    ``[nb, R*8, 128]``: row ``r*8 + sublane`` of tile ``blk`` holds
+    column ``blk*1024 + sublane*128 + lane``.  The strauss re-lay of the
+    signs and the R tables (the reference's ``lay``)."""
+    R, wide = rows.shape
+    nb = wide // ROWS8_BLOCK
+    return (rows.reshape(R, nb, 8, 128).permute(1, 0, 2, 3)
+            .reshape(nb, R * 8, 128).contiguous())
+
+
+def unlay_rows8(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`lay_rows8`: ``[nb, R*8, 128] -> [R, wide]``."""
+    nb, r8, _ = t.shape
+    return (t.reshape(nb, r8 // 8, 8, 128).permute(1, 0, 2, 3)
+            .reshape(r8 // 8, nb * ROWS8_BLOCK).contiguous())
+
+
+def to_rows8(a: torch.Tensor) -> torch.Tensor:
+    """``[B, 16]`` (B a ROWS8_BLOCK multiple) -> ``[nb, 128, 128]`` with
+    row ``limb*8 + sublane``; batch row b = blk*1024 + s*128 + l."""
+    return lay_rows8(a.T)
+
+
+def from_rows8(t: torch.Tensor, B: int) -> torch.Tensor:
+    """``[nb, 128, 128]`` tiles -> the first ``B`` rows as ``[B, 16]``."""
+    return unlay_rows8(t).T[:B].contiguous()
+
+
+def pad_rows8(a: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``[B, 16]`` -> (zero rows appended to a ROWS8_BLOCK multiple, B)."""
+    B = a.shape[0]
+    return F.pad(a, (0, 0, 0, (-B) % ROWS8_BLOCK)), B
+
+
+def lay_digits_rows8(dig: torch.Tensor) -> torch.Tensor:
+    """``[W, 8, wide]`` ladder digits -> ``[nb, W, 64, 128]``: digit row
+    t of window w at row ``t*8 + sublane`` of ``[blk, w]``."""
+    W, _, wide = dig.shape
+    return lay_rows8(dig.reshape(W * 8, wide)).reshape(
+        wide // ROWS8_BLOCK, W, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +224,12 @@ def recover_prelude_plain(sigs, hashes):
 
 @torch.inference_mode()
 def pow_mod_plain(a, e: int, modulus: str):
+    return _pow_rows(a, e, modulus)
+
+
+def _pow_rows(a, e: int, modulus: str):
+    """The pow kernels' arithmetic on ``[M, 16]`` rows (shared by the
+    plain versions of both layouts)."""
     mul = field.mul if modulus == "p" else field.fn_mul
     A = _u(a)
     one = _one(A.shape[0], A.device)
@@ -211,6 +307,12 @@ def _g_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
 
 @torch.inference_mode()
 def strauss_tab_plain(dig, neg, trx, tlrx, try_, batch: int):
+    return _ladder(dig, neg, trx, tlrx, try_, batch)
+
+
+def _ladder(dig, neg, trx, tlrx, try_, batch: int):
+    """The ladder kernels' arithmetic at strauss_tab's layout (shared by
+    the plain versions of both layouts)."""
     B = batch
     W = dig.shape[0]
     D = _u(dig[:, :4, :B])
@@ -311,6 +413,38 @@ def mulhi8_plain(a, g: int):
     return _i(field.mulhi8(_u(a), _g_limbs(g)))
 
 
+def _tiles_of(rows: torch.Tensor, nb: int) -> torch.Tensor:
+    """``[B, 16]`` -> ``nb`` rows8 tiles, the rows past B zero."""
+    return to_rows8(F.pad(rows, (0, 0, 0, nb * ROWS8_BLOCK - rows.shape[0])))
+
+
+@torch.inference_mode()
+def pow_mod_rows8_plain(at, e: int, modulus: str, rows: int):
+    """``[nb, 128, 128]`` rows8 tiles -> tiles of the per-row ``a^e`` of
+    the first ``rows`` rows, the other rows zero."""
+    return _tiles_of(_pow_rows(from_rows8(at, rows), e, modulus),
+                     at.shape[0])
+
+
+@torch.inference_mode()
+def strauss_tab_rows8_plain(digl, negl, trl, tlrl, tyl, batch: int):
+    """The ladder over rows8-laid inputs (``[nb, W, 64, 128]`` digits,
+    ``[nb, 64, 128]`` signs, ``[nb, 2048, 128]`` tables) -> Jacobian
+    ``(X, Y, Z)`` of the first ``batch`` rows as ``[nb, 128, 128]``
+    tiles, the other rows zero."""
+    nb, W = digl.shape[:2]
+    wide = nb * ROWS8_BLOCK
+    dig = unlay_rows8(digl.reshape(nb, W * 64, 128)).reshape(W, 8, wide)
+    outs = _ladder(dig, unlay_rows8(negl), unlay_rows8(trl),
+                   unlay_rows8(tlrl), unlay_rows8(tyl), batch)
+    return tuple(_tiles_of(o, nb) for o in outs)
+
+
+@torch.inference_mode()
+def keccak_rows_grid_plain(words):
+    return _i(field.keccak_state(_u(words).T).T.contiguous())
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -342,9 +476,13 @@ _ARGTYPES = {
     "eg_fn_sub": [_P, _P, _I, _P, _P],
     "eg_fn_neg": [_P, _I, _P, _P],
     "eg_mulhi8": [_P, _P, _I, _P, _P],
+    "eg_init_tiling": [_P, _I],
+    "eg_pow_rows8": [_P, _P, _I, _I, _P, _I, _P],
+    "eg_strauss_rows8": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
+    "eg_keccak_round": [_P, _I, _P, _P],
 }
 # one per source: each translation unit has its own constants block
-_INITS = ("eg_init", "eg_init_verify", "eg_init_glue")
+_INITS = ("eg_init", "eg_init_verify", "eg_init_glue", "eg_init_tiling")
 
 
 def pack_constants() -> np.ndarray:
@@ -445,7 +583,10 @@ def pow_mod_pallas(a, e: int, modulus: str):
     """``[M, 16] -> [M, 16]``: per-row ``a^e`` for a constant e, relaxed
     mod P (``modulus="p"``) or canonical mod N (``"n"``).  Replaces
     ``pow_mod_pallas`` (pallas_kernels.py:525); the one-hot digit input
-    of the TPU kernel becomes 64 digit bytes passed with the launch."""
+    of the TPU kernel becomes 64 digit bytes passed with the launch.
+    Under ``rows8_enabled()`` this is :func:`pow_mod_rows8`."""
+    if rows8_enabled():
+        return pow_mod_rows8(a, e, modulus)
     if modulus not in ("p", "n"):
         raise ValueError("modulus must be 'p' or 'n'")
     M = _rows(a)
@@ -561,7 +702,10 @@ def strauss_tab(dig, neg, trx, tlrx, try_, batch: int):
     0-3 the half-scalar signs), ``trx/tlrx/try_ [256, Bpad]`` (R and
     lambda*R x, shared y; row ``16*d + k`` = limb k of entry d).
     Returns Jacobian ``(X, Y, Z)`` each ``[batch, 16]``.  Replaces
-    ``strauss_tab`` (pallas_kernels.py:384)."""
+    ``strauss_tab`` (pallas_kernels.py:384); under ``rows8_enabled()``
+    this is :func:`strauss_tab_rows8`."""
+    if rows8_enabled():
+        return strauss_tab_rows8(dig, neg, trx, tlrx, try_, batch)
     W, _, wide = dig.shape
     if batch <= 0 or batch > wide:
         raise ValueError("batch must be in 1..Bpad")
@@ -598,12 +742,18 @@ def recover_finish_pallas(X, Y, Z, zi_raw, ok_in):
 def keccak_rows_pallas(words):
     """``[34, wide]`` padded block words -> ``[8, wide]`` digest words,
     one Keccak-f[1600] per column.  Replaces ``keccak_rows_pallas``
-    (pallas_kernels.py:1781) and its grid variant; the kernel uses native
-    64-bit lanes."""
+    (pallas_kernels.py:1781); the kernel uses native 64-bit lanes.  Under
+    ``keccak_grid_enabled()`` the round kernel (:func:`keccak_rows_grid`)
+    computes the whole state and the digest rows are gathered from it,
+    as the reference's grid branch does."""
     if words.dim() != 2:
         raise ValueError("words must be [34, wide]")
     wide = words.shape[1]
     _check(words, "words", (34, wide))
+    if keccak_grid_enabled():
+        # lanes 0..3 of the lo and hi halves: lo0 hi0 lo1 hi1 ...
+        st = keccak_rows_grid(words).view(2, 25, wide)
+        return st[:, :4].permute(1, 0, 2).reshape(8, wide)
     if not _on_card(words):
         return keccak_rows_plain(words)
     out = _empty((8, wide), words)
@@ -640,9 +790,13 @@ def keccak_block_pallas(words):
     ``[B, 8]`` digest words.  Replaces ``keccak_block_pallas``
     (pallas_kernels.py:745), which padded B to LANE_BLOCK and transposed
     for the column kernel; this kernel reads the rows as they are and
-    masks the ragged edge."""
+    masks the ragged edge.  Under ``keccak_grid_enabled()`` the rows are
+    padded and transposed as the reference does, for the round kernel."""
     B = _rows(words)
     _check(words, "words", (B, 34))
+    if keccak_grid_enabled():
+        wt = F.pad(words, (0, 0, 0, bpad(B) - B)).T.contiguous()
+        return keccak_rows_pallas(wt).T[:B].contiguous()
     if not _on_card(words):
         return keccak_block_plain(words)
     out = _empty((B, 8), words)
@@ -713,6 +867,116 @@ def mulhi8_pallas(a, g: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tiling configuration's kernels (csrc/tiling.cu)
+# ---------------------------------------------------------------------------
+
+def _tiles(t: torch.Tensor, what: str, rows: int) -> int:
+    """Check a ``[nb, rows, 128]`` rows8 tensor; returns nb."""
+    if t.dim() != 3:
+        raise ValueError(f"{what}: expected [nb, {rows}, 128] rows8 tiles, "
+                         f"got {tuple(t.shape)}")
+    _check(t, what, (t.shape[0], rows, 128))
+    return t.shape[0]
+
+
+def pow_rows8_tiles(at, e: int, modulus: str, rows: int):
+    """``[nb, 128, 128]`` rows8 tiles -> tiles of the per-row ``a^e``
+    (relaxed mod P or canonical mod N) of the first ``rows`` rows, the
+    other rows zero: the launch of ``k_pow_rows8_p`` or
+    ``k_pow_rows8_n``, 64 digit bytes passed with it."""
+    if modulus not in ("p", "n"):
+        raise ValueError("modulus must be 'p' or 'n'")
+    nb = _tiles(at, "at", NLIMBS * 8)
+    if not 0 < rows <= nb * ROWS8_BLOCK:
+        raise ValueError("rows must be in 1..nb*1024")
+    digits = pow_digits(e)
+    if not _on_card(at):
+        return pow_mod_rows8_plain(at, e, modulus, rows)
+    out = torch.empty_like(at)
+    buf = ctypes.create_string_buffer(digits, POW_WINDOWS)
+    _launch("pow_mod_rows8", "eg_pow_rows8", at, out, rows, nb,
+            ctypes.addressof(buf), int(modulus == "n"))
+    return out
+
+
+def pow_mod_rows8(a, e: int, modulus: str):
+    """``[M, 16] -> [M, 16]``, the contract of :func:`pow_mod_pallas`:
+    the rows padded to a ROWS8_BLOCK multiple (whatever the lane block)
+    and re-laid into tiles for :func:`pow_rows8_tiles`.  Replaces
+    ``pow_mod_rows8`` (pallas_kernels.py:861)."""
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    ap, B = pad_rows8(a)
+    return from_rows8(pow_rows8_tiles(to_rows8(ap), e, modulus, B), B)
+
+
+def strauss_rows8_tiles(digl, negl, trl, tlrl, tyl, batch: int):
+    """The ladder over rows8-laid inputs (``[nb, W, 64, 128]`` digits,
+    ``[nb, 64, 128]`` signs, ``[nb, 2048, 128]`` R and lambda*R x and
+    shared y tables) -> Jacobian ``(X, Y, Z)`` tiles ``[nb, 128, 128]``
+    of the first ``batch`` rows, the other rows zero: the launch of
+    ``k_strauss_rows8``."""
+    if digl.dim() != 4:
+        raise ValueError(f"digl: expected [nb, W, 64, 128], got "
+                         f"{tuple(digl.shape)}")
+    nb, W = digl.shape[:2]
+    _check(digl, "digl", (nb, W, 64, 128))
+    for t, what, rows in ((negl, "negl", 64), (trl, "trl", 2048),
+                          (tlrl, "tlrl", 2048), (tyl, "tyl", 2048)):
+        if _tiles(t, what, rows) != nb:
+            raise ValueError(f"{what}: {t.shape[0]} tiles, digits have {nb}")
+    if not 0 < batch <= nb * ROWS8_BLOCK:
+        raise ValueError("batch must be in 1..nb*1024")
+    if not _on_card(digl, negl, trl, tlrl, tyl):
+        return strauss_tab_rows8_plain(digl, negl, trl, tlrl, tyl, batch)
+    X, Y, Z = (_empty((nb, NLIMBS * 8, 128), digl) for _ in range(3))
+    _launch("strauss_tab_rows8", "eg_strauss_rows8", digl, negl, trl, tlrl,
+            tyl, batch, nb, W, X, Y, Z)
+    return X, Y, Z
+
+
+def strauss_tab_rows8(dig, neg, trx, tlrx, try_, batch: int):
+    """The contract of :func:`strauss_tab` with Bpad a ROWS8_BLOCK
+    multiple (raises otherwise): the inputs re-laid into rows8 tiles for
+    :func:`strauss_rows8_tiles`, the first ``batch`` rows of its tiles
+    returned.  Replaces ``strauss_tab_rows8`` (pallas_kernels.py:948)."""
+    if dig.dim() != 3:
+        raise ValueError(f"dig: expected [W, 8, Bpad], got {tuple(dig.shape)}")
+    W, _, wide = dig.shape
+    if wide % ROWS8_BLOCK:
+        raise ValueError(f"strauss_tab_rows8: Bpad {wide} is not a multiple "
+                         f"of {ROWS8_BLOCK}")
+    if batch <= 0 or batch > wide:
+        raise ValueError("batch must be in 1..Bpad")
+    _check(dig, "dig", (W, 8, wide))
+    _check(neg, "neg", (8, wide))
+    for t, what in ((trx, "trx"), (tlrx, "tlrx"), (try_, "try_")):
+        _check(t, what, (16 * NLIMBS, wide))
+    outs = strauss_rows8_tiles(lay_digits_rows8(dig), lay_rows8(neg),
+                               lay_rows8(trx), lay_rows8(tlrx),
+                               lay_rows8(try_), batch)
+    return tuple(from_rows8(o, batch) for o in outs)
+
+
+def keccak_rows_grid(words):
+    """``[34, wide]`` padded block words -> ``[50, wide]``: the state
+    after Keccak-f[1600] per column, lo halves of lanes 0..24 in rows
+    0-24 and hi halves in rows 25-49, as the TPU round-grid kernel
+    leaves it.  The launch of ``k_keccak_round``; replaces the grid
+    branch of ``keccak_rows_pallas`` and ``_keccak_round_kernel``
+    (pallas_kernels.py:1713, 1789)."""
+    if words.dim() != 2:
+        raise ValueError("words must be [34, wide]")
+    wide = words.shape[1]
+    _check(words, "words", (34, wide))
+    if not _on_card(words):
+        return keccak_rows_grid_plain(words)
+    out = _empty((50, wide), words)
+    _launch("keccak_rows_grid", "eg_keccak_round", words, wide, out)
+    return out
+
+
 # the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py)
 REPLACES = {
     "recover_prelude": "eges_tpu/ops/pallas_kernels.py:1519",
@@ -736,6 +1000,9 @@ REPLACES = {
     "fn_sub": "eges_tpu/ops/pallas_kernels.py:1286",
     "fn_neg": "eges_tpu/ops/pallas_kernels.py:1290",
     "mulhi8": "eges_tpu/ops/pallas_kernels.py:1299",
+    "pow_mod_rows8": "eges_tpu/ops/pallas_kernels.py:861",
+    "strauss_tab_rows8": "eges_tpu/ops/pallas_kernels.py:948",
+    "keccak_rows_grid": "eges_tpu/ops/pallas_kernels.py:1713",
 }
 
 # the source file each kernel is in (under ops/csrc)
@@ -744,3 +1011,5 @@ SOURCE_OF.update(dict.fromkeys(("fn_mul", "fn_red17", "fp_add",
                                 "keccak_block"), "verify.cu"))
 SOURCE_OF.update(dict.fromkeys(("fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
                                 "fn_neg", "mulhi8"), "glue.cu"))
+SOURCE_OF.update(dict.fromkeys(("pow_mod_rows8", "strauss_tab_rows8",
+                                "keccak_rows_grid"), "tiling.cu"))

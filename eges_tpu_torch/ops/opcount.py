@@ -7,9 +7,9 @@ operation, and a 64-bit keccak lane operation is two; copies, loads and
 stores are not counted.  ``HELPERS`` gives each device function of
 ``field.cuh`` its own operations (its loops, counted by hand) and the
 counted functions it calls, with how many call sites.
-``tests/test_torch_opcount.py`` parses ``field.cuh``, ``verify.cu`` and
-``glue.cu`` and holds every function's and kernel's calls equal to its
-entry, so a changed formula fails a test
+``tests/test_torch_opcount.py`` parses ``field.cuh``, ``verify.cu``,
+``glue.cu`` and ``tiling.cu`` and holds every function's and kernel's
+calls equal to its entry, so a changed formula fails a test
 instead of moving the bound unseen.  Templates are counted by formula
 (``TEMPLATES``), keyed in ``HELPERS`` by their arguments, for example
 ``"mul_cols<16,16>"``.
@@ -53,6 +53,11 @@ CARRY_TAIL = 2 * (16 * 3 + 3) + 5 * 3
 # keccak_words: 24 rounds of theta (20 + 20 + 25), rho (24 rotations of
 # 3), chi (25 x 3) and iota (1), each 64-bit operation counted twice
 KECCAK = 2 * 24 * (5 * 4 + 5 * 4 + 25 + 24 * 3 + 25 * 3 + 1)
+# k_keccak_round, per column (its 25 lanes together), on u32 halves: 24
+# rounds of theta (5 lanes fold 5 parities: 4 xors a half; 25 lanes each
+# a 2-funnel-shift rotation and 4 xors), rho (25 rotations: a 2-select
+# swap and 2 funnel shifts), chi (25 x 3 a half) and iota (2)
+KECCAK_ROUND = 24 * (5 * 4 * 2 + 25 * 6 + 25 * 4 + 25 * 3 * 2 + 2)
 
 # device function of field.cuh: (own operations, {counted callee: call
 # sites}); a templated callee is keyed by its arguments
@@ -123,6 +128,20 @@ GLUE_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
 }
 
 
+# the kernels of csrc/tiling.cu: kernel name -> (__global__ function,
+# {counted field.cuh callee: call sites in its body}); their loops run
+# those calls many times, which per_row counts, and
+# tests/test_torch_opcount.py holds the call sites against the source
+TILING_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
+    # table products, 4 squarings and one product a window
+    "pow_mod_rows8_p": ("k_pow_rows8_p", {"fp_mul": 3}),
+    "pow_mod_rows8_n": ("k_pow_rows8_n", {"fn_mul": 3}),
+    "strauss_tab_rows8": ("k_strauss_rows8", {"jac_double": 1, "fp_neg": 1,
+                                              "jac_add_mixed": 1}),
+    "keccak_rows_grid": ("k_keccak_round", {}),
+}
+
+
 @functools.cache
 def ops(name: str) -> int:
     """u32 operations of one call of a field.cuh function (``"fp_mul"``
@@ -139,8 +158,9 @@ def per_row(windows: int = 33, negations: float = 0.0,
             ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations per row of each kernel (per padded row for
     glv_digits, recover_finish and keccak_rows, which cover Bpad).
-    ``fn_red17`` counts one row of 17 columns and ``keccak_block`` one
-    row of 34 words.
+    ``fn_red17`` counts one row of 17 columns, ``keccak_block`` one
+    row of 34 words and ``keccak_rows_grid`` one column.  The rows8
+    kernels do their default-layout twins' arithmetic per row.
 
     ``negations`` is the mean number of ladder adds per row whose point
     is negated (``windows`` x the rows' set sign flags), and
@@ -149,24 +169,30 @@ def per_row(windows: int = 33, negations: float = 0.0,
     once on every row: its first entry is R + R.
     """
     mul, dbl, madd = ops("fp_mul"), ops("jac_double"), ops("jac_add_mixed")
+    # the pow kernels: 14 table products, then 64 windows of 4 squarings
+    # and one product
+    pow_p, pow_n = (14 + 64 * 5) * mul, (14 + 64 * 5) * ops("fn_mul")
+    # the ladder kernels: per window 4 doublings and 4 adds, each add's
+    # result kept by a 3-value select on d != 0
+    ladder = (windows * 4 * (dbl + madd + 3 * ops("select16"))
+              + negations * ops("fp_neg") + ladder_doublings * dbl)
     return {
         "recover_prelude": 3 * ops("unpack_be") + ops("recover_prelude"),
-        # pow_row: 14 table products, then 64 windows of 4 squarings and
-        # one product
-        "pow_mod_p": (14 + 64 * 5) * mul,
-        "pow_mod_n": (14 + 64 * 5) * ops("fn_mul"),
+        "pow_mod_p": pow_p,
+        "pow_mod_n": pow_n,
         "y_fix": ops("y_fix"),
         "u1u2": ops("u1u2"),
         "glv_digits": 2 * ops("glv_track"),
         "point_table": 14 * madd + dbl,
         "fp_mul": mul,
         "fp_canon": ops("cond_sub_p"),
-        # k_strauss: per window 4 doublings and 4 adds, each add's result
-        # kept by a 3-value select on d != 0
-        "strauss_tab": windows * 4 * (dbl + madd + 3 * ops("select16"))
-        + negations * ops("fp_neg") + ladder_doublings * dbl,
+        "strauss_tab": ladder,
         "recover_finish": ops("recover_finish"),
         "keccak_rows": ops("keccak_words"),
+        "pow_mod_rows8_p": pow_p,
+        "pow_mod_rows8_n": pow_n,
+        "strauss_tab_rows8": ladder,
+        "keccak_rows_grid": KECCAK_ROUND,
         **{name: sum(n * ops(callee) for callee, n in calls.items())
            for name, (_, calls) in (VERIFY_KERNELS | GLUE_KERNELS).items()},
     }

@@ -2,10 +2,14 @@
 the extremes, curve points, signed recovery rows and one row of each
 invalid class, and classic-verify rows of every class with the host
 model's answer.  Everything is made from a ``numpy.random.Generator``,
-so a seed fixes every byte.
+so a seed fixes every byte.  Also the pinned launch counts of each path
+and the switch into the reference's TPU-tiling configuration.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 
@@ -294,3 +298,50 @@ def recover_class_rows(rng: np.random.Generator, n_signed: int = 3):
              + list(INVALID_CLASSES))
     return (np.concatenate([sigs, hx_s, bad_s]),
             np.concatenate([hashes, hx_h, bad_h]), kinds)
+
+
+# ---------------------------------------------------------------------------
+# the reference's TPU-tiling configuration
+# ---------------------------------------------------------------------------
+
+# the variables of harness/tpu_watch.py's rows8_1024 and kgrid16384 runs
+TILING_ENV = {"EGES_TPU_LANE_BLOCK": "1024", "EGES_TPU_ROWS8": "1",
+              "EGES_TPU_KECCAK_GRID": "1"}
+
+
+@contextlib.contextmanager
+def tiling_config(enabled: bool = True):
+    """Run the body under the tiling configuration (``enabled=False``:
+    with its three variables unset, the default configuration), then
+    restore the variables as they were."""
+    saved = {k: os.environ.get(k) for k in TILING_ENV}
+    try:
+        for k, v in TILING_ENV.items():
+            if enabled:
+                os.environ[k] = v
+            else:
+                os.environ.pop(k, None)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# Kernel launches of one fused batch under the tiling configuration: the
+# default path's 18 and 26, with the pow, ladder and keccak launches on
+# the tiling kernels.  The keccak path is one keccak_rows_grid a call.
+TILING_RECOVER_LAUNCHES = {
+    "recover_prelude": 1, "pow_mod_rows8": 4, "y_fix": 1, "u1u2": 1,
+    "glv_digits": 1, "point_table": 1, "fp_mul": 5, "fp_canon": 1,
+    "strauss_tab_rows8": 1, "recover_finish": 1, "keccak_rows_grid": 1}
+TILING_VERIFY_LAUNCHES = {
+    "pow_mod_rows8": 3, "fp_mul": 10, "fp_canon": 5, "fp_add": 1,
+    "fn_red17": 2, "fn_mul": 2, "glv_digits": 1, "point_table": 1,
+    "strauss_tab_rows8": 1}
+# the un-fused path's pows go through pow_mod_rows8
+TILING_UNFUSED_RECOVER_LAUNCHES = {
+    ("pow_mod_rows8" if k == "pow_mod" else k): v
+    for k, v in UNFUSED_RECOVER_LAUNCHES.items()}

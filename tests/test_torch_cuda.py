@@ -2,7 +2,8 @@
 on the card, bit for bit (the arithmetic is integer: tolerance 0), and
 the recovery, classic-verify and keccak paths end to end against the
 host model, the stacked (un-fused) windows also against the fused path
-on the same rows.
+on the same rows, and the paths under the reference's TPU-tiling
+configuration against the default one.
 
 Marked ``gpu``; run on a machine with a card as
 ``python -m pytest tests/test_torch_cuda.py -m gpu``.  Without a card
@@ -49,7 +50,8 @@ def test_build_reports_every_kernel(dev):
         "k_glv_digits", "k_point_table", "k_fp_mul", "k_fp_canon",
         "k_strauss", "k_recover_finish", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
-        "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8"}
+        "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
+        "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round"}
 
 
 def test_fp_mul_and_canon(dev):
@@ -232,3 +234,83 @@ def test_stacked_paths_on_card(dev):
     assert torch.equal(ok.reshape(15), verify_batch(*flat))
     assert [bool(v) for v in ok.reshape(15).cpu()] == [
         tt.host_verify(*r) for r in zip(*rows[:3])]
+
+
+def test_tiling_kernels(dev):
+    """The three tiling kernels against their plain versions on the same
+    tiles, at ragged row counts (the tiles' padding rows zero), and the
+    rows8 wrappers against the default-layout kernels."""
+    rng = np.random.default_rng(23)
+    for e, mod, rows in (((P + 1) // 4, "p", 1030), (N - 2, "n", 1),
+                         (P - 2, "p", 2048)):
+        a = K.from_reference(_limbs(rng, rows, N if mod == "n" else 1 << 256),
+                             dev)
+        at = K.to_rows8(K.pad_rows8(a)[0])
+        _same(K.pow_rows8_tiles(at, e, mod, rows),
+              K.pow_mod_rows8_plain(at, e, mod, rows))
+        _same(K.pow_mod_rows8(a, e, mod), K.pow_mod_pallas(a, e, mod))
+    wide, batch = 1024, 1000
+    dig = torch.from_numpy(rng.integers(0, 16, (33, 8, wide)).astype(
+        np.int32)).to(dev)
+    neg = torch.from_numpy(rng.integers(0, 2, (8, wide)).astype(
+        np.int32)).to(dev)
+    tabs = [K.from_reference(rng.integers(0, 1 << 16, (256, wide)).astype(
+        np.uint32), dev) for _ in range(3)]
+    laid = (K.lay_digits_rows8(dig), K.lay_rows8(neg),
+            *(K.lay_rows8(t) for t in tabs))
+    _same(K.strauss_rows8_tiles(*laid, batch),
+          K.strauss_tab_rows8_plain(*laid, batch))
+    _same(K.strauss_tab_rows8(dig, neg, *tabs, batch),
+          K.strauss_tab(dig, neg, *tabs, batch))
+    for cols in (1, 301, 1024):
+        words = K.from_reference(rng.integers(0, 1 << 32, (34, cols),
+                                              dtype=np.uint64).astype(
+            np.uint32), dev)
+        _same(K.keccak_rows_grid(words), K.keccak_rows_grid_plain(words))
+    with pytest.raises(ValueError):
+        K.strauss_tab_rows8(dig[..., :512].contiguous(),
+                            neg[:, :512].contiguous(),
+                            *(t[:, :512].contiguous() for t in tabs), 10)
+
+
+def test_tiling_paths_on_card(dev):
+    """Recovery, verify and keccak under the tiling configuration: the
+    launches pinned for it, results equal to the default configuration
+    and the host model."""
+    from eges_tpu_torch.crypto.keccak import keccak256
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.ops.keccak import keccak256_fixed
+
+    sigs, hashes, _ = tt.recover_class_rows(np.random.default_rng(24))
+    vrows = tt.verify_rows(np.random.default_rng(25), 4)
+    msgs = torch.from_numpy(np.random.default_rng(26).integers(
+        0, 256, (300, 110), dtype=np.uint8)).to(dev)
+    verifier = BatchVerifier()
+    want = (verifier.recover_addresses(sigs, hashes),
+            verifier.verify(*vrows[:3]), keccak256_fixed(msgs))
+    with tt.tiling_config():
+        K.reset_launches()
+        rec = verifier.recover_addresses(sigs, hashes)
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == \
+            tt.TILING_RECOVER_LAUNCHES
+        K.reset_launches()
+        ok = verifier.verify(*vrows[:3])
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == \
+            tt.TILING_VERIFY_LAUNCHES
+        K.reset_launches()
+        digests = keccak256_fixed(msgs)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+            "keccak_rows_grid": 1}
+    for g, w in zip(rec, want[0]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(ok, want[1])
+    assert torch.equal(digests, want[2])
+    for i in range(len(sigs)):
+        ans = tt.host_recover(sigs[i], hashes[i])
+        assert bool(rec[1][i]) == (ans is not None)
+    assert [bool(v) for v in ok] == [tt.host_verify(*r)
+                                     for r in zip(*vrows[:3])]
+    got = digests.cpu().numpy()
+    for i, m in enumerate(msgs.cpu().numpy()):
+        assert bytes(got[i]) == keccak256(bytes(m))

@@ -1,7 +1,8 @@
 """The op count behind chip_smoke.py's bounds, held against the CUDA
 source it counts: every device function of ``field.cuh`` makes exactly
 the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it,
-and so does every kernel of ``verify.cu`` and ``glue.cu``."""
+and so does every kernel of ``verify.cu`` and ``glue.cu``; every kernel
+of ``tiling.cu`` has exactly the counted call sites listed for it."""
 
 from __future__ import annotations
 
@@ -17,9 +18,12 @@ FIELD_CUH = (pathlib.Path(__file__).resolve().parents[1] / "eges_tpu_torch"
              / "ops" / "csrc" / "field.cuh")
 VERIFY_CU = FIELD_CUH.with_name("verify.cu")
 GLUE_CU = FIELD_CUH.with_name("glue.cu")
+TILING_CU = FIELD_CUH.with_name("tiling.cu")
 # functions of field.cuh that move values and count no operations
-# (rotl64 is counted inside keccak_words' own operations)
-UNCOUNTED = {"copy16", "zero16", "one16", "rotl64"}
+# (rotl64 is counted inside keccak_words' own operations; rows8_at is
+# the address of a rows8 tile element)
+UNCOUNTED = {"copy16", "zero16", "one16", "rotl64", "rows8_at", "load_rows8",
+             "store_rows8"}
 
 _DEF = re.compile(r"^(template\s*<[^>]*>\s*)?(?:EG_FD|EG_CALL)\s+[\w\s*]*?"
                   r"\b(\w+)\s*\(", re.M)
@@ -154,3 +158,28 @@ def test_glue_kernel_counts():
                               + opcount.ops("select16")) == 592
     assert rows["mulhi8"] == (opcount.mul_cols(16, 16)
                               + opcount.carry(32, 32)) == 1376
+
+
+def test_every_tiling_kernel_is_counted():
+    assert set(_kernel_bodies(TILING_CU)) == {
+        fn for fn, _ in opcount.TILING_KERNELS.values()}
+
+
+@pytest.mark.parametrize("name", sorted(opcount.TILING_KERNELS))
+def test_tiling_kernel_calls_match_the_source(name):
+    fn, calls = opcount.TILING_KERNELS[name]
+    assert dict(_counted_calls(_kernel_bodies(TILING_CU)[fn])) == calls
+
+
+def test_tiling_kernel_counts():
+    """The rows8 kernels do their default-layout twins' arithmetic per
+    row; the round kernel counts its 25 lanes' operations per column."""
+    rows = opcount.per_row(negations=5.0, ladder_doublings=1.0)
+    assert rows["pow_mod_rows8_p"] == rows["pow_mod_p"] == (
+        (14 + 64 * 5) * opcount.ops("fp_mul"))
+    assert rows["pow_mod_rows8_n"] == rows["pow_mod_n"] == (
+        (14 + 64 * 5) * opcount.ops("fn_mul"))
+    assert rows["strauss_tab_rows8"] == rows["strauss_tab"]
+    theta = 5 * 4 * 2 + 25 * (2 + 4)
+    assert rows["keccak_rows_grid"] == opcount.KECCAK_ROUND == (
+        24 * (theta + 25 * 4 + 25 * 3 * 2 + 2)) == 10608

@@ -1,14 +1,18 @@
 """Drive eges_tpu_torch's paths on one CUDA card: batched sender
 recovery, classic ECDSA verify and Keccak-256, the un-fused
-recovery and verify of stacked windows, and the same paths under the
-reference's TPU-tiling configuration.
+recovery and verify of stacked windows, the same paths under the
+reference's TPU-tiling configuration, and the profiling harness.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 
 1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a (one
    nvcc for each source, all started together); seconds, and registers
-   and spills per kernel.
+   and spills per kernel.  Then sass: the built code (``cuobjdump``)
+   issues at least the operations ``ops/opcount.py`` counts, in every
+   kernel without a branch or a call and in every loop of the product
+   chain and of the pow, so no operation bound counts more than the
+   card does; with the instruction mix of the chain's loop.
 2. kernel: each of the twenty-one kernels at its path's shapes on
    seeded random and extreme inputs, held bit for bit against its plain
    PyTorch version on the same CUDA tensors (tolerance 0: the arithmetic
@@ -76,6 +80,27 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    rounds each, ABBA order) in this one call: recovery verifies/s at
    8192 rows and p50 at 1024 rows, verify p50 at 1024 and 256 rows;
    each configuration's median and spread.
+11. profile: the eight harness modules through their ``main``s on the
+   card, each line prefixed with the module's name: ``profile_mulchain``
+   at 4096 and 131072, ``profile_mul8b`` (``correct=`` must hold),
+   ``profile_floor`` (all eight child configs must report),
+   ``measure_recover`` at 1024 and 8192 (its gate must hold),
+   ``profile_kernels2`` at 4096 (into ``build/``), ``profile_stages``
+   at 1024 and the launch census ``hlo_census`` at 1024 (its hand-written
+   kernels by name must equal the fused path's 18 launches).  Then the
+   harness's four kernels (``profile.cu``), one ``profile_kernel`` line
+   for each kernel and shape: the 64-multiply chain on ``[16, B]``
+   columns at lane blocks of 256 and 1024 (#20a, also at a ragged 4096 +
+   128 columns with lane 128), on rows8 tiles (#20b), one multiply on
+   tiles (#20c, with #7 ``fp_mul``'s time on the same values), each at
+   B = 4096 and 131072, and the copy kernel on one (8, 128) float32 tile
+   (#20d, with ``x + 1.0``'s time as its library time); each held bit
+   for bit against its plain version, timed with CUDA events back to
+   back and one call at a time on cold L2 (the kernel alone) beside its
+   bound and the plain version's time.
+
+Every kernel's time, and each cold time, must lie above its bound:
+a bound the card beats is no floor, and the run fails.
 
 Then the ``kernels`` line (launches summed over the paths' runs, and per
 path), the card's name and power limit as nvidia-smi gives
@@ -86,6 +111,8 @@ result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -116,6 +143,9 @@ AB_ROUNDS = ("default", "tiling", "tiling", "default", "default",
              "tiling")              # the A/B's order, three rounds each
 AB_8192 = 5                         # timed 8192-row batches a round
 AB_CALLS = 100                      # timed calls a round for each p50
+B_PROFILE = (4096, 131072)          # the harness's batch; one filling 132 SMs
+RAGGED_CHAIN = (4096 + 128, 128)    # #20a's ragged check: columns, lane
+MEASURE_BATCHES = (1024, 8192)      # measure_recover's batches
 # fp_mul_small launches of one un-fused batch by k: each doubling takes
 # k = 2 three times, 3 and 8 once; each mixed add k = 2 four times and 4
 # once, besides its doubling; 33 windows of 4 + 4, 14 table adds
@@ -129,6 +159,11 @@ GLOBALS = {"pow_mod": ("k_pow_p", "k_pow_n"), "strauss_tab": ("k_strauss",),
 # fp_canon), s^-1 (pow), z and px mod N (2 fn_red17), u1 and u2 (2
 # fn_mul), strauss_gR (glv_digits, point_table, pow, fp_canon, 5 fp_mul,
 # strauss_tab) and the x half of to_affine (pow, 2 fp_mul, 2 fp_canon)
+# launches of one fused recovery batch
+FUSED_RECOVER_LAUNCHES = {"recover_prelude": 1, "pow_mod": 4, "y_fix": 1,
+                          "u1u2": 1, "glv_digits": 1, "point_table": 1,
+                          "fp_mul": 5, "fp_canon": 1, "strauss_tab": 1,
+                          "recover_finish": 1, "keccak_rows": 1}
 VERIFY_LAUNCHES = {"pow_mod": 3, "fp_mul": 10, "fp_canon": 5, "fp_add": 1,
                    "fn_red17": 2, "fn_mul": 2, "glv_digits": 1,
                    "point_table": 1, "strauss_tab": 1}
@@ -163,20 +198,6 @@ def bound(nbytes: int, ops: float, clock_hz: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn`` over ``reps`` runs, CUDA events, after warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def timed(fn):
@@ -218,6 +239,40 @@ def phase_build():
           "compiled": info["built"], "library": os.path.basename(
               info["path"]), "ptxas": info["ptxas"]})
     return info
+
+
+def phase_sass(path):
+    """The op half of every bound counts no more than the card issues
+    (``ops/opcount.py``): each kernel without a branch or a call issues
+    at least its counted operations, and so does every loop of the
+    F_P product chain (an ``fp_mul`` an iteration) and of the F_P pow
+    (an ``fp_sqr`` or more), in the ``sm_90a`` code of the built library
+    (``cuobjdump -sass``).  Emits the counts, and the instruction mix of
+    the chain's loop."""
+    import collections
+
+    from eges_tpu_torch.ops import build, opcount
+
+    code = build.sass(path)
+    OPS = opcount.per_row()
+    straight = {fn[2:]: [OPS[fn[2:]], len(ins)] for fn, ins in code.items()
+                if fn[2:] in OPS and build.straight_line(ins)}
+    loops = {fn: (helper, [len(b) for b in build.loop_bodies(code[fn])])
+             for fn, helper in (("k_fp_mul_chain", "fp_mul"),
+                                ("k_fp_mul_chain_rows8", "fp_mul"),
+                                ("k_pow_p", "fp_sqr"))}
+    bad = [n for n, (counted, issued) in straight.items() if counted > issued]
+    bad += [fn for fn, (helper, sizes) in loops.items()
+            if not sizes or min(sizes) < opcount.ops(helper)]
+    body = build.loop_bodies(code["k_fp_mul_chain"])[0]
+    mix = collections.Counter(build.opcode(i) for i in body)
+    emit({"phase": "sass", "straight_line": straight,
+          "loops": {fn: {"helper": h, "counted": opcount.ops(h),
+                         "issued": sizes} for fn, (h, sizes) in loops.items()},
+          "chain_loop_mix": dict(mix.most_common())})
+    if len(straight) < 10 or bad:
+        raise AssertionError(f"op counts above the issued instructions: "
+                             f"{bad} (straight-line kernels: {straight})")
 
 
 def _affine_points(rng, n):
@@ -344,13 +399,17 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
 
 
 def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
-                  phase):
+                  phase, extra=None):
     """One kernel's launches of a batch, each ``(kernel call, plain
     call, bytes, ops)``: held bit for bit against the plain version and
     timed; then its ragged ``(kernel call, plain call)`` pairs.  Emits
-    and returns the record (ms and bound cover all the launches)."""
-    rec = {"name": name, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
-           "bytes": 0, "ops": 0.0, "launches_timed": len(launches)}
+    and returns the record (ms and bound cover all the launches), with
+    ``extra`` keys."""
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
+
+    rec = {"name": name, **(extra or {}), "max_abs_err": 0, "ms": 0.0,
+           "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
+           "launches_timed": len(launches)}
     done = {}  # a launch repeated on the main path (fp_mul x5) runs once
     for kern, plain, nb, ops in launches:
         if kern not in done:
@@ -361,7 +420,7 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
             if err:
                 raise AssertionError(f"{name}: kernel and plain version "
                                      f"differ (max abs err {err})")
-            done[kern] = (cuda_ms(kern, 5), pms)
+            done[kern] = (cuda_event_ms(kern, reps=5), pms)
         ms, pms = done[kern]
         rec["ms"] += ms
         rec["plain_ms"] += pms
@@ -369,6 +428,9 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
         rec["ops"] += ops
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
                                              clock_hz)
+    if rec["ms"] < rec["bound_ms"]:
+        raise AssertionError(f"{name}: {rec['ms']} ms beats its bound of "
+                             f"{rec['bound_ms']} ms: the bound is no floor")
     for kern, plain in ragged:
         err = max_abs_err(kern(), plain())
         if err:
@@ -534,10 +596,7 @@ def phase_slice(rng):
     addrs, ok = verifier.recover_addresses(sigs, hashes)
     launches = dict(K.LAUNCHES)
     want = dict.fromkeys(K.KERNELS, 0)
-    want.update({"recover_prelude": 1, "pow_mod": 4, "y_fix": 1, "u1u2": 1,
-                 "glv_digits": 1, "point_table": 1, "fp_mul": 5,
-                 "fp_canon": 1, "strauss_tab": 1, "recover_finish": 1,
-                 "keccak_rows": 1})
+    want.update(FUSED_RECOVER_LAUNCHES)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, want {want}")
     n_valid = n_invalid = 0
@@ -859,6 +918,7 @@ def phase_tiling_kernels(dev, clock_hz, ptxas):
     reference-contract wrapper (re-lay included).  Inputs come from
     their own generator.  Returns the records."""
     from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
     from eges_tpu_torch.ops import kernels as K, opcount
     from eges_tpu_torch.ops.bigint import N, P
 
@@ -948,8 +1008,8 @@ def phase_tiling_kernels(dev, clock_hz, ptxas):
             if max_abs_err(path(), twin()):
                 raise AssertionError(f"{name}: tiling and default layout "
                                      "differ")
-            rec["twin_ms"] += cuda_ms(twin, 5)
-            rec["path_ms"] += cuda_ms(path, 5)
+            rec["twin_ms"] += cuda_event_ms(twin, reps=5)
+            rec["path_ms"] += cuda_event_ms(path, reps=5)
         emit({"phase": "tiling_kernel", "name": name,
               "twin_ms": rec["twin_ms"], "path_ms": rec["path_ms"],
               "ms": rec["ms"], "twin_equal": True})
@@ -1088,6 +1148,160 @@ def phase_tiling_ab(rows, r3, r4):
     return out
 
 
+def phase_profile_kernels(dev, clock_hz, ptxas):
+    """The harness's four kernels at its shapes, each against its plain
+    version on the same tensors (``_check_kernel``), with the kernel's
+    time alone on cold L2 (``cold_ms``: the back-to-back events count the
+    host's launch pace too, and keep inputs in L2), which must not beat
+    the bound either; the two layouts' chains and #20c against #7 on the
+    same values.  Returns the records of B = 4096 (lane 256 for #20a),
+    each with ``shapes``: ms, cold ms, bound and plain ms of every shape
+    run."""
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
+    from eges_tpu_torch.ops import kernels as K, opcount
+
+    rng = np.random.default_rng(SEED + 7)
+    OPS = opcount.per_row()
+    chain = K.PROFILE_CHAIN
+
+    def limbs(shape):
+        return torch.from_numpy(rng.integers(0, 1 << 16, shape).astype(
+            np.int32)).to(dev)
+
+    records = {}
+
+    def check(name, label, entry, ragged=(), ragged_rows=None, extra=None):
+        extra = {"shape": label,
+                 "cold_ms": cuda_event_ms(entry[0], cold=True),
+                 **(extra or {})}
+        rec = _check_kernel(name, [entry], ragged, ragged_rows, clock_hz,
+                            ptxas, "profile_kernel", extra)
+        if rec["cold_ms"] < rec["bound_ms"]:
+            raise AssertionError(f"{name} {label}: cold {rec['cold_ms']} ms "
+                                 f"beats its bound of {rec['bound_ms']} ms")
+        first = records.setdefault(name, rec)
+        first.setdefault("shapes", {})[label] = {
+            k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                *extra)}
+        return rec
+
+    for B in B_PROFILE:
+        a, b = limbs((16, B)), limbs((16, B))
+        at, bt = K.lay_rows8(a), K.lay_rows8(b)
+        byt, ops = 3 * nbytes(a), B * OPS["fp_mul_chain"]
+        for lane in (256, 1024):
+            ragged = ()
+            if B == B_PROFILE[0] and lane == 256:
+                wide, rlane = RAGGED_CHAIN
+                ra, rb = limbs((16, wide)), limbs((16, wide))
+                ragged = [(lambda: K.fp_mul_chain_pallas(ra, rb, chain, rlane),
+                           lambda: K.fp_mul_chain_plain(ra, rb, chain))]
+            check("fp_mul_chain", f"B{B}_lane{lane}", (
+                lambda lane=lane: K.fp_mul_chain_pallas(a, b, chain, lane),
+                lambda: K.fp_mul_chain_plain(a, b, chain), byt, ops),
+                ragged, RAGGED_CHAIN[0], {"lane": lane})
+        check("fp_mul_chain_rows8", f"B{B}", (
+            lambda: K.fp_mul_chain_rows8(at, bt),
+            lambda: K.fp_mul_chain_rows8_plain(at, bt), byt,
+            B * OPS["fp_mul_chain_rows8"]))
+        # both layouts, the same values: the same products
+        if max_abs_err(K.lay_rows8(K.fp_mul_chain_pallas(a, b, chain, 256)),
+                       K.fp_mul_chain_rows8(at, bt)):
+            raise AssertionError(f"B={B}: the two layouts' chains differ")
+        rows_a, rows_b = a.T.contiguous(), b.T.contiguous()
+        if max_abs_err(K.from_rows8(K.fp_mul_rows8(at, bt), B),
+                       K.fp_mul_pallas(rows_a, rows_b)):
+            raise AssertionError(f"B={B}: fp_mul_rows8 differs from fp_mul")
+        check("fp_mul_rows8", f"B{B}", (
+            lambda: K.fp_mul_rows8(at, bt),
+            lambda: K.fp_mul_rows8_plain(at, bt), byt,
+            B * OPS["fp_mul_rows8"]),
+            extra={"fp_mul_ms": cuda_event_ms(
+                lambda: K.fp_mul_pallas(rows_a, rows_b), reps=5),
+                "fp_mul_cold_ms": cuda_event_ms(
+                    lambda: K.fp_mul_pallas(rows_a, rows_b), cold=True)})
+    x = torch.from_numpy(rng.standard_normal((8, 128), dtype=np.float32)).to(
+        dev)
+    rec = check("add_one_f32", "8x128", (
+        lambda: K.add_one_f32(x), lambda: K.add_one_f32_plain(x),
+        2 * nbytes(x), x.numel() * OPS["add_one_f32"]))
+    rec["library_ms"] = cuda_event_ms(lambda: x + 1.0, reps=5)
+    emit({"phase": "profile_kernel", "name": "add_one_f32",
+          "library_ms": rec["library_ms"],
+          "library_cold_ms": cuda_event_ms(lambda: x + 1.0, cold=True),
+          "library": "x + 1.0"})
+    return records
+
+
+@contextlib.contextmanager
+def _prefixed(tag: str):
+    """Print what the block prints, each line after ``[tag] ``."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"[{tag}] {line}", flush=True)
+
+
+def phase_profile(dev):
+    """The eight harness modules through their ``main``s on the card, with
+    the checks of each; returns the launches of the whole phase (the
+    floor's ``pallasnop`` child counts its own, added in)."""
+    from eges_tpu_torch.harness import (hlo_census, measure_recover,
+                                        profile_floor, profile_kernels2,
+                                        profile_mul8b, profile_mulchain,
+                                        profile_stages)
+    from eges_tpu_torch.ops import build, kernels as K
+
+    rng = np.random.default_rng(SEED + 8)
+    out = {"phase": "profile"}
+    K.reset_launches()
+    with _prefixed("profile_mulchain"):
+        out["mulchain"] = {B: profile_mulchain.main(B, rng, dev)
+                           for B in B_PROFILE}
+    with _prefixed("profile_mul8b"):
+        out["mul8b"] = profile_mul8b.main(4096, dev)
+    if not out["mul8b"]["correct"]:
+        raise AssertionError("profile_mul8b: correct=False")
+    with _prefixed("profile_floor"):
+        floor = profile_floor.main(dev, seed=SEED)
+    if floor["failed"] or set(floor["results"]) != set(profile_floor.CONFIGS):
+        raise AssertionError(f"profile_floor: no result for {floor['failed']}")
+    out["floor"], out["verdict"] = floor["results"], floor["verdict"]
+    with _prefixed("measure_recover"):
+        out["measure_recover"] = measure_recover.main(MEASURE_BATCHES, rng,
+                                                      dev)
+    with _prefixed("profile_kernels2"):
+        out["kernels2"] = profile_kernels2.main(
+            4096, str(build.BUILD_DIR / "kernel_profile2.json"), rng, dev)
+    with _prefixed("profile_stages"):
+        out["stages"] = profile_stages.main(1024, rng, dev)
+    with _prefixed("hlo_census"):
+        census = hlo_census.main(1024, rng, dev)
+    launches = dict(K.LAUNCHES)
+    launches["add_one_f32"] += floor["results"]["pallasnop"]["launches"].get(
+        "add_one_f32", 0)
+    # the census window is one fused recovery: its hand-written kernels
+    # by name, mapped to their wrappers, are the pinned 18 launches
+    wrapper_of = {g: name for name in K.KERNELS
+                  for g in GLOBALS.get(name, ("k_" + name,))}
+    by_wrapper = {}
+    for g, n in census["hand_written"].items():
+        by_wrapper[wrapper_of[g]] = by_wrapper.get(wrapper_of[g], 0) + n
+    if not (by_wrapper == census["launches"] == FUSED_RECOVER_LAUNCHES):
+        raise AssertionError(f"launch census: kernels {by_wrapper}, wrappers "
+                             f"{census['launches']}, want "
+                             f"{FUSED_RECOVER_LAUNCHES}")
+    out["census"] = {k: census[k] for k in (
+        "hand_written", "aten", "copy", "wall_ms", "kernel_ms", "busy_share",
+        "copy_us")}
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    emit(out)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1102,6 +1316,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "card": card,
           "clocks_max_sm_mhz": clock_hz / 1e6})
     info = phase_build()
+    phase_sass(info["path"])
     rng = np.random.default_rng(SEED)
     records = phase_kernels(rng, dev, clock_hz, info["ptxas"])
     paths = {}
@@ -1116,6 +1331,8 @@ def main() -> int:
     records.update(phase_tiling_kernels(dev, clock_hz, info["ptxas"]))
     paths.update(phase_tiling(rows, slice_out, r3, r4, dev))
     phase_tiling_ab(rows, r3, r4)
+    paths["profile"] = phase_profile(dev)
+    records.update(phase_profile_kernels(dev, clock_hz, info["ptxas"]))
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name in K.KERNELS:
@@ -1130,9 +1347,10 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None,
-            "ptxas": rec["ptxas"],
-            **{k: rec[k] for k in ("twin_ms", "path_ms") if k in rec}})
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"), "ptxas": rec["ptxas"],
+            **{k: rec[k] for k in ("twin_ms", "path_ms", "shapes")
+               if k in rec}})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

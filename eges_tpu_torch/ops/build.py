@@ -19,25 +19,25 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("recover.cu", "verify.cu", "glue.cu", "tiling.cu")
+SOURCES = ("recover.cu", "verify.cu", "glue.cu", "tiling.cu", "profile.cu")
 HEADERS = ("field.cuh", "launch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eges_tpu_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def nvcc_path() -> str:
-    """``nvcc`` from PATH or the CUDA toolkit's usual home; raises when
-    there is none."""
-    found = shutil.which("nvcc")
+def nvcc_path(tool: str = "nvcc") -> str:
+    """``nvcc`` (or another tool of the CUDA toolkit) from PATH or the
+    toolkit's usual home; raises when there is none."""
+    found = shutil.which(tool)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / tool
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the eges_tpu_torch kernels")
+    raise RuntimeError(f"{tool} not found: the CUDA toolkit is needed to "
+                       "build the eges_tpu_torch kernels")
 
 
 def source_hash() -> str:
@@ -89,6 +89,63 @@ def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+_SASS_FUNCTION = re.compile(r"Function : (\w+)")
+_SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+
+
+def opcode(ins: str) -> str:
+    """``"@!P0 BRA 0x4f0"`` -> ``"BRA"``."""
+    return re.sub(r"^@!?\w+\s+", "", ins).split()[0]
+
+
+def _target(ins: str) -> int:
+    return int(ins.split()[-1], 16)
+
+
+def parse_sass(listing: str) -> dict[str, list[tuple[int, str]]]:
+    """``cuobjdump -sass`` output -> each function's instructions as
+    ``(address, text)``, without the NOPs and the branch to itself after
+    the last EXIT (neither issues)."""
+    out: dict[str, list[tuple[int, str]]] = {}
+    cur = None
+    for line in listing.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = _SASS_INSTRUCTION.search(line)
+        if m is None or cur is None:
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        op = opcode(ins)
+        if op == "NOP" or (op == "BRA" and _target(ins) == addr):
+            continue
+        cur.append((addr, ins))
+    return out
+
+
+def sass(path) -> dict[str, list[tuple[int, str]]]:
+    """The ``sm_90a`` code of each kernel of a built library."""
+    proc = subprocess.run([nvcc_path("cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True)
+    return parse_sass(proc.stdout)
+
+
+def straight_line(code: list[tuple[int, str]]) -> bool:
+    """No branch and no call: every instruction issues once a warp."""
+    return not any(opcode(ins).startswith(("BRA", "BRX", "JMP", "CALL",
+                                            "RET"))
+                   for _, ins in code)
+
+
+def loop_bodies(code: list[tuple[int, str]]) -> list[list[str]]:
+    """The instructions of each loop: from a backward branch's target to
+    the branch."""
+    return [[i for a, i in code if _target(ins) <= a <= addr]
+            for addr, ins in code
+            if opcode(ins) == "BRA" and _target(ins) < addr]
 
 
 def _run_all(commands: list[list[str]]) -> str:

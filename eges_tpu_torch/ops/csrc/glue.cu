@@ -12,9 +12,9 @@
 //
 // What bounds them on the H100 (about ten u32 operations issue in the
 // time one byte of device memory moves): fp_sub, fp_neg, fp_mul_small
-// (about one counted operation per byte they read and write), fn_sub
-// (about 3) and fn_neg (about 5) are bound by bytes, mulhi8 (about 14)
-// by integer operations (ops/opcount.py counts them).  Each
+// (under one counted operation per byte they read and write), fn_sub
+// (about 1.7), fn_neg (about 2.8) and mulhi8 (about 9.9, only just) are
+// bound by bytes (ops/opcount.py counts them).  Each
 // reads its inputs once, writes its outputs once and keeps every
 // intermediate in registers.  At the path's shapes (a few thousand rows)
 // their work is microseconds: the host's time to launch them, not the

@@ -15,9 +15,9 @@
 // count and masks the ragged edge itself.
 //
 // What bounds each kernel on the H100 (about ten u32 operations issue in
-// the time one byte of device memory moves): fp_mul, fp_canon and
-// recover_prelude do fewer operations than that per byte and are bound
-// by bytes; every other kernel is bound by integer operations.  All of
+// the time one byte of device memory moves): fp_mul, fp_canon,
+// recover_prelude, y_fix and recover_finish issue fewer than that per
+// byte and are bound by bytes; the other six by integer operations.  All of
 // them read each input once, write each output once and keep every
 // intermediate in registers (the pow table in a per-thread 1 KB local
 // array), which is all the design does about either bound so far.

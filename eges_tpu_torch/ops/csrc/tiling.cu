@@ -15,7 +15,7 @@
 // in Hopper's terms: a warp per column shares the state in shared memory.
 //
 // What bounds them on the H100 (about ten u32 operations issue in the
-// time one byte of device memory moves): all three do far more than ten
+// time one byte of device memory moves): all three do more than ten
 // operations a byte and are bound by integer operations (ops/opcount.py
 // counts them).  The tile layout changes only the operand loads and the
 // result stores, a small share of an operation-bound kernel.

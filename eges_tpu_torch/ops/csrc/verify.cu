@@ -9,9 +9,9 @@
 // them as one-launch glue ops on [16, LANE_BLOCK] tiles.
 //
 // What bounds them on the H100 (about ten u32 operations issue in the
-// time one byte of device memory moves): fp_add (about 0.7 counted
-// operations per byte it reads and writes) and fn_red17 (about 4.6) are
-// bound by bytes, fn_mul (about 18) and keccak_block (about 61) by
+// time one byte of device memory moves): fp_add (about 0.5 counted
+// operations per byte it reads and writes) and fn_red17 (about 2.8) are
+// bound by bytes, fn_mul (about 12) and keccak_block (about 26) by
 // integer operations (ops/opcount.py counts them).  Each reads its
 // inputs once, writes its outputs once and keeps every intermediate in
 // registers.

@@ -1,7 +1,8 @@
-"""The twenty-four kernels of batched sender recovery, classic ECDSA
+"""The twenty-eight kernels of batched sender recovery, classic ECDSA
 verify, one-block keccak256, the un-fused (stacked and single-row)
-recovery and verify path and the reference's TPU-tiling configuration,
-each with its plain PyTorch version and its launch count.
+recovery and verify path, the reference's TPU-tiling configuration and
+the profiling harness's micro-benchmarks, each with its plain PyTorch
+version and its launch count.
 
 Every public function keeps the name, signature and array layouts of
 the reference wrapper in ``eges_tpu/ops/pallas_kernels.py`` it replaces,
@@ -11,22 +12,24 @@ so tests compare array with array.  Limb and word tensors are
 lane block, the reference's ``LANE_BLOCK`` (:func:`lane_block`).
 
 A wrapper given CUDA tensors launches its kernel from ``csrc/recover.cu``,
-``csrc/verify.cu``, ``csrc/glue.cu`` or ``csrc/tiling.cu`` on the
-current stream and adds one to ``LAUNCHES[name]``; given CPU
-tensors it runs the plain version (``*_plain``), which repeats the
-kernel's arithmetic with ``ops/field.py`` and is also what
-``chip_smoke.py`` holds each kernel against on the card.  There is no
+``csrc/verify.cu``, ``csrc/glue.cu``, ``csrc/tiling.cu`` or
+``csrc/profile.cu`` on the current stream and adds one to
+``LAUNCHES[name]``; given CPU tensors it runs the plain version
+(``*_plain``), which repeats the kernel's arithmetic with
+``ops/field.py`` and is also what ``chip_smoke.py`` holds each kernel
+against on the card.  There is no
 fallback from one to the other.
 
 What bounds each kernel on the H100: the work is 16-bit limb products
 and carry chains on u32, one thread per row.  The card issues about ten
 u32 operations in the time it moves one byte of device memory.
-``fp_mul``, ``fp_canon``, ``recover_prelude``, ``fp_add``,
-``fn_red17`` and the glue kernels ``fp_sub``, ``fp_neg``,
-``fp_mul_small``, ``fn_sub`` and ``fn_neg`` do fewer than that per byte
-they read and write, so bytes bound them; the other fourteen do more
-(``y_fix`` only just, the pow and ladder kernels over a hundred
-times more) and integer operations bound them.  Each reads its
+``fp_mul``, ``fp_canon``, ``recover_prelude``, ``y_fix``,
+``recover_finish``, ``fp_add``, ``fn_red17`` and the glue kernels
+``fp_sub``, ``fp_neg``, ``fp_mul_small``, ``fn_sub``, ``fn_neg`` and
+``mulhi8`` (only just) issue fewer than that per byte they read and
+write (``ops/opcount.py``), so bytes bound them; the other eleven issue
+more (the pow and ladder kernels several hundred times more) and integer
+operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.
 
@@ -38,6 +41,13 @@ tiles of 1024 rows, see :func:`to_rows8`), and
 ``keccak_block_pallas`` to the round kernel, which leaves the whole
 50-word state.  Each has a CUDA kernel of its own in ``csrc/tiling.cu``
 and a launch count of its own, so a run shows which layout it took.
+
+The harness's kernels (``csrc/profile.cu``, ``eges_tpu_torch/harness/``)
+time F_P multiplies in both layouts: 64 chained products on ``[16, B]``
+limb-major columns (:func:`fp_mul_chain_pallas`) and on rows8 tiles
+(:func:`fp_mul_chain_rows8`), one product on tiles
+(:func:`fp_mul_rows8`), and the cost of one hand-written launch
+(:func:`add_one_f32`, ``x + 1.0``).
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import torch.nn.functional as F
 
 from eges_tpu_torch.ops import build, curve, field
 from eges_tpu_torch.ops.bigint import NLIMBS, int_to_limbs
+from eges_tpu_torch.ops.opcount import PROFILE_CHAIN
 
 POW_WINDOWS = 64
 ROWS8_BLOCK = 1024  # rows of one rows8 tile: 8 sublanes x 128 lanes
@@ -62,8 +73,9 @@ KERNELS = ("recover_prelude", "pow_mod", "y_fix", "u1u2", "glv_digits",
            "point_table", "fp_mul", "fp_canon", "strauss_tab",
            "recover_finish", "keccak_rows", "fn_mul", "fn_red17", "fp_add",
            "keccak_block", "pow_mod_rows8", "strauss_tab_rows8",
-           "keccak_rows_grid", "fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
-           "fn_neg", "mulhi8")
+           "keccak_rows_grid", "fp_mul_chain", "fp_mul_chain_rows8",
+           "fp_mul_rows8", "add_one_f32", "fp_sub", "fp_neg", "fp_mul_small",
+           "fn_sub", "fn_neg", "mulhi8")
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -445,6 +457,39 @@ def keccak_rows_grid_plain(words):
     return _i(field.keccak_state(_u(words).T).T.contiguous())
 
 
+def fp_mul_chain_plain(a, b, chain: int = PROFILE_CHAIN):
+    """``[16, B]`` limb-major columns -> ``chain`` products ``a = a * b``:
+    as many calls of :func:`fp_mul_plain` on the ``[B, 16]`` rows."""
+    A, Bv = a.T.contiguous(), b.T.contiguous()
+    for _ in range(chain):
+        A = fp_mul_plain(A, Bv)
+    return A.T.contiguous()
+
+
+def _mul_chain_rows8_plain(at, bt, chain: int):
+    """``[nb, 128, 128]`` rows8 tiles -> tiles of ``chain`` products
+    ``a = a * b`` per row (all ``nb * 1024`` rows): profile.cu's
+    ``mul_chain_rows8`` template."""
+    rows = at.shape[0] * ROWS8_BLOCK
+    A, Bv = from_rows8(at, rows), from_rows8(bt, rows)
+    for _ in range(chain):
+        A = fp_mul_plain(A, Bv)
+    return to_rows8(A)
+
+
+def fp_mul_chain_rows8_plain(at, bt):
+    return _mul_chain_rows8_plain(at, bt, PROFILE_CHAIN)
+
+
+def fp_mul_rows8_plain(at, bt):
+    return _mul_chain_rows8_plain(at, bt, 1)
+
+
+@torch.inference_mode()
+def add_one_f32_plain(x):
+    return x + 1.0
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -480,9 +525,15 @@ _ARGTYPES = {
     "eg_pow_rows8": [_P, _P, _I, _I, _P, _I, _P],
     "eg_strauss_rows8": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
     "eg_keccak_round": [_P, _I, _P, _P],
+    "eg_init_profile": [_P, _I],
+    "eg_fp_mul_chain": [_P, _P, _I, _I, _I, _P, _P],
+    "eg_fp_mul_chain_rows8": [_P, _P, _I, _P, _P],
+    "eg_fp_mul_rows8": [_P, _P, _I, _P, _P],
+    "eg_add_one_f32": [_P, _I, _P, _P],
 }
 # one per source: each translation unit has its own constants block
-_INITS = ("eg_init", "eg_init_verify", "eg_init_glue", "eg_init_tiling")
+_INITS = ("eg_init", "eg_init_verify", "eg_init_glue", "eg_init_tiling",
+          "eg_init_profile")
 
 
 def pack_constants() -> np.ndarray:
@@ -977,7 +1028,89 @@ def keccak_rows_grid(words):
     return out
 
 
-# the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py)
+# ---------------------------------------------------------------------------
+# the profiling harness's kernels (csrc/profile.cu)
+# ---------------------------------------------------------------------------
+
+def fp_mul_chain_pallas(a, b, chain: int = PROFILE_CHAIN, lane: int = 256):
+    """``[16, B] x [16, B]`` limb-major (limb k of column c at ``[k, c]``)
+    -> ``[16, B]``: ``chain`` chained relaxed F_P products ``a = a * b``
+    per column in one launch of ``lane``-thread blocks.  Replaces
+    ``_chain_kernel_1d`` launched by ``run_1d``
+    (harness/profile_mulchain.py:29, 47).  ``lane`` is a multiple of 128
+    up to 1024 and B a multiple of it, else ``ValueError``: the
+    reference's grid of ``B // lane`` blocks would leave the tail
+    unwritten."""
+    if a.dim() != 2:
+        raise ValueError(f"a: expected [16, B], got {tuple(a.shape)}")
+    wide = a.shape[1]
+    _check(a, "a", (NLIMBS, wide))
+    _check(b, "b", (NLIMBS, wide))
+    if lane <= 0 or lane > 1024 or lane % 128:
+        raise ValueError(f"lane {lane}: must be a multiple of 128 up to 1024")
+    if wide % lane:
+        raise ValueError(f"B = {wide} is not a multiple of the lane {lane}")
+    if chain < 0:
+        raise ValueError("chain must be >= 0")
+    if not _on_card(a, b):
+        return fp_mul_chain_plain(a, b, chain)
+    out = _empty((NLIMBS, wide), a)
+    _launch("fp_mul_chain", "eg_fp_mul_chain", a, b, wide, chain, lane, out)
+    return out
+
+
+def _tile_pair(at, bt) -> int:
+    """Check two ``[nb, 128, 128]`` rows8 value tiles; returns nb."""
+    nb = _tiles(at, "at", NLIMBS * 8)
+    if _tiles(bt, "bt", NLIMBS * 8) != nb:
+        raise ValueError(f"bt: {bt.shape[0]} tiles, at has {nb}")
+    return nb
+
+
+def fp_mul_chain_rows8(at, bt):
+    """``[nb, 128, 128]`` rows8 tiles -> tiles of ``PROFILE_CHAIN`` (64)
+    chained relaxed F_P products ``a = a * b`` per row (``to_rows8``'s
+    layout).  Replaces ``_chain_kernel_8x``
+    (harness/profile_mulchain.py:38, launched at :77)."""
+    nb = _tile_pair(at, bt)
+    if not _on_card(at, bt):
+        return fp_mul_chain_rows8_plain(at, bt)
+    out = torch.empty_like(at)
+    _launch("fp_mul_chain_rows8", "eg_fp_mul_chain_rows8", at, bt, nb, out)
+    return out
+
+
+def fp_mul_rows8(at, bt):
+    """``[nb, 128, 128]`` rows8 tiles -> tiles of the relaxed F_P product
+    per row.  Replaces ``_fp_mul8b_kernel`` (harness/profile_mul8b.py:34,
+    launched at :50); ``fp_mul8b`` there re-lays ``[B, 16]`` rows around
+    it."""
+    nb = _tile_pair(at, bt)
+    if not _on_card(at, bt):
+        return fp_mul_rows8_plain(at, bt)
+    out = torch.empty_like(at)
+    _launch("fp_mul_rows8", "eg_fp_mul_rows8", at, bt, nb, out)
+    return out
+
+
+def add_one_f32(x):
+    """``x + 1.0`` on a contiguous float32 tensor, one hand-written kernel
+    launch.  Replaces the ``pallasnop`` copy kernel ``_kern``
+    (harness/profile_floor.py:105, launched at :113)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError("x: expected a tensor")
+    _check(x, "x", x.shape, torch.float32)
+    if x.numel() >= 2**31:
+        raise ValueError("x: too many elements for one launch")
+    if not _on_card(x):
+        return add_one_f32_plain(x)
+    out = torch.empty_like(x)
+    _launch("add_one_f32", "eg_add_one_f32", x, x.numel(), out)
+    return out
+
+
+# the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py
+# unless named)
 REPLACES = {
     "recover_prelude": "eges_tpu/ops/pallas_kernels.py:1519",
     "pow_mod": "eges_tpu/ops/pallas_kernels.py:525",
@@ -1003,6 +1136,10 @@ REPLACES = {
     "pow_mod_rows8": "eges_tpu/ops/pallas_kernels.py:861",
     "strauss_tab_rows8": "eges_tpu/ops/pallas_kernels.py:948",
     "keccak_rows_grid": "eges_tpu/ops/pallas_kernels.py:1713",
+    "fp_mul_chain": "harness/profile_mulchain.py:29",
+    "fp_mul_chain_rows8": "harness/profile_mulchain.py:38",
+    "fp_mul_rows8": "harness/profile_mul8b.py:34",
+    "add_one_f32": "harness/profile_floor.py:105",
 }
 
 # the source file each kernel is in (under ops/csrc)
@@ -1013,3 +1150,5 @@ SOURCE_OF.update(dict.fromkeys(("fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
                                 "fn_neg", "mulhi8"), "glue.cu"))
 SOURCE_OF.update(dict.fromkeys(("pow_mod_rows8", "strauss_tab_rows8",
                                 "keccak_rows_grid"), "tiling.cu"))
+SOURCE_OF.update(dict.fromkeys(("fp_mul_chain", "fp_mul_chain_rows8",
+                                "fp_mul_rows8", "add_one_f32"), "profile.cu"))

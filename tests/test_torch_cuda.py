@@ -51,7 +51,9 @@ def test_build_reports_every_kernel(dev):
         "k_strauss", "k_recover_finish", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
-        "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round"}
+        "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
+        "k_fp_mul_chain", "k_fp_mul_chain_rows8", "k_fp_mul_rows8",
+        "k_add_one_f32"}
 
 
 def test_fp_mul_and_canon(dev):
@@ -314,3 +316,75 @@ def test_tiling_paths_on_card(dev):
     got = digests.cpu().numpy()
     for i, m in enumerate(msgs.cpu().numpy()):
         assert bytes(got[i]) == keccak256(bytes(m))
+
+
+def test_profile_kernels(dev):
+    """The harness's four kernels against their plain versions on the
+    same tensors: the 1-D chain at lane blocks of 128, 256 and 1024 (a
+    ragged 4096 + 128 columns at 128), the rows8 chain and one rows8
+    product on two tiles, the copy kernel on one (8, 128) tile; and the
+    launches counted once each."""
+    rng = np.random.default_rng(27)
+
+    def limbs(shape):
+        return torch.from_numpy(rng.integers(0, 1 << 16, shape).astype(
+            np.int32)).to(dev)
+
+    K.reset_launches()
+    for wide, lane in ((4096 + 128, 128), (1024, 256), (2048, 1024)):
+        a, b = limbs((16, wide)), limbs((16, wide))
+        _same(K.fp_mul_chain_pallas(a, b, 64, lane),
+              K.fp_mul_chain_plain(a, b, 64))
+    at, bt = limbs((2, 128, 128)), limbs((2, 128, 128))
+    _same(K.fp_mul_chain_rows8(at, bt), K.fp_mul_chain_rows8_plain(at, bt))
+    _same(K.fp_mul_rows8(at, bt), K.fp_mul_rows8_plain(at, bt))
+    _same(K.from_rows8(K.fp_mul_rows8(at, bt), 2048),
+          K.fp_mul_pallas(K.from_rows8(at, 2048), K.from_rows8(bt, 2048)))
+    x = torch.from_numpy(rng.standard_normal((8, 128), dtype=np.float32)).to(
+        dev)
+    _same(K.add_one_f32(x), K.add_one_f32_plain(x))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "fp_mul_chain": 3, "fp_mul_chain_rows8": 1, "fp_mul_rows8": 2,
+        "add_one_f32": 1, "fp_mul": 1}
+
+
+@pytest.mark.parametrize("call", [
+    lambda a, t, x: K.fp_mul_chain_pallas(a[:, :4000].contiguous(),
+                                          a[:, :4000].contiguous()),
+    lambda a, t, x: K.fp_mul_chain_pallas(a, a, 64, 2048),
+    lambda a, t, x: K.fp_mul_chain_pallas(a, a[:15].contiguous()),
+    lambda a, t, x: K.fp_mul_chain_pallas(a, a.T),
+    lambda a, t, x: K.fp_mul_chain_rows8(t, t[:, :64].contiguous()),
+    lambda a, t, x: K.fp_mul_rows8(t, t[:1]),
+    lambda a, t, x: K.fp_mul_rows8(t, t.cpu()),
+    lambda a, t, x: K.add_one_f32(x.double()),
+    lambda a, t, x: K.add_one_f32(x.T),
+])
+def test_profile_wrappers_raise_on_card(dev, call):
+    """Misshapen input on the card raises; no wrapper falls back to its
+    plain version."""
+    a = torch.zeros(16, 4096, dtype=torch.int32, device=dev)
+    t = torch.zeros(2, 128, 128, dtype=torch.int32, device=dev)
+    x = torch.zeros(8, 128, dtype=torch.float32, device=dev)
+    K.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        call(a, t, x)
+    assert not any(K.LAUNCHES.values())
+
+
+def test_profile_window_sessions_back_to_back(dev):
+    """Two profiler sessions in a row (the second after the first's
+    events were read) each record every launch of their window, and a
+    cold event time covers the kernel."""
+    from eges_tpu_torch.harness import profutil
+
+    rng = np.random.default_rng(28)
+    a = K.from_reference(_limbs(rng, 4096), dev)
+    for _ in range(2):
+        events, wall = profutil.profile_window(
+            lambda: K.fp_mul_pallas(a, a), reps=3, device=dev)
+        assert [n for n, _ in events if n.startswith("k_")] == ["k_fp_mul"] * 3
+        assert wall > 0
+    cold = profutil.cuda_event_ms(lambda: K.fp_mul_pallas(a, a), cold=True,
+                                  device=dev)
+    assert cold > max(us for _, us in events) / 1e3 / 2

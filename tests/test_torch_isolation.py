@@ -1,7 +1,9 @@
 """eges_tpu_torch stands alone: importing any of its modules pulls in
-neither ``jax`` nor any module of the JAX package ``eges_tpu``, no source
-of the port or of chip_smoke.py imports them, and the entry points
-default to the card and raise where there is none."""
+neither ``jax``, nor any module of the JAX package ``eges_tpu``, nor the
+JAX repo's top-level ``harness``; no source of the port (its own
+``harness`` subpackage included) or of chip_smoke.py imports them; and
+the entry points, the harness's among them, default to the card and
+raise where there is none."""
 
 import ast
 import json
@@ -36,9 +38,9 @@ def test_importing_the_port_loads_no_jax_and_no_eges_tpu():
                          check=True).stdout
     mods = json.loads(out.splitlines()[-1])
     assert "eges_tpu_torch.crypto.verifier" in mods
-    assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
-    assert not [m for m in mods
-                if m == "eges_tpu" or m.startswith("eges_tpu.")]
+    assert "eges_tpu_torch.harness.profile_floor" in mods
+    for root in ("jax", "eges_tpu", "harness"):
+        assert not [m for m in mods if m == root or m.startswith(root + ".")]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -55,12 +57,27 @@ def test_source_imports_no_jax_and_no_eges_tpu(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "eges_tpu"), (path, name)
+            assert root not in ("jax", "jaxlib", "eges_tpu", "harness"), (
+                path, name)
+
+
+def test_the_walk_covers_the_harness_subpackage():
+    harness = {m for m in _modules()
+               if m.startswith("eges_tpu_torch.harness")}
+    assert harness == {
+        "eges_tpu_torch.harness", *(f"eges_tpu_torch.harness.{n}" for n in (
+            "profutil", "profile_mulchain", "profile_mul8b", "profile_floor",
+            "profile_kernels2", "profile_stages", "measure_recover",
+            "hlo_census"))}
 
 
 def test_entry_points_default_to_the_card():
     from eges_tpu_torch import resolve_device
     from eges_tpu_torch.crypto.verifier import BatchVerifier, default_verifier
+    from eges_tpu_torch.harness import (hlo_census, measure_recover,
+                                        profile_floor, profile_kernels2,
+                                        profile_mul8b, profile_mulchain,
+                                        profile_stages, profutil)
 
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():
@@ -72,3 +89,10 @@ def test_entry_points_default_to_the_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         default_verifier()
+    for main in (profile_mulchain.main, profile_mul8b.main,
+                 profile_floor.main, profile_kernels2.main,
+                 profile_stages.main, measure_recover.main, hlo_census.main,
+                 lambda: profile_floor.child("nop"),
+                 lambda: profutil.timeit(lambda: None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main()

@@ -300,3 +300,43 @@ def test_pow_digits_and_build_plumbing():
     assert build.parse_ptxas(log) == {"k_strauss": {
         "stack_bytes": 960, "spill_store_bytes": 8, "spill_load_bytes": 16,
         "registers": 255}}
+
+
+_SASS = """
+	code for sm_90a
+		Function : k_loop
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;     /* 0x00000a00ff017b82 */
+                                                              /* 0x000e220000000800 */
+        /*0010*/                   IMAD R2, R3, R4, R5 ;      /* 0x0000000403027224 */
+        /*0020*/                   LEA.HI R2, R2, R6, RZ, 0x10 ; /* 0x0 */
+        /*0030*/                   ISETP.NE.AND P0, PT, R2, RZ, PT ; /* 0x0 */
+        /*0040*/               @P0 BRA 0x10 ;                 /* 0x0 */
+        /*0050*/                   EXIT ;                     /* 0x0 */
+        /*0060*/                   BRA 0x60;                  /* 0x0 */
+        /*0070*/                   NOP;                       /* 0x0 */
+		Function : k_line
+        /*0000*/                   IADD3 R0, R1, R2, R3 ;     /* 0x0 */
+        /*0010*/               @!P0 EXIT ;                    /* 0x0 */
+        /*0020*/                   LOP3.LUT R0, R0, 0xffff, RZ, 0xc0, !PT ; /* 0x0 */
+        /*0030*/                   EXIT ;                     /* 0x0 */
+        /*0040*/                   BRA 0x40;                  /* 0x0 */
+		Function : k_call
+        /*0000*/                   CALL.REL.NOINC 0x40 ;      /* 0x0 */
+        /*0010*/                   EXIT ;                     /* 0x0 */
+"""
+
+
+def test_sass_listing_parse():
+    """``cuobjdump -sass`` text -> instructions without NOPs and the
+    trailing branch to itself; loops from their backward branches;
+    straight-line code has no branch and no call."""
+    code = build.parse_sass(_SASS)
+    assert [len(code[f]) for f in ("k_loop", "k_line", "k_call")] == [6, 4, 2]
+    assert build.opcode(code["k_loop"][4][1]) == "BRA"
+    assert build.loop_bodies(code["k_loop"]) == [[
+        "IMAD R2, R3, R4, R5", "LEA.HI R2, R2, R6, RZ, 0x10",
+        "ISETP.NE.AND P0, PT, R2, RZ, PT", "@P0 BRA 0x10"]]
+    assert build.loop_bodies(code["k_line"]) == []
+    assert [build.straight_line(code[f])
+            for f in ("k_loop", "k_line", "k_call")] == [False, True, False]

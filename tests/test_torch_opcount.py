@@ -2,7 +2,8 @@
 source it counts: every device function of ``field.cuh`` makes exactly
 the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it,
 and so does every kernel of ``verify.cu`` and ``glue.cu``; every kernel
-of ``tiling.cu`` has exactly the counted call sites listed for it."""
+of ``tiling.cu`` and ``profile.cu`` has exactly the counted call sites
+listed for it, and so does ``profile.cu``'s chain template."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ FIELD_CUH = (pathlib.Path(__file__).resolve().parents[1] / "eges_tpu_torch"
 VERIFY_CU = FIELD_CUH.with_name("verify.cu")
 GLUE_CU = FIELD_CUH.with_name("glue.cu")
 TILING_CU = FIELD_CUH.with_name("tiling.cu")
+PROFILE_CU = FIELD_CUH.with_name("profile.cu")
 # functions of field.cuh that move values and count no operations
 # (rotl64 is counted inside keccak_words' own operations; rows8_at is
 # the address of a rows8 tile element)
@@ -30,8 +32,8 @@ _DEF = re.compile(r"^(template\s*<[^>]*>\s*)?(?:EG_FD|EG_CALL)\s+[\w\s*]*?"
 _CALL = re.compile(r"\b([A-Za-z_]\w*)\s*(<[^<>;(){}]*>)?\s*\(")
 
 
-def _source() -> str:
-    return re.sub(r"//[^\n]*", "", FIELD_CUH.read_text())
+def _source(path=FIELD_CUH) -> str:
+    return re.sub(r"//[^\n]*", "", path.read_text())
 
 
 def _definitions(src: str) -> dict[str, tuple[bool, str]]:
@@ -59,12 +61,17 @@ def _counted_calls(body: str) -> collections.Counter:
     return calls
 
 
+def _templates(path) -> set[str]:
+    return {n for n, (tmpl, _) in _definitions(_source(path)).items()
+            if tmpl}
+
+
 def test_every_field_function_is_counted_or_moves_only():
     defs = _definitions(_source())
     plain = {n for n, (tmpl, _) in defs.items() if not tmpl}
     templates = {n for n, (tmpl, _) in defs.items() if tmpl}
     assert plain == set(opcount.HELPERS) | UNCOUNTED
-    assert templates == set(opcount.TEMPLATES)
+    assert templates | _templates(PROFILE_CU) == set(opcount.TEMPLATES)
 
 
 @pytest.mark.parametrize("name", sorted(opcount.HELPERS))
@@ -80,13 +87,13 @@ def test_data_dependent_calls_run_under_a_branch(caller, callee):
 
 
 def test_the_mixed_add_count_leaves_the_doubling_out():
-    sqr_mul = opcount.ops("fp_mul")
-    assert opcount.ops("fp_sqr") == sqr_mul
+    mul, sqr = opcount.ops("fp_mul"), opcount.ops("fp_sqr")
+    assert sqr == mul - opcount.SQR_SAVED == 757
     assert opcount.ops("jac_double") == (
-        7 * sqr_mul + opcount.ops("fp_add") + 5 * opcount.ops("fp_sub")
+        5 * sqr + 2 * mul + opcount.ops("fp_add") + 5 * opcount.ops("fp_sub")
         + 5 * opcount.ops("fp_mul_small"))
     assert opcount.ops("jac_add_mixed") == (
-        11 * sqr_mul + 6 * opcount.ops("fp_sub")
+        3 * sqr + 8 * mul + 6 * opcount.ops("fp_sub")
         + 5 * opcount.ops("fp_mul_small") + 3 * opcount.ops("is_zero_mod")
         + 5 * opcount.ops("select16") + 3)
     rows = opcount.per_row()
@@ -131,10 +138,11 @@ def test_verify_kernel_calls_match_the_source(name):
 def test_verify_kernel_counts():
     rows = opcount.per_row()
     assert rows["fn_mul"] == (opcount.mul_cols(16, 16)
-                              + opcount.fn_red_cols(32)) == 3419
-    assert rows["fn_red17"] == opcount.fn_red_cols(17) == 607
-    assert rows["fp_add"] == 16 + opcount.CARRY_TAIL == 133
+                              + opcount.fn_red_cols(32)) == 2315
+    assert rows["fn_red17"] == opcount.fn_red_cols(17) == 375
+    assert rows["fp_add"] == 16 + opcount.CARRY_TAIL == 93
     assert rows["keccak_block"] == rows["keccak_rows"] == opcount.KECCAK
+    assert opcount.KECCAK == 24 * 180 == 4320
 
 
 def test_every_glue_kernel_is_counted():
@@ -150,14 +158,14 @@ def test_glue_kernel_calls_match_the_source(name):
 
 def test_glue_kernel_counts():
     rows = opcount.per_row()
-    sub = 16 * 3 + opcount.CARRY_TAIL
-    assert rows["fp_sub"] == rows["fp_neg"] == sub == 165
-    assert rows["fp_mul_small"] == 16 + opcount.CARRY_TAIL == 133
-    assert rows["fn_sub"] == 16 * 3 + opcount.fn_red_cols(16) == 544
+    sub = 16 * 2 + opcount.CARRY_TAIL
+    assert rows["fp_sub"] == rows["fp_neg"] == sub == 109
+    assert rows["fp_mul_small"] == 16 + opcount.CARRY_TAIL == 93
+    assert rows["fn_sub"] == 16 * 2 + opcount.fn_red_cols(16) == 332
     assert rows["fn_neg"] == (rows["fn_sub"] + opcount.ops("is_zero")
-                              + opcount.ops("select16")) == 592
+                              + opcount.ops("select16")) == 364
     assert rows["mulhi8"] == (opcount.mul_cols(16, 16)
-                              + opcount.carry(32, 32)) == 1376
+                              + opcount.carry(32, 32)) == 951
 
 
 def test_every_tiling_kernel_is_counted():
@@ -175,11 +183,55 @@ def test_tiling_kernel_counts():
     """The rows8 kernels do their default-layout twins' arithmetic per
     row; the round kernel counts its 25 lanes' operations per column."""
     rows = opcount.per_row(negations=5.0, ladder_doublings=1.0)
+    mul, fn_mul = opcount.ops("fp_mul"), opcount.ops("fn_mul")
     assert rows["pow_mod_rows8_p"] == rows["pow_mod_p"] == (
-        (14 + 64 * 5) * opcount.ops("fp_mul"))
+        78 * mul + 256 * opcount.ops("fp_sqr"))
     assert rows["pow_mod_rows8_n"] == rows["pow_mod_n"] == (
-        (14 + 64 * 5) * opcount.ops("fn_mul"))
+        334 * fn_mul - 256 * opcount.SQR_SAVED)
     assert rows["strauss_tab_rows8"] == rows["strauss_tab"]
-    theta = 5 * 4 * 2 + 25 * (2 + 4)
+    theta = 5 * 2 * 2 + 25 * (2 + 2)
     assert rows["keccak_rows_grid"] == opcount.KECCAK_ROUND == (
-        24 * (theta + 25 * 4 + 25 * 3 * 2 + 2)) == 10608
+        24 * (theta + 25 * 4 + 25 * 2 + 2)) == 6528
+
+
+def test_every_profile_kernel_is_counted():
+    assert set(_kernel_bodies(PROFILE_CU)) == {
+        fn for fn, _ in opcount.PROFILE_KERNELS.values()}
+
+
+@pytest.mark.parametrize("name", sorted(opcount.PROFILE_KERNELS))
+def test_profile_kernel_calls_match_the_source(name):
+    fn, calls = opcount.PROFILE_KERNELS[name]
+    assert dict(_counted_calls(_kernel_bodies(PROFILE_CU)[fn])) == calls
+
+
+def test_profile_chain_template_matches_the_source():
+    assert _templates(PROFILE_CU) == {"mul_chain_rows8"}
+    _, body = _definitions(_source(PROFILE_CU))["mul_chain_rows8"]
+    assert dict(_counted_calls(body)) == {"fp_mul": 1}
+    assert re.search(r"#pragma unroll 1\s*for \(int i = 0; i < CHAIN;",
+                     PROFILE_CU.read_text())
+
+
+@pytest.mark.parametrize("count,want", [
+    (lambda: opcount.adds(1), 0), (lambda: opcount.adds(2), 1),
+    (lambda: opcount.adds(4), 2), (lambda: opcount.mul_cols(1, 9), 27),
+    (lambda: opcount.mul_cols(2, 2), 13),
+    (lambda: opcount.carry(16, 17), 32), (lambda: opcount.carry(3, 5), 7)])
+def test_issued_instruction_rules(count, want):
+    """Three-input adds; a pair's product and mask plus its column's
+    shift-adds and adds (2 x 2: 8 + columns 0, 2, 2, 1); a carry chain's
+    masks and fused shift-adds, one extract a limb past the columns."""
+    assert count() == want
+
+
+def test_profile_kernel_counts():
+    """fp_mul is its folds' 32 + mul_cols<16,16> 888 + carry_tail 77 =
+    997 instructions a row; the chains run 64 of them."""
+    rows = opcount.per_row()
+    assert opcount.mul_cols(16, 16) == 888 and opcount.CARRY_TAIL == 77
+    assert opcount.ops("fp_mul") == 32 + 888 + 77 == 997
+    assert rows["fp_mul_chain"] == rows["fp_mul_chain_rows8"] == (
+        opcount.PROFILE_CHAIN * 997) == 63808
+    assert rows["fp_mul_rows8"] == rows["fp_mul"] == 997
+    assert rows["add_one_f32"] == 1

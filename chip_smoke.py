@@ -1,7 +1,8 @@
 """Drive eges_tpu_torch's paths on one CUDA card: batched sender
 recovery, classic ECDSA verify and Keccak-256, the un-fused
 recovery and verify of stacked windows, the same paths under the
-reference's TPU-tiling configuration, and the profiling harness.
+reference's TPU-tiling configuration, the profiling harness, and the
+static-analysis gate with the analysis fixture's kernel (#21).
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
@@ -94,10 +95,19 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    128 columns with lane 128), on rows8 tiles (#20b), one multiply on
    tiles (#20c, with #7 ``fp_mul``'s time on the same values), each at
    B = 4096 and 131072, and the copy kernel on one (8, 128) float32 tile
-   (#20d, with ``x + 1.0``'s time as its library time); each held bit
-   for bit against its plain version, timed with CUDA events back to
-   back and one call at a time on cold L2 (the kernel alone) beside its
-   bound and the plain version's time.
+   (#20d, with ``x + 1.0``'s time as its library time), and #21
+   ``mul_scalar_f32`` on that tile and on 2^24 float32 elements (with
+   ATen's ``x * s`` as its library time, which must not beat the byte
+   bound either); each held bit for bit against its plain version,
+   timed with CUDA events back to back and one call at a time on cold
+   L2 (the kernel alone) beside its bound and the plain version's time.
+12. analysis: the port's static-analysis gate
+   (``eges_tpu_torch.harness.analysis``) over this checkout, which must
+   show no unsuppressed finding, no error and no stale baseline (finding
+   counts by rule, seconds); the seeded launch-purity fixture must
+   still fire; then #21's path, the reference fixture's ``run(x)`` (x
+   times the host clock) on one (8, 128) tile through
+   ``mul_scalar_f32``, against its plain version.
 
 Every kernel's time, and each cold time, must lie above its bound:
 a bound the card beats is no floor, and the run fails.
@@ -146,6 +156,7 @@ AB_CALLS = 100                      # timed calls a round for each p50
 B_PROFILE = (4096, 131072)          # the harness's batch; one filling 132 SMs
 RAGGED_CHAIN = (4096 + 128, 128)    # #20a's ragged check: columns, lane
 MEASURE_BATCHES = (1024, 8192)      # measure_recover's batches
+MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
 # fp_mul_small launches of one un-fused batch by k: each doubling takes
 # k = 2 three times, 3 and 8 once; each mixed add k = 2 four times and 4
 # once, besides its doubling; 33 windows of 4 + 4, 14 table adds
@@ -1230,6 +1241,24 @@ def phase_profile_kernels(dev, clock_hz, ptxas):
           "library_ms": rec["library_ms"],
           "library_cold_ms": cuda_event_ms(lambda: x + 1.0, cold=True),
           "library": "x + 1.0"})
+    # #21 at the floor's tile (the shape phase analysis drives it at) and
+    # at MUL_SCALAR_BIG elements, where bytes and not the launch set the
+    # time; its library call is ATen's x * s on the same float32 scalar
+    s = K._f32(time.time())
+    for label, shape in (("8x128", (8, 128)), ("2^24", (MUL_SCALAR_BIG,))):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            dev)
+        x.view(-1)[:5] = torch.tensor((0.0, -0.0, 3e38, -1e-30, 2.0**24),
+                                      device=dev)
+        lib = {"library_ms": cuda_event_ms(lambda: x * s, reps=5),
+               "library_cold_ms": cuda_event_ms(lambda: x * s, cold=True)}
+        rec = check("mul_scalar_f32", label, (
+            lambda: K.mul_scalar_f32(x, s),
+            lambda: K.mul_scalar_f32_plain(x, s), 2 * nbytes(x),
+            x.numel() * OPS["mul_scalar_f32"]), extra=lib)
+        if min(lib.values()) < rec["bound_ms"]:
+            raise AssertionError(f"mul_scalar_f32 {label}: x * s at {lib} "
+                                 f"beats the bound of {rec['bound_ms']} ms")
     return records
 
 
@@ -1302,6 +1331,57 @@ def phase_profile(dev):
     return launches
 
 
+def phase_analysis(dev):
+    """The port's static-analysis gate over the tree the script runs from
+    (``eges_tpu_torch`` and this file): no unsuppressed finding, no
+    error, no stale baseline; and the seeded launch-purity fixture still
+    fires.  Then the path of kernel #21: the reference fixture's
+    ``run(x)``, ``x`` times the host clock, on one (8, 128) float32 tile
+    through ``mul_scalar_f32``, against its plain version.  Returns the
+    launches of that run."""
+    from eges_tpu_torch.harness.analysis import run
+    from eges_tpu_torch.ops import kernels as K
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    rep = run(root)
+    seconds = time.monotonic() - t0
+    out = {"phase": "analysis", "seconds": round(seconds, 3),
+           "files": rep.files, "findings": len(rep.findings),
+           "unsuppressed": len(rep.unsuppressed),
+           "waived": sum(f.waived for f in rep.findings),
+           "baselined": sum(f.baselined for f in rep.findings),
+           "findings_by_rule": {r: n for r, n in
+                                rep.findings_by_rule().items() if n},
+           "checker_seconds": {k: round(v, 4) for k, v in
+                               rep.checker_seconds.items()}}
+    if rep.unsuppressed or rep.errors or rep.stale_baseline:
+        emit(out)
+        raise AssertionError(
+            "analysis gate: " + "; ".join(
+                [f.render() for f in rep.unsuppressed] + rep.errors
+                + [f"stale baseline {e}" for e in rep.stale_baseline]))
+    seeded = run(os.path.join(root, "tests", "torch_analysis_fixtures",
+                              "jit"), paths=("eges_tpu_torch",),
+                 rules=("launch-purity",), baseline_path=None)
+    out["fixture_unsuppressed"] = len(seeded.unsuppressed)
+    if len(seeded.unsuppressed) != 3:
+        raise AssertionError("launch-purity fixture: " + "; ".join(
+            f.render() for f in seeded.findings))
+    x = torch.from_numpy(np.random.default_rng(SEED + 9).standard_normal(
+        (8, 128), dtype=np.float32)).to(dev)
+    K.reset_launches()
+    t = time.time()
+    o = K.mul_scalar_f32(x, t)
+    launches = dict(K.LAUNCHES)
+    if max_abs_err(o.view(torch.int32),
+                   K.mul_scalar_f32_plain(x, t).view(torch.int32)):
+        raise AssertionError("mul_scalar_f32 differs from x * t")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    emit(out)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1333,6 +1413,7 @@ def main() -> int:
     phase_tiling_ab(rows, r3, r4)
     paths["profile"] = phase_profile(dev)
     records.update(phase_profile_kernels(dev, clock_hz, info["ptxas"]))
+    paths["analysis"] = phase_analysis(dev)
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name in K.KERNELS:

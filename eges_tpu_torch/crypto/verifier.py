@@ -45,10 +45,15 @@ def _unpack(sigs: torch.Tensor, hashes: torch.Tensor):
 
 
 def _check_rows(sigs: torch.Tensor, hashes: torch.Tensor,
-                widths=(65,)) -> None:
-    if sigs.dim() == 0 or sigs.shape[-1] not in widths:
-        raise ValueError(f"sigs must be [..., {' or '.join(map(str, widths))}]"
-                         f", got {tuple(sigs.shape)}")
+                narrowest: int = 65, widest: int | None = 65) -> None:
+    """Rows of ``narrowest`` to ``widest`` bytes (no upper bound for
+    ``None``) with ``[..., 32]`` hashes beside them, else ValueError."""
+    width = sigs.shape[-1] if sigs.dim() else 0
+    if width < narrowest or (widest is not None and width > widest):
+        want = (f"{narrowest}" if widest == narrowest
+                else f"{narrowest} or more")
+        raise ValueError(f"sigs must be [..., {want}], got "
+                         f"{tuple(sigs.shape)}")
     if tuple(hashes.shape) != (*sigs.shape[:-1], 32):
         raise ValueError(f"hashes must be [..., 32] beside sigs "
                          f"{tuple(sigs.shape)}, got {tuple(hashes.shape)}")
@@ -102,13 +107,15 @@ def verify_batch(sigs: torch.Tensor, hashes: torch.Tensor,
                  pubs: torch.Tensor) -> torch.Tensor:
     """Batched classic ECDSA verify against known public keys.
 
-    ``sigs [..., 64]`` or ``[..., 65]`` uint8 (r || s, the recovery byte
-    ignored), ``hashes [..., 32]`` uint8, ``pubs [..., 64]`` uint8
-    (x || y, big-endian), on one device.  Returns ``ok [...]`` int32.  A
-    ``[N, ...]`` batch takes the fused path, any other shape the
-    un-fused one.
+    ``sigs [..., W]`` uint8 for any ``W >= 64`` (r || s from bytes
+    0..63; byte 64, the recovery byte, and any bytes after it are
+    ignored, as the reference's ``_unpack`` reads them), ``hashes [...,
+    32]`` uint8, ``pubs [..., 64]`` uint8 (x || y, big-endian), on one
+    device.  Returns ``ok [...]`` int32.  Narrower rows raise
+    ValueError, where the reference fails to reshape them.  A ``[N,
+    ...]`` batch takes the fused path, any other shape the un-fused one.
     """
-    _check_rows(sigs, hashes, (64, 65))
+    _check_rows(sigs, hashes, 64, None)
     if tuple(pubs.shape) != (*sigs.shape[:-1], 64):
         raise ValueError(f"pubs must be [..., 64] beside sigs, got "
                          f"{tuple(pubs.shape)}")
@@ -223,24 +230,25 @@ class BatchVerifier:
 
     def verify(self, sigs: np.ndarray, hashes: np.ndarray,
                pubs: np.ndarray) -> np.ndarray:
-        """Classic verify: ``sigs [N, 64 or 65]`` u8, ``hashes [N, 32]``
-        u8, ``pubs [N, 64]`` u8 -> ``ok [N]`` bool as numpy, after the
-        device has finished.  Bucketed and staged like :meth:`ecrecover`;
-        the padded rows of every staging buffer are zeroed, so no row of
-        an earlier batch reaches this one."""
+        """Classic verify: ``sigs [N, W]`` u8 of any width, ``hashes [N,
+        32]`` u8, ``pubs [N, 64]`` u8 -> ``ok [N]`` bool as numpy, after
+        the device has finished.  Rows are staged 65 bytes wide: wider
+        ones are cut, narrower ones zero-padded, as the reference's
+        facade does (``eges_tpu/crypto/verifier.py`` ``verify``).
+        Bucketed and staged like :meth:`ecrecover`; the padded rows of
+        every staging buffer are zeroed, so no row of an earlier batch
+        reaches this one."""
         n = sigs.shape[0]
         if n == 0:
             return np.zeros((0,), bool)
-        if sigs.shape[1] not in (64, 65):
-            raise ValueError("sigs must be [N, 64] or [N, 65]")
         self._maybe_fail(n)
         b = self._pad(n)
+        w = min(sigs.shape[1], 65)
         st = self._stage_acquire(b, with_pubs=True)
         try:
             hs, hh, hq = st["sigs"], st["hashes"], st["pubs"]
-            hs[:n, :sigs.shape[1]] = torch.from_numpy(
-                np.asarray(sigs, np.uint8))
-            hs[:n, sigs.shape[1]:] = 0
+            hs[:n, :w] = torch.from_numpy(np.asarray(sigs[:, :w], np.uint8))
+            hs[:n, w:] = 0
             hs[n:] = 0
             hh[:n] = torch.from_numpy(np.asarray(hashes, np.uint8))
             hh[n:] = 0

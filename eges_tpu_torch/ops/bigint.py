@@ -5,8 +5,9 @@ The limb layout of ``eges_tpu.ops.bigint``, kept so that the port's
 values and the reference's compare array with array: a field element is
 a ``[..., 16]`` array of limbs, least significant first, each below
 2^16 (``int32`` tensors in the port, ``uint32`` numpy arrays on the
-host).  The constants and conversions at the top are Python ints and
-numpy; the field library lives in ``ops/field.py`` (PyTorch) and
+host).  The constants and conversions (Python ints and numpy) are
+defined in ``ops/field.py``, below the kernels, and re-exported here;
+the field library lives in ``ops/field.py`` (PyTorch) and
 ``ops/csrc/field.cuh`` (CUDA).
 
 Below them, the port of the reference's ``Mod``/``FieldP``/``OrderN``
@@ -28,34 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-LIMB_BITS = 16
-NLIMBS = 16  # 256 bits
-MASK = (1 << LIMB_BITS) - 1
-
-# secp256k1 field prime and group order
-P = 2**256 - 2**32 - 977
-N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
-
-
-def int_to_limbs(x: int, n: int = NLIMBS) -> np.ndarray:
-    """Python int -> n little-endian 16-bit limbs (numpy uint32)."""
-    if x < 0 or x >= 1 << (LIMB_BITS * n):
-        raise ValueError("out of range")
-    return np.array([(x >> (LIMB_BITS * i)) & MASK for i in range(n)],
-                    dtype=np.uint32)
-
-
-def limbs_to_int(a) -> int:
-    """Limb array (last axis) -> Python int."""
-    a = np.asarray(a)
-    return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(a.reshape(-1)))
-
-
-# The front door launches the kernels, whose wrappers and field library
-# import the constants above: imported here, so that the cycle finds
-# them defined.
-from eges_tpu_torch.ops import field  # noqa: E402
-from eges_tpu_torch.ops import kernels as K  # noqa: E402
+from eges_tpu_torch.ops import field
+from eges_tpu_torch.ops import kernels as K
+from eges_tpu_torch.ops.field import (  # noqa: F401
+    LIMB_BITS, MASK, NLIMBS, N, P, int_to_limbs, limbs_to_int)
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,33 @@
 // The four micro-benchmark kernels of the profiling harness
-// (eges_tpu_torch/harness/), for sm_90a.
+// (eges_tpu_torch/harness/), and the analysis fixture's scalar multiply
+// (#21), for sm_90a.
 //
-// Each __global__ replaces one Pallas kernel of the reference's harness
-// (named beside it).  Three of them time F_P multiplies in the two value
-// layouts the port has: k_fp_mul_chain runs 64 chained multiplies on
-// [16, B] limb-major columns (the reference's 1-D rows), and
-// k_fp_mul_chain_rows8 / k_fp_mul_rows8 run 64 or one on rows8 tiles
-// ([nb, 128, 128], field.cuh rows8_at).  Each is one thread per row over
-// field.cuh's fp_mul, so its results are bit-identical to the reference's
-// _k_mul on the same relaxed limbs; a fixed b multiplies a again and
-// again, a strict chain of dependent products in registers.  The fourth,
-// k_add_one_f32, is the reference's copy kernel (x + 1.0 on one
-// (8, 128) float32 tile): the cost of launching a hand-written kernel
-// through the ctypes wrapper, against one ATen launch.
+// Each __global__ replaces one Pallas kernel of the reference's harness or
+// of its analysis fixtures (named beside it).  Three of them time F_P
+// multiplies in the two value layouts the port has: k_fp_mul_chain runs 64
+// chained multiplies on [16, B] limb-major columns (the reference's 1-D
+// rows), and k_fp_mul_chain_rows8 / k_fp_mul_rows8 run 64 or one on rows8
+// tiles ([nb, 128, 128], field.cuh rows8_at).  Each is one thread per row
+// over field.cuh's fp_mul, so its results are bit-identical to the
+// reference's _k_mul on the same relaxed limbs; a fixed b multiplies a again
+// and again, a strict chain of dependent products in registers.  The fourth,
+// k_add_one_f32, is the reference's copy kernel (x + 1.0 on one (8, 128)
+// float32 tile): the cost of launching a hand-written kernel through the
+// ctypes wrapper, against one ATen launch.  The fifth, k_mul_scalar_f32, is
+// the launch-purity fixture's kernel (x * s on float32, any size): the same
+// one-thread-per-element shape as the copy kernel, with the scalar an
+// argument.
 //
 // What bounds them on the H100 (about ten u32 operations issue in the
 // time one byte of device memory moves): a 64-multiply chain does some
 // 63,800 counted operations a row against 192 bytes, so integer
 // operations bound it by far; one multiply (997 operations a row) and
-// the copy kernel are bound by bytes, and at the harness's shapes (4096
-// rows, one tile of 1024 floats) by the launch itself (ops/opcount.py
-// counts them).  The chain loop stays rolled (#pragma unroll 1): 64
-// inlined multiplies would grow the code 64-fold, and nvcc's front end
-// has crashed on large inlined bodies (field.cuh EG_CALL).
+// the two float32 kernels are bound by bytes, and at the harness's shapes
+// (4096 rows, one tile of 1024 floats) by the launch itself
+// (ops/opcount.py counts them).  The chain loop stays rolled
+// (#pragma unroll 1): 64 inlined multiplies would grow the code 64-fold,
+// and nvcc's front end has crashed on large inlined bodies (field.cuh
+// EG_CALL).
 //
 // Its own translation unit with its own copy of the constants block
 // (field.cuh declares it static), filled by eg_init_profile.  Each
@@ -93,6 +98,20 @@ k_add_one_f32(const float* x, int n, float* out) {
   out[b] = x[b] + 1.0f;
 }
 
+// #21 _impure_kernel (tests/analysis_fixtures/jit/eges_tpu/ops/
+// impure_kernel.py, launched at :16): o = x * t, where the reference
+// burns the host clock read at trace time into the kernel as a float32
+// constant.  Here the scalar is an argument that the wrapper casts to
+// float32 on the host, so each element is one IEEE single-precision
+// multiply (nothing to contract into an FMA), bit-identical to the
+// plain version's.  Bound by bytes: 8 bytes an element against one
+// operation.
+extern "C" __global__ void __launch_bounds__(EG_THREADS)
+k_mul_scalar_f32(const float* x, float s, int n, float* out) {
+  EG_ROW(n)
+  out[b] = x[b] * s;
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -135,5 +154,13 @@ extern "C" int eg_add_one_f32(const void* x, int n, void* out,
   if (n <= 0) return 0;
   k_add_one_f32<<<eg_grid(n), EG_THREADS, 0, EG_STREAM(stream)>>>(
       (const float*)x, n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int eg_mul_scalar_f32(const void* x, float s, int n, void* out,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  k_mul_scalar_f32<<<eg_grid(n), EG_THREADS, 0, EG_STREAM(stream)>>>(
+      (const float*)x, s, n, (float*)out);
   return (int)cudaGetLastError();
 }

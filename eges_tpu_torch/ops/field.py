@@ -15,16 +15,41 @@ wrapping; the only places where uint32 would wrap are the keccak lanes,
 which are masked to 32 bits here.  Everything runs on any device, so
 the same code is the CPU path of the port and the yardstick the kernels
 are held against on the card.
+
+The limb layout's constants and conversions (``P``, ``N``, ``NLIMBS``,
+``int_to_limbs``, ``limbs_to_int``) are defined here, in the module the
+rest of ``ops/`` builds on, and ``ops/bigint.py`` re-exports them.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from eges_tpu_torch.ops.bigint import MASK, NLIMBS, N, P, int_to_limbs
+LIMB_BITS = 16
+NLIMBS = 16  # 256 bits
+MASK = (1 << LIMB_BITS) - 1
+
+# secp256k1 field prime and group order
+P = 2**256 - 2**32 - 977
+N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+
+
+def int_to_limbs(x: int, n: int = NLIMBS) -> np.ndarray:
+    """Python int -> n little-endian 16-bit limbs (numpy uint32)."""
+    if x < 0 or x >= 1 << (LIMB_BITS * n):
+        raise ValueError("out of range")
+    return np.array([(x >> (LIMB_BITS * i)) & MASK for i in range(n)],
+                    dtype=np.uint32)
+
+
+def limbs_to_int(a) -> int:
+    """Limb array (last axis) -> Python int."""
+    a = np.asarray(a)
+    return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(a.reshape(-1)))
 
 M32 = 0xFFFFFFFF
 

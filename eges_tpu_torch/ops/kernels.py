@@ -1,8 +1,8 @@
-"""The twenty-eight kernels of batched sender recovery, classic ECDSA
+"""The twenty-nine kernels of batched sender recovery, classic ECDSA
 verify, one-block keccak256, the un-fused (stacked and single-row)
-recovery and verify path, the reference's TPU-tiling configuration and
-the profiling harness's micro-benchmarks, each with its plain PyTorch
-version and its launch count.
+recovery and verify path, the reference's TPU-tiling configuration, the
+profiling harness's micro-benchmarks and the analysis fixture's scalar
+multiply, each with its plain PyTorch version and its launch count.
 
 Every public function keeps the name, signature and array layouts of
 the reference wrapper in ``eges_tpu/ops/pallas_kernels.py`` it replaces,
@@ -47,7 +47,10 @@ time F_P multiplies in both layouts: 64 chained products on ``[16, B]``
 limb-major columns (:func:`fp_mul_chain_pallas`) and on rows8 tiles
 (:func:`fp_mul_chain_rows8`), one product on tiles
 (:func:`fp_mul_rows8`), and the cost of one hand-written launch
-(:func:`add_one_f32`, ``x + 1.0``).
+(:func:`add_one_f32`, ``x + 1.0``).  Beside them, :func:`mul_scalar_f32`
+(``x * s``) is the counterpart of the reference's launch-purity fixture
+kernel, whose ``s`` was the host clock burned into a trace; here ``s``
+is an argument.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from eges_tpu_torch.ops import build, curve, field
-from eges_tpu_torch.ops.bigint import NLIMBS, int_to_limbs
+from eges_tpu_torch.ops.field import NLIMBS, int_to_limbs
 from eges_tpu_torch.ops.opcount import PROFILE_CHAIN
 
 POW_WINDOWS = 64
@@ -74,8 +77,8 @@ KERNELS = ("recover_prelude", "pow_mod", "y_fix", "u1u2", "glv_digits",
            "recover_finish", "keccak_rows", "fn_mul", "fn_red17", "fp_add",
            "keccak_block", "pow_mod_rows8", "strauss_tab_rows8",
            "keccak_rows_grid", "fp_mul_chain", "fp_mul_chain_rows8",
-           "fp_mul_rows8", "add_one_f32", "fp_sub", "fp_neg", "fp_mul_small",
-           "fn_sub", "fn_neg", "mulhi8")
+           "fp_mul_rows8", "add_one_f32", "mul_scalar_f32", "fp_sub",
+           "fp_neg", "fp_mul_small", "fn_sub", "fn_neg", "mulhi8")
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -490,6 +493,18 @@ def add_one_f32_plain(x):
     return x + 1.0
 
 
+def _f32(s) -> float:
+    """``s`` rounded to float32 (a Python float that float32 holds
+    exactly): the one cast of the scalar, made on the host for the kernel
+    and its plain version alike."""
+    return ctypes.c_float(s).value
+
+
+@torch.inference_mode()
+def mul_scalar_f32_plain(x, s):
+    return x * _f32(s)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -530,6 +545,7 @@ _ARGTYPES = {
     "eg_fp_mul_chain_rows8": [_P, _P, _I, _P, _P],
     "eg_fp_mul_rows8": [_P, _P, _I, _P, _P],
     "eg_add_one_f32": [_P, _I, _P, _P],
+    "eg_mul_scalar_f32": [_P, ctypes.c_float, _I, _P, _P],
 }
 # one per source: each translation unit has its own constants block
 _INITS = ("eg_init", "eg_init_verify", "eg_init_glue", "eg_init_tiling",
@@ -572,6 +588,7 @@ def _launch(name: str, fn_name: str, *args) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:
+        # analysis: allow-launch-purity(the launch census, under its lock)
         LAUNCHES[name] += 1
 
 
@@ -1109,6 +1126,24 @@ def add_one_f32(x):
     return out
 
 
+def mul_scalar_f32(x, s):
+    """``x * s`` on a contiguous float32 tensor, ``s`` cast to float32 on
+    the host, one hand-written kernel launch.  Replaces the launch-purity
+    fixture's ``_impure_kernel`` (tests/analysis_fixtures/jit/eges_tpu/
+    ops/impure_kernel.py:10, launched at :16), whose ``s`` is the host
+    clock read at trace time."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError("x: expected a tensor")
+    _check(x, "x", x.shape, torch.float32)
+    if x.numel() >= 2**31:
+        raise ValueError("x: too many elements for one launch")
+    if not _on_card(x):
+        return mul_scalar_f32_plain(x, s)
+    out = torch.empty_like(x)
+    _launch("mul_scalar_f32", "eg_mul_scalar_f32", x, _f32(s), x.numel(), out)
+    return out
+
+
 # the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py
 # unless named)
 REPLACES = {
@@ -1140,6 +1175,8 @@ REPLACES = {
     "fp_mul_chain_rows8": "harness/profile_mulchain.py:38",
     "fp_mul_rows8": "harness/profile_mul8b.py:34",
     "add_one_f32": "harness/profile_floor.py:105",
+    "mul_scalar_f32": "tests/analysis_fixtures/jit/eges_tpu/ops/"
+                      "impure_kernel.py:16",
 }
 
 # the source file each kernel is in (under ops/csrc)
@@ -1151,4 +1188,5 @@ SOURCE_OF.update(dict.fromkeys(("fp_sub", "fp_neg", "fp_mul_small", "fn_sub",
 SOURCE_OF.update(dict.fromkeys(("pow_mod_rows8", "strauss_tab_rows8",
                                 "keccak_rows_grid"), "tiling.cu"))
 SOURCE_OF.update(dict.fromkeys(("fp_mul_chain", "fp_mul_chain_rows8",
-                                "fp_mul_rows8", "add_one_f32"), "profile.cu"))
+                                "fp_mul_rows8", "add_one_f32",
+                                "mul_scalar_f32"), "profile.cu"))

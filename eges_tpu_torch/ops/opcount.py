@@ -211,6 +211,8 @@ PROFILE_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
     "fp_mul_rows8": ("k_fp_mul_rows8", {"mul_chain_rows8<1>": 1}),
     # one float32 add an element, counted as one operation
     "add_one_f32": ("k_add_one_f32", {}),
+    # one float32 multiply an element (#21), likewise
+    "mul_scalar_f32": ("k_mul_scalar_f32", {}),
 }
 
 
@@ -233,9 +235,9 @@ def per_row(windows: int = 33, negations: float = 0.0,
     glv_digits, recover_finish and keccak_rows, which cover Bpad).
     ``fn_red17`` counts one row of 17 columns, ``keccak_block`` one
     row of 34 words, ``keccak_rows_grid`` one column, ``fp_mul_chain``
-    one column of ``PROFILE_CHAIN`` products and ``add_one_f32`` one
-    element.  The rows8 kernels do their default-layout twins'
-    arithmetic per row.
+    one column of ``PROFILE_CHAIN`` products and ``add_one_f32`` and
+    ``mul_scalar_f32`` one element.  The rows8 kernels do their
+    default-layout twins' arithmetic per row.
 
     ``negations`` is the mean number of ladder adds per row whose point
     is negated (``windows`` x the rows' set sign flags), and
@@ -276,4 +278,5 @@ def per_row(windows: int = 33, negations: float = 0.0,
         "fp_mul_chain_rows8": ops("mul_chain_rows8<64>"),
         "fp_mul_rows8": ops("mul_chain_rows8<1>"),
         "add_one_f32": 1,
+        "mul_scalar_f32": 1,
     }

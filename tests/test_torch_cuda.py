@@ -53,7 +53,7 @@ def test_build_reports_every_kernel(dev):
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
         "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
         "k_fp_mul_chain", "k_fp_mul_chain_rows8", "k_fp_mul_rows8",
-        "k_add_one_f32"}
+        "k_add_one_f32", "k_mul_scalar_f32"}
 
 
 def test_fp_mul_and_canon(dev):
@@ -348,6 +348,25 @@ def test_profile_kernels(dev):
         "add_one_f32": 1, "fp_mul": 1}
 
 
+def test_mul_scalar_f32(dev):
+    """#21 against its plain version, bit for bit, at the floor's (8, 128)
+    tile and at a ragged 2^20 + 3 elements, with a clock-sized scalar
+    (rounded to float32 once on the host, as both versions do) and with
+    extreme elements (zeros of both signs, overflow to infinity)."""
+    rng = np.random.default_rng(21)
+    K.reset_launches()
+    for shape in ((8, 128), ((1 << 20) + 3,)):
+        x = rng.standard_normal(shape, dtype=np.float32).reshape(-1)
+        x[:5] = (0.0, -0.0, 3e38, -1e-30, 2.0**24)
+        x = torch.from_numpy(x.reshape(shape)).to(dev)
+        for s in (1760000000.123456, -0.1, 3.0):
+            got, want = K.mul_scalar_f32(x, s), K.mul_scalar_f32_plain(x, s)
+            assert got.dtype == want.dtype == torch.float32
+            _same(got.view(torch.int32), want.view(torch.int32))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "mul_scalar_f32": 6}
+
+
 @pytest.mark.parametrize("call", [
     lambda a, t, x: K.fp_mul_chain_pallas(a[:, :4000].contiguous(),
                                           a[:, :4000].contiguous()),
@@ -359,6 +378,9 @@ def test_profile_kernels(dev):
     lambda a, t, x: K.fp_mul_rows8(t, t.cpu()),
     lambda a, t, x: K.add_one_f32(x.double()),
     lambda a, t, x: K.add_one_f32(x.T),
+    lambda a, t, x: K.mul_scalar_f32(x.double(), 2.0),
+    lambda a, t, x: K.mul_scalar_f32(x.T, 2.0),
+    lambda a, t, x: K.mul_scalar_f32(x.int(), 2.0),
 ])
 def test_profile_wrappers_raise_on_card(dev, call):
     """Misshapen input on the card raises; no wrapper falls back to its

@@ -68,10 +68,19 @@ def test_the_walk_covers_the_harness_subpackage():
         "eges_tpu_torch.harness", *(f"eges_tpu_torch.harness.{n}" for n in (
             "profutil", "profile_mulchain", "profile_mul8b", "profile_floor",
             "profile_kernels2", "profile_stages", "measure_recover",
-            "hlo_census"))}
+            "hlo_census")),
+        "eges_tpu_torch.harness.analysis", *(
+            f"eges_tpu_torch.harness.analysis.{n}" for n in (
+                "__main__", "core", "layermap", "layers", "hotpath",
+                "jit_purity", "host_sync", "transfer", "dtypes"))}
 
 
 def test_entry_points_default_to_the_card():
+    """Every entry point that runs on a device takes the card unless asked
+    for the CPU.  The static-analysis gate
+    (``eges_tpu_torch.harness.analysis``) stands outside this rule: it
+    reads source files and has no device, and it runs without loading
+    torch at all (``test_the_analysis_gate_has_no_device``)."""
     from eges_tpu_torch import resolve_device
     from eges_tpu_torch.crypto.verifier import BatchVerifier, default_verifier
     from eges_tpu_torch.harness import (hlo_census, measure_recover,
@@ -96,3 +105,22 @@ def test_entry_points_default_to_the_card():
                  lambda: profutil.timeit(lambda: None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()
+
+
+def test_the_analysis_gate_has_no_device():
+    """The analyser reads source files and never imports them: run as a
+    program on the tree, it loads no torch (the package root imports it
+    only when a device is resolved), no jax and no ``harness``."""
+    code = ("import json, sys\n"
+            "from eges_tpu_torch.harness.analysis import run\n"
+            "rep = run(sys.argv[1])\n"
+            "print(json.dumps([len(rep.unsuppressed),\n"
+            "                  sorted(sys.modules)]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(REPO)], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    unsuppressed, mods = json.loads(out.splitlines()[-1])
+    assert unsuppressed == 0
+    for root in ("torch", "numpy", "jax", "eges_tpu", "harness"):
+        assert not [m for m in mods if m == root or m.startswith(root + ".")]

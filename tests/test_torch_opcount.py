@@ -235,3 +235,4 @@ def test_profile_kernel_counts():
         opcount.PROFILE_CHAIN * 997) == 63808
     assert rows["fp_mul_rows8"] == rows["fp_mul"] == 997
     assert rows["add_one_f32"] == 1
+    assert rows["mul_scalar_f32"] == 1

@@ -8,7 +8,12 @@ row for row (tolerance 0).
 Rows: one of each class of ``testing.VERIFY_CLASSES`` among signed rows,
 17 in all, so the facade pads them off the bucket (to 32); the run uses
 64-byte signatures.  The port's verify runs once: the facade's call of
-``verify_batch`` is recorded and both are checked."""
+``verify_batch`` is recorded and both are checked.
+
+Row widths: the same rows cut or widened to 63, 64, 65, 66 and 70 bytes
+go through the port's facade and the JAX package's
+(``eges_tpu.crypto.verifier.BatchVerifier.verify``), and through both
+packages' ``verify_batch``."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -16,6 +21,7 @@ import pytest
 import torch
 
 from eges_tpu.crypto import secp256k1 as jhost
+from eges_tpu.crypto import verifier as RV
 from eges_tpu.ops import pallas_kernels as pk
 from eges_tpu.ops.bigint import int_to_limbs
 from eges_tpu.ops.ec import GLV_BETA
@@ -225,10 +231,14 @@ def test_verify_facade_plumbing(monkeypatch):
     assert verifier.verify(np.zeros((0, 65), np.uint8),
                            np.zeros((0, 32), np.uint8),
                            np.zeros((0, 64), np.uint8)).shape == (0,)
-    with pytest.raises(ValueError):
-        verifier.verify(np.zeros((2, 63), np.uint8),
-                        np.zeros((2, 32), np.uint8),
-                        np.zeros((2, 64), np.uint8))
+    # rows of any width are staged 65 bytes wide, as the reference does:
+    # two zero rows (r = 0) are answered, not refused
+    monkeypatch.setattr(V, "verify_batch", lambda s, h, q: torch.zeros(
+        len(s), dtype=torch.int32))
+    assert not verifier.verify(np.zeros((2, 63), np.uint8),
+                               np.zeros((2, 32), np.uint8),
+                               np.zeros((2, 64), np.uint8)).any()
+    monkeypatch.undo()
     seen = []
 
     def fail(n):
@@ -258,3 +268,127 @@ def test_verify_facade_plumbing(monkeypatch):
     st = verifier._stage_acquire(16)
     assert "pubs" in st                       # the pooled verify buffers
     verifier._stage_release(16, st)
+
+
+# -- row widths: the port against the reference --------------------------
+
+WIDTHS = (63, 64, 65, 66, 70)
+
+
+def _at_width(sigs, width):
+    """The rows cut to ``width`` bytes, or widened with trailing 0xAB."""
+    if width <= 65:
+        return np.ascontiguousarray(sigs[:, :width])
+    return np.concatenate(
+        [sigs, np.full((len(sigs), width - 65), 0xAB, np.uint8)], 1)
+
+
+@pytest.fixture(scope="module")
+def width_runs(rows, port_run):
+    """Each width of the rows through the port's ``BatchVerifier(device=
+    "cpu").verify`` and the reference's, both with their device batch
+    recorded: ``{width: (port staged (sigs, hashes, pubs), port ok,
+    reference staged (sigs, hashes, pubs), reference ok)}``.
+
+    The reference's batch is answered by its host model
+    (``eges_tpu.crypto.secp256k1.ecdsa_verify`` of r || s), which its
+    fused verify agrees with on every class (the tests above), so the
+    whole graph is not compiled here.  The port's facade answers
+    ``verify_batch(staged)[:n]``: the staged rows are answered by one
+    real ``verify_batch`` of the distinct rows that ``port_run`` did
+    not already answer."""
+    sigs, hashes, pubs, _ = rows
+    n = len(sigs)
+
+    ref = RV.BatchVerifier()
+    ref_seen = []
+
+    def ref_batch(ds, dh, dq):
+        s, h, q = (np.asarray(a) for a in (ds, dh, dq))
+        ref_seen.append((s.copy(), h.copy(), q.copy()))
+        return jax.numpy.asarray([
+            jhost.ecdsa_verify(bytes(hh), bytes(ss[:64]), bytes(qq))
+            for ss, hh, qq in zip(s, h, q)], jax.numpy.uint32)
+
+    ref._verify = ref_batch
+    port_seen = []
+    real = V.verify_batch
+    V.verify_batch = lambda *a: port_seen.append(
+        tuple(t.numpy().copy() for t in a)) or torch.zeros(
+        len(a[0]), dtype=torch.int32)
+    try:
+        ref_ok = {w: ref.verify(_at_width(sigs, w), hashes, pubs)
+                  for w in WIDTHS}
+        for w in WIDTHS:
+            V.BatchVerifier(device="cpu").verify(_at_width(sigs, w),
+                                                 hashes, pubs)
+    finally:
+        V.verify_batch = real
+
+    def key(s, h, q):
+        return s.tobytes() + h.tobytes() + q.tobytes()
+
+    _, (ss, sh, sp), batch_ok = port_run
+    answer = {key(*r): bool(o) for *r, o in zip(ss, sh, sp, batch_ok)}
+    todo = {key(*r): r for staged in port_seen for r in zip(*staged)
+            if key(*r) not in answer}
+    if todo:
+        rs = list(todo.values())
+        ok = real(*(torch.from_numpy(np.stack(col)) for col in zip(*rs)))
+        answer.update({key(*r): bool(o) for r, o in zip(rs, ok.numpy())})
+    port_ok = {w: np.array([answer[key(*r)] for r in zip(*staged)][:n])
+               for w, staged in zip(WIDTHS, port_seen)}
+    return {w: (port_seen[i], port_ok[w], ref_seen[i], ref_ok[w])
+            for i, w in enumerate(WIDTHS)}
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_verify_rows_of_any_width_stage_as_the_reference(width_runs, width):
+    """Wider rows are cut to 65 bytes, narrower ones zero-padded to 65,
+    byte for byte as the reference stages them (verifier.py:628-629)."""
+    port, _, ref, _ = width_runs[width]
+    for p, r in zip(port, ref):
+        np.testing.assert_array_equal(p, r)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_verify_rows_of_any_width_answer_as_the_reference(rows, width_runs,
+                                                          width):
+    """Row for row, on every class of ``testing.VERIFY_CLASSES``; from 64
+    bytes up each class gives the answer it is built for (one valid row
+    with one trailing byte, ``[1, 66]``, verifies)."""
+    _, port_ok, _, ref_ok = width_runs[width]
+    np.testing.assert_array_equal(port_ok, ref_ok)
+    if width >= 64:
+        want = np.array([k in tt.VERIFY_VALID for k in rows[3]])
+        np.testing.assert_array_equal(port_ok, want)
+
+
+def test_verify_batch_reads_bytes_0_to_64_of_any_row(rows, monkeypatch):
+    """Both packages' ``verify_batch`` hand the same limbs to
+    ``ecdsa_verify_point`` from rows of 64, 65, 66 and 70 bytes.  Rows
+    of 63 bytes raise in both: ``ValueError`` in the port, where the
+    reference fails to reshape them (``TypeError``), a difference kept
+    on purpose (ROADMAP.md, C1)."""
+    sigs, hashes, pubs, _ = rows
+    port, ref = [], []
+    monkeypatch.setattr(ec, "ecdsa_verify_point", lambda *a: port.append(
+        [_ref(t) for t in a]) or torch.zeros(len(a[0]), dtype=torch.int32))
+    monkeypatch.setattr(RV.ec, "ecdsa_verify_point", lambda *a: ref.append(
+        [np.asarray(t) for t in a]) or jax.numpy.zeros(len(a[0])))
+    for width in (64, 65, 66, 70):
+        s = _at_width(sigs, width)
+        V.verify_batch(torch.from_numpy(s), torch.from_numpy(hashes),
+                       torch.from_numpy(pubs))
+        RV.verify_batch(jax.numpy.asarray(s), jax.numpy.asarray(hashes),
+                        jax.numpy.asarray(pubs))
+    for got in port + ref:
+        for a, b in zip(got, ref[0]):
+            np.testing.assert_array_equal(a, b)
+    s = _at_width(sigs, 63)
+    with pytest.raises(ValueError):
+        V.verify_batch(torch.from_numpy(s), torch.from_numpy(hashes),
+                       torch.from_numpy(pubs))
+    with pytest.raises(TypeError):
+        RV.verify_batch(jax.numpy.asarray(s), jax.numpy.asarray(hashes),
+                        jax.numpy.asarray(pubs))

@@ -137,7 +137,7 @@ def test_new_kernels_are_listed():
     for name in ("fn_mul", "fn_red17", "fp_add", "keccak_block"):
         assert name in K.KERNELS and K.SOURCE_OF[name] == "verify.cu"
         assert K.REPLACES[name].startswith("eges_tpu/ops/pallas_kernels.py:")
-    assert len(K.KERNELS) == len(K.REPLACES) == 28
+    assert len(K.KERNELS) == len(K.REPLACES) == 29
 
 
 @pytest.mark.parametrize("name", ["fn_mul", "fn_red17", "fp_add",

@@ -8,11 +8,14 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 
 1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a (one
-   nvcc for each source, all started together); seconds, and registers
-   and spills per kernel.  Then sass: the built code (``cuobjdump``)
+   nvcc for each source, ``ladder.cu`` one for each lane count, all
+   started together); seconds, and registers, stack frame and spills
+   per kernel, which must be 0 and 0 for every pow and ladder instance
+   ``lanes_for`` can pick.  Then sass: the built code (``cuobjdump``)
    issues at least the operations ``ops/opcount.py`` counts, in every
    kernel without a branch or a call and in every loop of the product
-   chain and of the pow, so no operation bound counts more than the
+   chain and of the pow (a T-lane pow's loops against a lane's share,
+   the count over T), so no operation bound counts more than the
    card does; with the instruction mix of the chain's loop.
 2. kernel: each of the twenty-one kernels at its path's shapes on
    seeded random and extreme inputs, held bit for bit against its plain
@@ -25,6 +28,13 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    kernels of the un-fused path at its shapes for a [4, 1024] window
    (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
    checked at a ragged 4097 rows.
+2b. lanes: every (T, block) instance of the pow and the ladder (T = 1,
+   2, 4, 8 lanes a row; 64, 128, 256 threads) at 1024, 4096 and 8192
+   rows (mod P and mod N for the pow, and the table's 131072 rows mod
+   P; the ladder also on a recovery's own inputs at 1024 and 8192), bit
+   for bit against the plain version, timed by events and cold beside
+   the bound, with registers, stack and spills and the instance
+   ``lanes_for`` picks, which must beat T = 1.
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
@@ -33,7 +43,8 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
-   memory.
+   memory; under the profiler, the device ms of each of the four pow
+   launches and of the ladder in one recovery of 8192 and of 1024 rows.
 5. verify slice: a BASELINE config-3 vote round (256 committee
    signatures against the validators' 64-byte keys) and a config-4 one
    (1024 rows, the consensus verify batch cap), every row class of
@@ -155,15 +166,41 @@ AB_8192 = 5                         # timed 8192-row batches a round
 AB_CALLS = 100                      # timed calls a round for each p50
 B_PROFILE = (4096, 131072)          # the harness's batch; one filling 132 SMs
 RAGGED_CHAIN = (4096 + 128, 128)    # #20a's ragged check: columns, lane
+# phase lanes: the ladder at the 256-row vote round, the latency bucket,
+# half and all of the main batch, the pow's B-row launches (p: sqrt and
+# Z^-1, n: r^-1) at the same counts and its table launches (16 B rows) of
+# the 1024- and 8192-row batches
+LANE_SHAPES = (("strauss_tab", 256), ("strauss_tab", 1024),
+               ("strauss_tab", 4096), ("strauss_tab", 8192),
+               ("pow_mod_p", 256), ("pow_mod_p", 1024), ("pow_mod_p", 4096),
+               ("pow_mod_p", 8192), ("pow_mod_n", 256), ("pow_mod_n", 1024),
+               ("pow_mod_n", 4096), ("pow_mod_n", 8192),
+               ("pow_mod_p", 16384), ("pow_mod_p", 131072))
+# the ladder also on a recovery's own inputs: its digits' zeros are not
+# random (window 0 is zero on most rows), which is what parted warps
+LANE_RECOVERY_ROWS = (1024, 8192)
 MEASURE_BATCHES = (1024, 8192)      # measure_recover's batches
 MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
 # fp_mul_small launches of one un-fused batch by k: each doubling takes
 # k = 2 three times, 3 and 8 once; each mixed add k = 2 four times and 4
 # once, besides its doubling; 33 windows of 4 + 4, 14 table adds
 MUL_SMALL_K = {2: 1418, 3: 278, 4: 146, 8: 278}
-# the __global__ functions of a kernel, where they are not k_<name>
-GLOBALS = {"pow_mod": ("k_pow_p", "k_pow_n"), "strauss_tab": ("k_strauss",),
-           "pow_mod_rows8": ("k_pow_rows8_p", "k_pow_rows8_n"),
+# the __global__ functions of a kernel, where they are not k_<name>; the
+# pow and the ladder list the instances their wrapper launches
+LANE_GLOBALS = {"pow_mod_p": "k_pow_p_t{}", "pow_mod_n": "k_pow_n_t{}",
+                "strauss_tab": "k_strauss_t{}"}
+
+
+def launched_instances(kernel: str) -> tuple[str, ...]:
+    """The instances of a lane kernel (``LANE_GLOBALS``) that
+    ``lanes_for`` can pick."""
+    from eges_tpu_torch.ops import kernels as K
+
+    return tuple(sorted({LANE_GLOBALS[kernel].format(lanes)
+                         for _, lanes, _ in K.LANES_RULE[kernel]}))
+
+
+GLOBALS = {"pow_mod_rows8": ("k_pow_rows8_p", "k_pow_rows8_n"),
            "strauss_tab_rows8": ("k_strauss_rows8",),
            "keccak_rows_grid": ("k_keccak_round",)}
 # launches of one classic-verify batch: on_curve (3 fp_mul, fp_add, 2
@@ -237,6 +274,29 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def ladder_args(dig, neg, rows, ladder_doublings=0.0):
+    """The ladder's work on the first ``rows`` rows of ``dig [W, 8,
+    Bpad]`` and ``neg [8, Bpad]``, as means a row: what the function
+    needs (``opcount.per_row``'s doublings, adds and negations: from the
+    row's first nonzero digit on, no add for a zero digit, no negation
+    of its point) and what one lane issues (``opcount.per_lane``'s
+    negations: every flagged add).  ``ladder_doublings`` is the mean
+    number of adds a row that meet equal points."""
+    W = dig.shape[0]
+    live = (dig[:, :4, :rows] != 0).reshape(4 * W, rows)
+    flag = neg[:4, :rows] != 0
+    count = live.sum(0)
+    first = torch.where(count > 0, live.int().argmax(0) // 4, W - 1)
+    need = {"windows": W, "ladder_doublings": ladder_doublings,
+            "doublings": float((4 * (W - 1 - first)).sum()) / rows,
+            "adds": float((count - 1).clamp(min=0).sum()) / rows,
+            "negations": float((live.reshape(W, 4, rows)
+                                & flag).sum()) / rows}
+    issued = {"windows": W, "ladder_doublings": ladder_doublings,
+              "negations": W * float(flag.sum()) / rows}
+    return need, issued
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -246,9 +306,19 @@ def phase_build():
 
     info = build.build()
     K.library()
+    launched = {g: info["ptxas"].get(g) for kernel in LANE_GLOBALS
+                for g in launched_instances(kernel)}
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
           "compiled": info["built"], "library": os.path.basename(
-              info["path"]), "ptxas": info["ptxas"]})
+              info["path"]), "ptxas": info["ptxas"],
+          "lane_kernels_launched": launched})
+    dirty = {g: r for g, r in launched.items()
+             if r is None or r["stack_bytes"] or r["spill_store_bytes"]
+             or r["spill_load_bytes"]}
+    if dirty:
+        raise AssertionError(f"the pow and ladder instances the wrappers "
+                             f"launch must have no stack frame and no "
+                             f"spill: {dirty}")
     return info
 
 
@@ -256,30 +326,34 @@ def phase_sass(path):
     """The op half of every bound counts no more than the card issues
     (``ops/opcount.py``): each kernel without a branch or a call issues
     at least its counted operations, and so does every loop of the
-    F_P product chain (an ``fp_mul`` an iteration) and of the F_P pow
-    (an ``fp_sqr`` or more), in the ``sm_90a`` code of the built library
-    (``cuobjdump -sass``).  Emits the counts, and the instruction mix of
-    the chain's loop."""
+    F_P product chain (an ``fp_mul`` an iteration) and of the F_P pow,
+    in the ``sm_90a`` code of the built library (``cuobjdump -sass``).
+    The pow runs T lanes a row, so each instance's loops are held to a
+    lane's share of an ``fp_sqr``: its count over T, rounded down (at
+    T = 1 the whole count).  Emits the counts, and the instruction mix
+    of the chain's loop."""
     import collections
 
-    from eges_tpu_torch.ops import build, opcount
+    from eges_tpu_torch.ops import build, kernels as K, opcount
 
     code = build.sass(path)
     OPS = opcount.per_row()
     straight = {fn[2:]: [OPS[fn[2:]], len(ins)] for fn, ins in code.items()
                 if fn[2:] in OPS and build.straight_line(ins)}
-    loops = {fn: (helper, [len(b) for b in build.loop_bodies(code[fn])])
-             for fn, helper in (("k_fp_mul_chain", "fp_mul"),
-                                ("k_fp_mul_chain_rows8", "fp_mul"),
-                                ("k_pow_p", "fp_sqr"))}
+    held = [("k_fp_mul_chain", "fp_mul", 1),
+            ("k_fp_mul_chain_rows8", "fp_mul", 1)]
+    held += [(f"k_pow_p_t{t}", "fp_sqr", t) for t in K.LANES]
+    loops = {fn: (helper, opcount.ops(helper) // t,
+                  [len(b) for b in build.loop_bodies(code[fn])])
+             for fn, helper, t in held}
     bad = [n for n, (counted, issued) in straight.items() if counted > issued]
-    bad += [fn for fn, (helper, sizes) in loops.items()
-            if not sizes or min(sizes) < opcount.ops(helper)]
+    bad += [fn for fn, (_, share, sizes) in loops.items()
+            if not sizes or min(sizes) < share]
     body = build.loop_bodies(code["k_fp_mul_chain"])[0]
     mix = collections.Counter(build.opcode(i) for i in body)
     emit({"phase": "sass", "straight_line": straight,
-          "loops": {fn: {"helper": h, "counted": opcount.ops(h),
-                         "issued": sizes} for fn, (h, sizes) in loops.items()},
+          "loops": {fn: {"helper": h, "counted": share, "issued": sizes}
+                    for fn, (h, share, sizes) in loops.items()},
           "chain_loop_mix": dict(mix.most_common())})
     if len(straight) < 10 or bad:
         raise AssertionError(f"op counts above the issued instructions: "
@@ -341,18 +415,16 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     words = K.from_reference(rng.integers(0, 1 << 32, (34, wide),
                                           dtype=np.uint64).astype(np.uint32),
                              dev)
-    # the ladder negates its point on 33 windows of each set sign flag;
-    # its random R tables meet the accumulator (the doubling path) with
+    # the random R tables meet the accumulator (the doubling path) with
     # odds of 2^-256 an add, so this run's data takes no ladder doubling
-    OPS = opcount.per_row(negations=33 * float(neg[:4, :B].sum()) / B,
-                          ladder_doublings=0.0)
+    OPS = opcount.per_row(**ladder_args(dig, neg, B)[0])
 
     # (name, [(kernel call, plain call, bytes, ops)] one entry per launch
     # of one batch on the main path)
     def pw(a, e, mod):
         return (lambda: K.pow_mod_pallas(a, e, mod),
                 lambda: K.pow_mod_plain(a, e, mod),
-                2 * nbytes(a), a.shape[0] * OPS["pow_mod_" + mod])
+                2 * nbytes(a), a.shape[0] * opcount.pow_row(e, mod))
 
     cases = [
         ("recover_prelude", [(
@@ -409,6 +481,169 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     return records
 
 
+def phase_lanes(dev, clock_hz, ptxas):
+    """Every instance of the pow and the ladder (T = 1, 2, 4, 8 lanes a
+    row in blocks of 64, 128 and 256 threads) at the main path's row
+    counts: each held bit for bit against the plain version and timed by
+    CUDA events back to back and cold (``profutil.cuda_event_ms``),
+    beside its bound (the row's work, ``ops/opcount.py``), what one lane
+    issues, its registers, stack frame and spills, and the instance
+    ``lanes_for`` picks; the ladder on seeded inputs that take all its
+    branches and on a recovery's own.  Fails if an instance differs, if
+    a time beats its bound, or if the picked instance is not faster than
+    every T = 1 instance at the B-row shapes (the pow's table launches
+    of 16 B rows: no more than 3% slower).  Each pow shape also times
+    the one-thread design with its table in local memory (the rows8
+    twin #19a, on its own tiles), the pow's design before the lanes."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
+    from eges_tpu_torch.ops import kernels as K, opcount
+    from eges_tpu_torch.ops.bigint import N, P
+
+    rng = np.random.default_rng(SEED + 7)
+    B = B_MAIN
+    wide = K.bpad(B)
+    lad = [K.from_reference(t, dev) for t in tt.ladder_inputs(rng, B, wide)]
+    dig, neg = lad[:2]
+    kind = torch.arange(wide, device=dev) % 4
+    want_lad = K.strauss_tab_plain(*lad, B)
+    M = 16 * B
+    vals = {"p": rng.integers(0, 1 << 16, (M, 16)).astype(np.uint32),
+            "n": rng.integers(0, 1 << 16, (B, 16)).astype(np.uint32)}
+    vals["n"][:, 15] &= 0x7FFF                     # below N
+    exps = {"p": P - 2, "n": N - 2}
+    pw = {m: K.from_reference(v, dev) for m, v in vals.items()}
+    want_pow = {m: K.pow_mod_plain(pw[m], exps[m], m) for m in pw}
+    real = _recovery_ladder_inputs(rng, B, dev)
+    want_real = K.strauss_tab_plain(*real, B)
+    slow = []
+    shapes = ([(k, r, "seeded") for k, r in LANE_SHAPES]
+              + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS])
+    for kernel, rows, data in shapes:
+        local = None
+        if data == "recovery":
+            row_args, lane_args = ladder_args(real[0], real[1], rows)
+            row_ops = opcount.per_row(**row_args)[kernel]
+            nb = nbytes(real[0][..., :rows], real[1][:, :rows],
+                        *(t[:, :rows] for t in real[2:])) + 3 * 64 * rows
+            want = tuple(w[:rows] for w in want_real)
+
+            def call(lanes, threads, rows=rows):
+                return K.strauss_tab_lanes(*real, rows, lanes, threads)
+        elif kernel == "strauss_tab":
+            # every row with b % 4 == 1 takes the doubling path once
+            row_args, lane_args = ladder_args(
+                dig, neg, rows, float((kind[:rows] == 1).sum()) / rows)
+            row_ops = opcount.per_row(**row_args)[kernel]
+            nb = nbytes(dig[..., :rows], neg[:, :rows],
+                        *(t[:, :rows] for t in lad[2:])) + 3 * 64 * rows
+            want = tuple(w[:rows] for w in want_lad)
+
+            def call(lanes, threads, rows=rows):
+                return K.strauss_tab_lanes(*lad, rows, lanes, threads)
+        else:
+            mod = kernel[-1]
+            row_ops = opcount.pow_row(exps[mod], mod)
+            lane_args = {}
+            a = pw[mod][:rows]
+            nb = 2 * nbytes(a)
+            want = want_pow[mod][:rows]
+
+            def call(lanes, threads, a=a, mod=mod):
+                return K.pow_mod_lanes(a, exps[mod], mod, lanes, threads)
+
+            # PR 6's design on the same rows: one thread a row, its table
+            # in local memory (the rows8 twin #19a, timed on its tiles)
+            at = K.to_rows8(K.pad_rows8(a)[0])
+
+            def local(at=at, mod=mod, rows=rows):
+                return K.pow_rows8_tiles(at, exps[mod], mod, rows)
+
+            err = max_abs_err(K.from_rows8(local(), rows), want)
+            if err:
+                raise AssertionError(f"pow_mod_rows8 at {rows} rows differs "
+                                     f"from the plain version ({err})")
+        bound_ms, bound_by = bound(nb, rows * row_ops, clock_hz)
+        local_ms = local and round(cuda_event_ms(local, reps=5), 5)
+        if local_ms is not None and local_ms < bound_ms:
+            raise AssertionError(f"pow_mod_rows8 at {rows} rows: {local_ms} "
+                                 f"ms beats its bound of {bound_ms} ms")
+        inst = []
+        for lanes in K.LANES:
+            share = opcount.per_lane(lanes, **lane_args)[kernel]
+            for threads in K.LANE_THREADS:
+                err = max_abs_err(call(lanes, threads), want)
+                if err:
+                    raise AssertionError(
+                        f"{kernel} at {rows} rows, {lanes} lanes, "
+                        f"{threads} threads: differs from the plain "
+                        f"version (max abs err {err})")
+                ms = cuda_event_ms(call, lanes, threads, reps=5)
+                cold = cuda_event_ms(call, lanes, threads, reps=3,
+                                     cold=True)
+                if min(ms, cold) < bound_ms:
+                    raise AssertionError(
+                        f"{kernel} at {rows} rows: {min(ms, cold)} ms "
+                        f"beats its bound of {bound_ms} ms")
+                g = ptxas.get(LANE_GLOBALS[kernel].format(lanes)) or {}
+                inst.append({"lanes": lanes, "threads": threads,
+                             "ms": round(ms, 5), "cold_ms": round(cold, 5),
+                             "lane_ops": round(share),
+                             "regs": g.get("registers"),
+                             "stack": g.get("stack_bytes"),
+                             "spill": g.get("spill_store_bytes")})
+        chosen = K.lanes_for(kernel, rows)
+        ms_of = {(i["lanes"], i["threads"]): i["ms"] for i in inst}
+        t1 = min(v for (lanes, _), v in ms_of.items() if lanes == 1)
+        best = min(ms_of, key=ms_of.get)
+        line = {"phase": "lanes", "kernel": kernel, "rows": rows,
+                "data": data,
+                "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+                "row_ops": round(row_ops), "equal": True,
+                "chosen": list(chosen), "chosen_ms": ms_of[chosen],
+                "t1_ms": t1, "chosen_over_t1": round(ms_of[chosen] / t1, 4),
+                "fastest": [*best, ms_of[best]], "local_table_ms": local_ms,
+                "chosen_over_local": local_ms and round(ms_of[chosen]
+                                                        / local_ms, 4),
+                "instances": inst}
+        emit(line)
+        limit = 1.03 if rows > B else 1.0
+        if ms_of[chosen] > limit * t1 or (limit == 1.0
+                                          and ms_of[chosen] == t1):
+            slow.append(f"{kernel} at {rows} rows ({data}): lanes_for's "
+                        f"{chosen} takes {ms_of[chosen]} ms against T = "
+                        f"1's {t1}")
+    if slow:
+        raise AssertionError("; ".join(slow))
+
+
+def _recovery_ladder_inputs(rng, n, dev):
+    """The ladder's inputs of a recovery of ``n`` rows (64 signed rows
+    tiled): u1 = -z/r, u2 = s/r and R from the host model, then the R
+    tables and the GLV digits as the fused path builds them
+    (``ops.ec.strauss_inputs``)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import ec, kernels as K
+    from eges_tpu_torch.ops.bigint import N, P
+
+    sigs, hashes, _ = tt.signed_rows(rng, 64)
+    u1, u2, xs, ys = [], [], [], []
+    for sig, h in zip(sigs, hashes):
+        r, s = (int.from_bytes(bytes(sig[i:i + 32]), "big") for i in (0, 32))
+        v, z = int(sig[64]), int.from_bytes(bytes(h), "big")
+        x = r + (N if v >= 2 else 0)
+        y = pow((x ** 3 + 7) % P, (P + 1) // 4, P)
+        y = y if (y & 1) == (v & 1) else P - y
+        r_inv = pow(r, N - 2, N)
+        u1.append(-z * r_inv % N)
+        u2.append(s * r_inv % N)
+        xs.append(x)
+        ys.append(y)
+    idx = np.resize(np.arange(len(u1)), n)
+    return ec.strauss_inputs(*(K.from_reference(
+        tt.limb_rows([vals[i] for i in idx]), dev) for vals in (u1, u2, xs, ys)))
+
+
 def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
                   phase, extra=None):
     """One kernel's launches of a batch, each ``(kernel call, plain
@@ -449,8 +684,14 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
                                  f"differ at {ragged_rows} rows (max abs "
                                  f"err {err})")
         rec["ragged_rows_equal"] = ragged_rows
-    rec["ptxas"] = {g: ptxas.get(g) for g in
-                    GLOBALS.get(name, ("k_" + name,))}
+    if name == "pow_mod":
+        names = (launched_instances("pow_mod_p")
+                 + launched_instances("pow_mod_n"))
+    elif name == "strauss_tab":
+        names = launched_instances(name)
+    else:
+        names = GLOBALS.get(name, ("k_" + name,))
+    rec["ptxas"] = {g: ptxas.get(g) for g in names}
     emit({"phase": phase, **{k: (round(v, 6) if isinstance(v, float)
                                  else v) for k, v in rec.items()},
           "equal": True})
@@ -656,6 +897,8 @@ def phase_e2e(rows):
         t0 = time.perf_counter()
         verifier.recover_addresses(s1, h1)
         lat.append(time.perf_counter() - t0)
+    split = {rows: _lane_launches(s8[:rows], h8[:rows])
+             for rows in (B_MAIN, 1024)}
     out = {"phase": "e2e", "rows": B_MAIN,
            # every row of the timed window over its whole time
            "verifies_per_s": RUNS_8192 * B_MAIN / sum(times),
@@ -665,9 +908,34 @@ def phase_e2e(rows):
            "p50_ms_1024": float(np.percentile(lat, 50)) * 1e3,
            "p99_ms_1024": float(np.percentile(lat, 99)) * 1e3,
            "runs_1024": RUNS_1024,
-           "peak_device_bytes_8192": int(peak)}
+           "peak_device_bytes_8192": int(peak),
+           # device ms of each pow launch of one recovery, in order (sqrt,
+           # r^-1, the table's Z^-1, the final Z^-1), and of its ladder
+           "pow_launch_ms_8192": split[B_MAIN]["pow"],
+           "pow_launch_ms_1024": split[1024]["pow"],
+           "ladder_ms_8192": split[B_MAIN]["ladder"],
+           "ladder_ms_1024": split[1024]["ladder"]}
     emit(out)
     return out
+
+
+def _lane_launches(sigs, hashes) -> dict:
+    """One fused recovery of these rows on device tensors under the
+    profiler: the device ms of its pow launches and of its ladder, in
+    the order they ran."""
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch
+    from eges_tpu_torch.harness.profutil import profile_window
+
+    s = torch.from_numpy(np.ascontiguousarray(sigs)).to("cuda")
+    h = torch.from_numpy(np.ascontiguousarray(hashes)).to("cuda")
+    events, _ = profile_window(ecrecover_batch, s, h)
+    split = {"pow": [us / 1e3 for n, us in events if n.startswith("k_pow_")],
+             "ladder": [us / 1e3 for n, us in events
+                        if n.startswith("k_strauss_")]}
+    if len(split["pow"]) != 4 or len(split["ladder"]) != 1:
+        raise AssertionError(f"a recovery ran {split}: want 4 pow launches "
+                             "and one ladder")
+    return split
 
 
 def _committee_rows():
@@ -952,8 +1220,7 @@ def phase_tiling_kernels(dev, clock_hz, ptxas):
     words = K.from_reference(rng.integers(0, 1 << 32, (34, B),
                                           dtype=np.uint64).astype(np.uint32),
                              dev)
-    OPS = opcount.per_row(negations=33 * float(neg[:4].sum()) / B,
-                          ladder_doublings=0.0)
+    OPS = opcount.per_row(**ladder_args(dig, neg, B)[0])
 
     def pw(a, e, mod):
         """(kernel, plain, bytes, ops), (twin, path) of one pow launch."""
@@ -961,7 +1228,7 @@ def phase_tiling_kernels(dev, clock_hz, ptxas):
         rows = a.shape[0]
         return ((lambda: K.pow_rows8_tiles(at, e, mod, rows),
                  lambda: K.pow_mod_rows8_plain(at, e, mod, rows),
-                 2 * nbytes(at), rows * OPS["pow_mod_rows8_" + mod]),
+                 2 * nbytes(at), rows * opcount.pow_row(e, mod)),
                 (_config(False, lambda: K.pow_mod_pallas(a, e, mod)),
                  lambda: K.pow_mod_rows8(a, e, mod)))
 
@@ -1316,6 +1583,10 @@ def phase_profile(dev):
     # by name, mapped to their wrappers, are the pinned 18 launches
     wrapper_of = {g: name for name in K.KERNELS
                   for g in GLOBALS.get(name, ("k_" + name,))}
+    wrapper_of.update({fmt.format(t): kernel[:len("pow_mod")]
+                       if kernel.startswith("pow_mod") else kernel
+                       for kernel, fmt in LANE_GLOBALS.items()
+                       for t in K.LANES})
     by_wrapper = {}
     for g, n in census["hand_written"].items():
         by_wrapper[wrapper_of[g]] = by_wrapper.get(wrapper_of[g], 0) + n
@@ -1399,6 +1670,7 @@ def main() -> int:
     phase_sass(info["path"])
     rng = np.random.default_rng(SEED)
     records = phase_kernels(rng, dev, clock_hz, info["ptxas"])
+    phase_lanes(dev, clock_hz, info["ptxas"])
     paths = {}
     paths["recover"], rows, slice_out = phase_slice(rng)
     phase_e2e(rows)

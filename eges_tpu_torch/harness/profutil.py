@@ -221,7 +221,8 @@ def cuda_event_ms(fn, *args, reps: int = 10, device=None,
 def profile_window(fn, *args, reps: int = 1, device=None):
     """``reps`` synchronized calls of ``fn(*args)`` under ``torch.profiler``
     with CUDA activity: ``([(name, device us)] of every kernel, copy and
-    memset they ran, wall seconds of the calls)``.  One call before them
+    memset they ran, in the order they started, wall seconds of the
+    calls)``.  One call before them
     is the profiler's warm-up step, whose events are dropped, so that
     the profiler's start-up lies outside the window.  Raises for a device
     that is not a card."""
@@ -247,6 +248,8 @@ def profile_window(fn, *args, reps: int = 1, device=None):
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         prof.step()
-    return ([(e.name, e.time_range.elapsed_us()) for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not e.name.startswith("ProfilerStep")], wall)
+    ran = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in ran], wall

@@ -4,8 +4,11 @@ The sources in ``ops/csrc`` compile at first use into a shared library
 with a plain C interface under ``build/eges_tpu_torch/`` in the
 checkout, named by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one loads at once.  Each source compiles in
-its own ``nvcc`` process, all started together, and one more links the
-objects.  A failed build raises.
+its own ``nvcc`` process (``ladder.cu`` in one for each of its lane
+counts), all started together, and one more links the objects.  A
+failed build raises.  Each ``nvcc`` runs with a 1 GiB stack: the inlined
+ladder of ``ladder.cu`` is one function of some thousands of products,
+and ``cicc`` recurses past the usual 8 MiB on it and crashes.
 """
 
 from __future__ import annotations
@@ -13,14 +16,21 @@ from __future__ import annotations
 import hashlib
 import os
 import re
+import resource
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("recover.cu", "verify.cu", "glue.cu", "tiling.cu", "profile.cu")
+SOURCES = ("recover.cu", "verify.cu", "glue.cu", "tiling.cu", "profile.cu",
+           "ladder.cu")
 HEADERS = ("field.cuh", "launch.cuh")
+# the lanes a row the pow and ladder kernels are built for
+LANES = (1, 2, 4, 8)
+# (source, its defines) of each nvcc: ladder.cu once for each lanes count
+UNITS = tuple((s, ()) for s in SOURCES if s != "ladder.cu") + tuple(
+    ("ladder.cu", (f"-DEG_LANES={t}",)) for t in LANES)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eges_tpu_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +52,7 @@ def nvcc_path(tool: str = "nvcc") -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(repr(UNITS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -52,8 +63,9 @@ def library_path() -> Path:
     return BUILD_DIR / f"libeges_recover_{source_hash()}.so"
 
 
-def compile_command(source: str, obj: Path) -> list[str]:
-    return [nvcc_path(), *FLAGS, "-c", "-o", str(obj), str(CSRC / source)]
+def compile_command(source: str, obj: Path, defines=()) -> list[str]:
+    return [nvcc_path(), *FLAGS, *defines, "-c", "-o", str(obj),
+            str(CSRC / source)]
 
 
 def link_command(objs: list[Path], out: Path) -> list[str]:
@@ -148,11 +160,27 @@ def loop_bodies(code: list[tuple[int, str]]) -> list[list[str]]:
             if opcode(ins) == "BRA" and _target(ins) < addr]
 
 
+# cicc's stack (measured on nvcc 12.9: the ladder built with 1 GiB and
+# crashed with 8 MiB, and also with no limit, where threads fall back to a
+# small default stack)
+NVCC_STACK = 1 << 30
+
+
+def _nvcc_stack() -> None:
+    """In the child before exec: the soft stack limit to NVCC_STACK, or
+    to the hard limit where that is lower."""
+    _, hard = resource.getrlimit(resource.RLIMIT_STACK)
+    soft = (NVCC_STACK if hard == resource.RLIM_INFINITY
+            else min(NVCC_STACK, hard))
+    resource.setrlimit(resource.RLIMIT_STACK, (soft, hard))
+
+
 def _run_all(commands: list[list[str]]) -> str:
     """Run the commands at once; their joined output, or raise with the
     output of every one that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+                              stderr=subprocess.STDOUT, text=True,
+                              preexec_fn=_nvcc_stack)
              for c in commands]
     logs, failed = [], []
     for cmd, proc in zip(commands, procs):
@@ -177,12 +205,13 @@ def build() -> dict:
                 "ptxas": parse_ptxas(log)}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{source_hash()}.tmp{os.getpid()}"
-    objs = [BUILD_DIR / f"{Path(s).stem}_{tag}.o" for s in SOURCES]
+    objs = [BUILD_DIR / f"{Path(s).stem}{i}_{tag}.o"
+            for i, (s, _) in enumerate(UNITS)]
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
     t0 = time.monotonic()
     try:
-        log = _run_all([compile_command(s, o)
-                        for s, o in zip(SOURCES, objs)])
+        log = _run_all([compile_command(s, o, d)
+                        for (s, d), o in zip(UNITS, objs)])
         _run_all([link_command(objs, tmp)])
     finally:
         for o in objs:

@@ -12,7 +12,8 @@
 //
 // The one thread per batch row that runs these functions keeps a value
 // in registers (arrays indexed only by unrolled constants); the compiler
-// spills what does not fit.  Constants live in __constant__ memory and
+// spills what does not fit.  The pow and ladder kernels run the T-lane
+// forms (grp_*<T>, below the one-thread ones): a group of T lanes a row.  Constants live in __constant__ memory and
 // are uploaded once per translation unit from Python (ops/kernels.py
 // pack_constants), so the limb values have one source.
 #pragma once
@@ -25,9 +26,9 @@ namespace eg {
 typedef uint32_t u32;
 
 #define EG_FD __device__ __forceinline__
-// The two point formulas are real calls: each is some thousands of
-// instructions, and inlining both into the ladder kernel made nvcc 12.9's
-// front end (cicc) crash while the code size grew past any use.
+// The one-thread point formulas are real calls: each is some thousands
+// of instructions, and the kernels that take them one thread a row
+// (point_table, the rows8 ladder) need not grow by a copy of each.
 #define EG_CALL static __device__ __noinline__
 
 constexpr u32 MASK = 0xFFFFu;
@@ -141,10 +142,10 @@ EG_FD void mul_cols(const u32* a, const u32* b, u32* cols) {
   }
 }
 
-EG_FD void fp_mul(u32* o, const u32* a, const u32* b) {
-  u32 c[32];
-  mul_cols<16, 16>(a, b, c);
-  // fold columns 16..31 (2^256 = 2^32 + 977): 32 -> 18 columns
+// 32 product columns -> 16: fold columns 16..31 (2^256 = 2^32 + 977),
+// 32 -> 18 columns, then columns 16 and 17.  Linear: the fold of a sum of
+// column sets is the sum of their folds.
+EG_FD void fold32(const u32* c, u32* r) {
   u32 lo[18];
 #pragma unroll
   for (int j = 0; j < 16; ++j) lo[j] = c[j];
@@ -155,8 +156,6 @@ EG_FD void fp_mul(u32* o, const u32* a, const u32* b) {
     lo[j] += c[16 + j] * 977u;
     lo[j + 2] += c[16 + j];
   }
-  // fold columns 16, 17: 18 -> 16 columns
-  u32 r[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) r[j] = lo[j];
 #pragma unroll
@@ -164,6 +163,12 @@ EG_FD void fp_mul(u32* o, const u32* a, const u32* b) {
     r[j] += lo[16 + j] * 977u;
     r[j + 2] += lo[16 + j];
   }
+}
+
+EG_FD void fp_mul(u32* o, const u32* a, const u32* b) {
+  u32 c[32], r[16];
+  mul_cols<16, 16>(a, b, c);
+  fold32(c, r);
   carry_tail(r);
   copy16(o, r);
 }
@@ -212,29 +217,183 @@ EG_FD u32 is_zero_mod(const u32* a) {
   return z | p;
 }
 
-// Jacobian doubling, a = 0 (dbl-2009-l).  Outputs may alias inputs.
-EG_CALL void jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
-                      const u32* Y1, const u32* Z1) {
+// ---------------------------------------------------------------------------
+// T lanes a row
+// ---------------------------------------------------------------------------
+//
+// The pow and ladder kernels run a row on a group of T consecutive lanes
+// of a warp (T = 1, 2, 4 or 8; launch.cuh eg_group gives a lane its rank
+// in the group and the group's mask).  Every lane holds the row's values
+// and takes the same branches.  A product shares its 256 partial
+// products out: lane `rank` multiplies the limbs a[T*m + rank] of the
+// first operand (grp_pick) by the second operand shifted up by `rank`
+// limbs (grp_shift), so that each of its products lands in a column known
+// at compile time.  Each lane folds its own columns (the fold is linear)
+// and the group sums the folded columns with __shfl_xor_sync over its own
+// mask (integer sums below 2^32, whatever their order); then every lane
+// runs the same carry chain.  So every lane ends with the bits of the
+// one-thread product, and T = 1 is the one-thread form itself.  All of it
+// inlines, arrays indexed only by unrolled constants: the state stays in
+// registers.
+
+// as[m] = a[T*m + rank], m < 16/T: a tree of selects on the bits of rank.
+template <int T>
+EG_FD void grp_pick(u32* as, const u32* a, u32 rank) {
+#pragma unroll
+  for (int m = 0; m < 16 / T; ++m) {
+    u32 v[T];
+#pragma unroll
+    for (int q = 0; q < T; ++q) v[q] = a[T * m + q];
+#pragma unroll
+    for (int s = 1; s < T; s <<= 1) {
+#pragma unroll
+      for (int q = 0; q < T; q += 2 * s) v[q] = (rank & s) ? v[q + s] : v[q];
+    }
+    as[m] = v[0];
+  }
+}
+
+// b[j - rank], zero outside b (j < 16 + T - 1): a tree of selects on the
+// bits of rank.  One limb at a time, just before its products, so that no
+// shifted copy of b stays live.
+template <int T>
+EG_FD u32 grp_shift(const u32* b, int j, u32 rank) {
+  u32 v[T];
+#pragma unroll
+  for (int q = 0; q < T; ++q) v[q] = (j - q >= 0 && j - q < 16) ? b[j - q] : 0u;
+#pragma unroll
+  for (int s = 1; s < T; s <<= 1) {
+#pragma unroll
+    for (int q = 0; q < T; q += 2 * s) v[q] = (rank & s) ? v[q + s] : v[q];
+  }
+  return v[0];
+}
+
+// This lane's share of the uncarried schoolbook columns of a x b (32
+// columns): the products of a's limbs T*m + rank, each column's sums
+// below its whole sum.  T = 1: all of mul_cols<16, 16>.
+template <int T>
+EG_FD void grp_cols(const u32* a, const u32* b, u32* cols, u32 rank) {
+  if constexpr (T == 1) {
+    mul_cols<16, 16>(a, b, cols);
+  } else {
+    constexpr int S = 16 / T, W = 16 + T - 1;
+    u32 as[S];
+    grp_pick<T>(as, a, rank);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) cols[k] = 0;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const u32 bj = grp_shift<T>(b, j, rank);
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        // a[T*m + rank] * b[j - rank] belongs to column T*m + j
+        u32 p = as[m] * bj;
+        cols[T * m + j] += p & MASK;
+        cols[T * m + j + 1] += p >> 16;
+      }
+    }
+  }
+}
+
+// Each of the group's lanes holds NC partial columns: every lane gets
+// their sums.
+template <int T, int NC>
+EG_FD void grp_sum(u32* c, u32 mask) {
+#pragma unroll
+  for (int s = 1; s < T; s <<= 1) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) c[k] += __shfl_xor_sync(mask, c[k], s);
+  }
+}
+
+// This lane's share of a x b folded to 16 columns: fold32 of its
+// grp_cols, with the products of columns 15..31 taken and folded first
+// and the others added after, so that the lane never holds 32 columns
+// (the sums are the same integers).  T = 1: mul_cols and fold32.
+template <int T>
+EG_FD void grp_fold_cols(const u32* a, const u32* b, u32* r, u32 rank) {
+  if constexpr (T == 1) {
+    u32 c[32];
+    mul_cols<16, 16>(a, b, c);
+    fold32(c, r);
+  } else {
+    constexpr int S = 16 / T, W = 16 + T - 1;
+    u32 as[S], c[32];
+    grp_pick<T>(as, a, rank);
+#pragma unroll
+    for (int k = 15; k < 32; ++k) c[k] = 0;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const u32 bj = grp_shift<T>(b, j, rank);
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (T * m + j >= 15) {
+          u32 p = as[m] * bj;
+          c[T * m + j] += p & MASK;
+          c[T * m + j + 1] += p >> 16;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 15; ++k) c[k] = 0;
+    fold32(c, r);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const u32 bj = grp_shift<T>(b, j, rank);
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (T * m + j < 15) {
+          u32 p = as[m] * bj;
+          r[T * m + j] += p & MASK;
+          r[T * m + j + 1] += p >> 16;
+        }
+      }
+    }
+  }
+}
+
+template <int T>
+EG_FD void grp_fp_mul(u32* o, const u32* a, const u32* b, u32 rank,
+                      u32 mask) {
+  u32 r[16];
+  grp_fold_cols<T>(a, b, r, rank);
+  grp_sum<T, 16>(r, mask);
+  carry_tail(r);
+  copy16(o, r);
+}
+
+template <int T>
+EG_FD void grp_fp_sqr(u32* o, const u32* a, u32 rank, u32 mask) {
+  grp_fp_mul<T>(o, a, a, rank, mask);
+}
+
+// Jacobian doubling, a = 0 (dbl-2009-l), z3 first so that Y1 and Z1 die
+// early (the same products of the same values).  Outputs may alias
+// inputs.
+template <int T>
+EG_FD void grp_jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
+                          const u32* Y1, const u32* Z1, u32 rank, u32 mask) {
   u32 A[16], B[16], C[16], t[16], D[16], E[16], F[16];
-  fp_sqr(A, X1);
-  fp_sqr(B, Y1);
-  fp_sqr(C, B);
+  u32 x3[16], y3[16], z3[16];
+  grp_fp_mul<T>(z3, Y1, Z1, rank, mask);
+  fp_mul_small(z3, z3, 2);
+  grp_fp_sqr<T>(A, X1, rank, mask);
+  grp_fp_sqr<T>(B, Y1, rank, mask);
+  grp_fp_sqr<T>(C, B, rank, mask);
   fp_add(t, X1, B);
-  fp_sqr(t, t);
+  grp_fp_sqr<T>(t, t, rank, mask);
   fp_sub(D, t, A);
   fp_sub(D, D, C);
   fp_mul_small(D, D, 2);
   fp_mul_small(E, A, 3);
-  fp_sqr(F, E);
-  u32 x3[16], y3[16], z3[16];
+  grp_fp_sqr<T>(F, E, rank, mask);
   fp_mul_small(t, D, 2);
   fp_sub(x3, F, t);
   fp_sub(t, D, x3);
-  fp_mul(y3, E, t);
+  grp_fp_mul<T>(y3, E, t, rank, mask);
   fp_mul_small(t, C, 8);
   fp_sub(y3, y3, t);
-  fp_mul(z3, Y1, Z1);
-  fp_mul_small(z3, z3, 2);
   copy16(X3, x3);
   copy16(Y3, y3);
   copy16(Z3, z3);
@@ -242,55 +401,75 @@ EG_CALL void jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
 
 // Jacobian + affine (madd-2007-bl) with the exceptional cases of the
 // reference: P1 at infinity, equal points (the doubling path), opposite
-// points (infinity).  The reference computes the doubling on every row
-// and selects it; here it runs only where it is taken, which gives the
-// same bits: at the first entry of the point table (R + R) on every row,
-// and in the ladder only when the accumulator equals the added point.
-// Outputs may alias the Jacobian inputs.
-EG_CALL void jac_add_mixed(u32* X, u32* Y, u32* Z, const u32* X1,
-                         const u32* Y1, const u32* Z1, const u32* x2,
-                         const u32* y2) {
-  u32 Z1Z1[16], U2[16], S2[16], H[16], r[16], t[16];
-  fp_sqr(Z1Z1, Z1);
-  fp_mul(U2, x2, Z1Z1);
-  fp_mul(S2, y2, Z1);
-  fp_mul(S2, S2, Z1Z1);
+// points (infinity).  The reference computes both the sum and the
+// doubling on every row and selects; here each runs only where it is
+// taken, which gives the same bits: the doubling at the first entry of
+// the point table (R + R) on every row, and in the ladder only when the
+// accumulator equals the added point.  The lanes of a group hold one row,
+// so they take the branch together.  The sum's products are in an order
+// that lets each input die at its last use (the same products of the
+// same values).  Outputs may alias the Jacobian inputs.
+template <int T>
+EG_FD void grp_jac_add_mixed(u32* X, u32* Y, u32* Z, const u32* X1,
+                             const u32* Y1, const u32* Z1, const u32* x2,
+                             const u32* y2, u32 rank, u32 mask) {
+  u32 Z1Z1[16], U2[16], S2[16], H[16], r[16];
+  grp_fp_sqr<T>(Z1Z1, Z1, rank, mask);
+  grp_fp_mul<T>(U2, x2, Z1Z1, rank, mask);
+  grp_fp_mul<T>(S2, y2, Z1, rank, mask);
+  grp_fp_mul<T>(S2, S2, Z1Z1, rank, mask);
   fp_sub(H, U2, X1);
   fp_sub(r, S2, Y1);
-
-  u32 I[16], J[16], rr[16], V[16], X3[16], Y3[16], Z3[16];
-  fp_sqr(I, H);
-  fp_mul_small(I, I, 4);
-  fp_mul(J, H, I);
-  fp_mul_small(rr, r, 2);
-  fp_mul(V, X1, I);
-  fp_sqr(X3, rr);
-  fp_sub(X3, X3, J);
-  fp_mul_small(t, V, 2);
-  fp_sub(X3, X3, t);
-  fp_sub(t, V, X3);
-  fp_mul(Y3, rr, t);
-  fp_mul(t, Y1, J);
-  fp_mul_small(t, t, 2);
-  fp_sub(Y3, Y3, t);
-  fp_mul_small(t, Z1, 2);
-  fp_mul(Z3, t, H);
-
   const u32 h0 = is_zero_mod(H);
   const u32 r0 = is_zero_mod(r);
   const u32 p1_inf = is_zero_mod(Z1);
   const u32 dbl = h0 & r0;
   const u32 opp = h0 & (1u - r0);
-  if (dbl) jac_double(X3, Y3, Z3, X1, Y1, Z1);
 
-  u32 one[16], zero[16];
+  u32 X3[16], Y3[16], Z3[16];
+  if (dbl) {
+    grp_jac_double<T>(X3, Y3, Z3, X1, Y1, Z1, rank, mask);
+  } else {
+    u32 I[16], J[16], rr[16], V[16], t[16], w[16];
+    grp_fp_sqr<T>(I, H, rank, mask);
+    fp_mul_small(I, I, 4);
+    grp_fp_mul<T>(J, H, I, rank, mask);
+    fp_mul_small(t, Z1, 2);
+    grp_fp_mul<T>(Z3, t, H, rank, mask);
+    grp_fp_mul<T>(w, Y1, J, rank, mask);
+    fp_mul_small(w, w, 2);
+    fp_mul_small(rr, r, 2);
+    grp_fp_mul<T>(V, X1, I, rank, mask);
+    grp_fp_sqr<T>(X3, rr, rank, mask);
+    fp_sub(X3, X3, J);
+    fp_mul_small(t, V, 2);
+    fp_sub(X3, X3, t);
+    fp_sub(t, V, X3);
+    grp_fp_mul<T>(Y3, rr, t, rank, mask);
+    fp_sub(Y3, Y3, w);
+    u32 one[16], zero[16];
+    one16(one);
+    zero16(zero);
+    select16(Z3, opp, zero, Z3);
+    select16(Y3, opp, one, Y3);
+  }
+  u32 one[16];
   one16(one);
-  zero16(zero);
-  select16(Z3, opp, zero, Z3);
-  select16(Y3, opp, one, Y3);
   select16(X, p1_inf, x2, X3);
   select16(Y, p1_inf, y2, Y3);
   select16(Z, p1_inf, one, Z3);
+}
+
+// The one-thread formulas (point_table and the rows8 ladder).
+EG_CALL void jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
+                        const u32* Y1, const u32* Z1) {
+  grp_jac_double<1>(X3, Y3, Z3, X1, Y1, Z1, 0u, 1u);
+}
+
+EG_CALL void jac_add_mixed(u32* X, u32* Y, u32* Z, const u32* X1,
+                           const u32* Y1, const u32* Z1, const u32* x2,
+                           const u32* y2) {
+  grp_jac_add_mixed<1>(X, Y, Z, X1, Y1, Z1, x2, y2, 0u, 1u);
 }
 
 // ---------------------------------------------------------------------------
@@ -381,6 +560,17 @@ EG_FD void fn_red_cols(const u32* cols, u32* o) {
 EG_FD void fn_mul(u32* o, const u32* a, const u32* b) {
   u32 c[32];
   mul_cols<16, 16>(a, b, c);
+  fn_red_cols<32>(c, o);
+}
+
+// T lanes a row: the shared product columns are summed before the
+// reduction, which every lane runs (its carries are not linear).
+template <int T>
+EG_FD void grp_fn_mul(u32* o, const u32* a, const u32* b, u32 rank,
+                      u32 mask) {
+  u32 c[32];
+  grp_cols<T>(a, b, c, rank);
+  grp_sum<T, 32>(c, mask);
   fn_red_cols<32>(c, o);
 }
 

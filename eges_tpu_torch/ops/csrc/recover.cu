@@ -1,12 +1,16 @@
-// The eleven kernels of batched sender recovery (ecrecover) for sm_90a.
+// Ten of the eleven kernels of batched sender recovery (ecrecover) for
+// sm_90a; the ladder (#9) is in ladder.cu.
 //
 // Each __global__ replaces one Pallas kernel of
 // eges_tpu/ops/pallas_kernels.py (named beside it) and runs one thread
 // per batch row over the field library of field.cuh, so its results are
-// bit-identical to the reference's numpy twins.  The TPU kernels walked
+// bit-identical to the reference's numpy twins; the pow and the ladder
+// (#9, in ladder.cu), nearly all of the work, run a group of T lanes a
+// row instead (one instance each for T = 1, 2, 4 and 8; ops/kernels.py
+// lanes_for picks T and the block size from the row count).  The TPU kernels walked
 // windows, table entries and pow digits on a sequential grid axis with
 // the running state in VMEM; blocks on Hopper run in no order, so each
-// of those walks is a loop inside the thread here.
+// of those walks is a loop inside the thread (or group) here.
 //
 // Layouts are the reference wrappers': [rows, 16] for values, limb-major
 // [rows, Bpad] for the GLV digits, the strauss R tables and the keccak
@@ -19,14 +23,13 @@
 // recover_prelude, y_fix and recover_finish issue fewer than that per
 // byte and are bound by bytes; the other six by integer operations.  All of
 // them read each input once, write each output once and keep every
-// intermediate in registers (the pow table in a per-thread 1 KB local
-// array), which is all the design does about either bound so far.
+// intermediate in registers (the pow table in shared memory).  Against
+// the operation bound, the lane groups put more warps on more SMs to
+// hide the latency of a row's one dependent chain.
 //
 // Each launcher has a plain C interface for ctypes: device pointers and
 // the stream arrive as void*, the kernel is queued on that stream, and
 // the launcher returns cudaGetLastError() so a refused launch is seen.
-
-#include <string.h>
 
 #include "launch.cuh"
 
@@ -56,55 +59,97 @@ k_recover_prelude(const uint8_t* sigs, const uint8_t* hashes, int B, u32* x,
 }
 
 // #2 pow_mod_pallas: a^e for a constant e (64 four-bit digits, MSD
-// first), relaxed mod P or canonical mod N.  The per-thread table
-// a^0..a^15 (1 KB) is indexed by the digit directly.
+// first), relaxed mod P or canonical mod N, on a group of T lanes a row
+// (field.cuh grp_fp_mul / grp_fn_mul).  The table a^2..a^15 lives in
+// shared memory as [entry][limb pair][row of the block] (two 16-bit
+// limbs a word: every product's limbs are below 2^16), written by the
+// group's first lane and read by all of its lanes at one address; a^0
+// and a^1 come from registers.  The digit is the same on every row, so
+// every branch on it is uniform.  The digits come packed into eight
+// words, picked by constant index: an array indexed by the window would
+// put a copy of them on the stack.
 struct PowDigits {
-  unsigned char d[64];
+  u32 w[8];  // digit i is bits 28 - 4 * (i % 8) of word i / 8
 };
 
-template <bool MODN>
-static __device__ __forceinline__ void modmul(u32* o, const u32* a,
-                                              const u32* b) {
-  if constexpr (MODN)
-    fn_mul(o, a, b);
-  else
-    fp_mul(o, a, b);
+constexpr int POW_TAB_WORDS = 14 * 8;  // a row's table, entries 2..15
+
+extern __shared__ u32 eg_smem[];
+
+static __device__ __forceinline__ u32 pow_digit(const PowDigits& e, int i) {
+  const int q = i >> 3;
+  u32 word = e.w[0];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) word = q == k ? e.w[k] : word;
+  return (word >> (28 - 4 * (i & 7))) & 15u;
 }
 
-template <bool MODN>
-static __device__ __forceinline__ void pow_row(const u32* a, u32* out,
-                                               const PowDigits& e) {
-  u32 A[16], tab[16][16], acc[16];
-  load16(A, a);
-  one16(tab[0]);
-  copy16(tab[1], A);
+template <int T, bool MODN>
+static __device__ __forceinline__ void modmul(u32* o, const u32* a,
+                                              const u32* b, u32 rank,
+                                              u32 mask) {
+  if constexpr (MODN)
+    grp_fn_mul<T>(o, a, b, rank, mask);
+  else
+    grp_fp_mul<T>(o, a, b, rank, mask);
+}
+
+template <int T, bool MODN>
+static __device__ __forceinline__ void pow_rows(const u32* a, u32* out, int M,
+                                                const PowDigits& e) {
+  const EgGroup g = eg_group<T>(M);
+  const int rows = blockDim.x / T, lr = threadIdx.x / T;
+  u32* tab = eg_smem + lr;  // word k of the row's table at tab[k * rows]
+  u32 A[16], acc[16], t[16];
+  load16(A, a + (size_t)16 * g.in);
   copy16(acc, A);
 #pragma unroll 1
-  for (int i = 2; i < 16; ++i) {
-    modmul<MODN>(acc, acc, A);
-    copy16(tab[i], acc);
+  for (int i = 0; i < 14; ++i) {
+    modmul<T, MODN>(acc, acc, A, g.rank, g.mask);
+    if (g.rank == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        tab[(i * 8 + k) * rows] = acc[2 * k] | (acc[2 * k + 1] << 16);
+    }
   }
+  __syncwarp(g.mask);
   one16(acc);
 #pragma unroll 1
   for (int w = 0; w < 64; ++w) {
 #pragma unroll 1
-    for (int i = 0; i < 4; ++i) modmul<MODN>(acc, acc, acc);
-    modmul<MODN>(acc, acc, tab[e.d[w] & 15]);
+    for (int i = 0; i < 4; ++i) modmul<T, MODN>(acc, acc, acc, g.rank, g.mask);
+    const u32 d = pow_digit(e, w);
+    if (d == 0) {
+      one16(t);
+    } else if (d == 1) {
+      copy16(t, A);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const u32 v = tab[((d - 2) * 8 + k) * rows];
+        t[2 * k] = v & MASK;
+        t[2 * k + 1] = v >> 16;
+      }
+    }
+    modmul<T, MODN>(acc, acc, t, g.rank, g.mask);
   }
-  store16(out, acc);
+  if (g.row < M && g.rank == 0) store16(out + (size_t)16 * g.row, acc);
 }
 
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_pow_p(const u32* a, u32* out, int M, PowDigits e) {
-  EG_ROW(M)
-  pow_row<false>(a + (size_t)16 * b, out + (size_t)16 * b, e);
-}
+#define EG_POW_KERNELS(T)                                               \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)    \
+      k_pow_p_t##T(const u32* a, u32* out, int M, PowDigits e) {        \
+    pow_rows<T, false>(a, out, M, e);                                   \
+  }                                                                     \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)    \
+      k_pow_n_t##T(const u32* a, u32* out, int M, PowDigits e) {        \
+    pow_rows<T, true>(a, out, M, e);                                    \
+  }
 
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_pow_n(const u32* a, u32* out, int M, PowDigits e) {
-  EG_ROW(M)
-  pow_row<true>(a + (size_t)16 * b, out + (size_t)16 * b, e);
-}
+EG_POW_KERNELS(1)
+EG_POW_KERNELS(2)
+EG_POW_KERNELS(4)
+EG_POW_KERNELS(8)
 
 // #3 y_fix_pallas
 extern "C" __global__ void __launch_bounds__(EG_THREADS)
@@ -203,59 +248,6 @@ k_fp_canon(const u32* a, int M, u32* out) {
   store16(out + (size_t)16 * b, A);
 }
 
-// #9 strauss_tab: the 33-window GLV/Strauss ladder u1*G + u2*R.  Per
-// window: 4 doublings, then 4 conditional mixed adds of +-G, +-lambda*G
-// (tables in __constant__ memory) and +-R, +-lambda*R (per-row tables,
-// row 16*d + k of [256, Bpad] = limb k of entry d, loaded directly where
-// the TPU kernel ran one-hot selects).  A zero digit discards its add.
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_strauss(const u32* dig, const u32* neg, const u32* trx, const u32* tlrx,
-          const u32* try_, int B, int Bpad, int W, u32* X, u32* Y, u32* Z) {
-  EG_ROW(B)
-  u32 x[16], y[16], z[16], ng[4];
-  zero16(x);
-  one16(y);
-  zero16(z);
-  for (int t = 0; t < 4; ++t) ng[t] = neg[(size_t)t * Bpad + b];
-#pragma unroll 1
-  for (int w = 0; w < W; ++w) {
-#pragma unroll 1
-    for (int i = 0; i < 4; ++i) jac_double(x, y, z, x, y, z);
-#pragma unroll 1
-    for (int t = 0; t < 4; ++t) {
-      const u32 d = dig[((size_t)w * 8 + t) * Bpad + b] & 15u;
-      u32 px[16], py[16];
-      if (t < 2) {
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          px[k] = t == 0 ? K.gx[d][k] : K.lx[d][k];
-          py[k] = K.gy[d][k];
-        }
-      } else {
-        const u32* tx = t == 2 ? trx : tlrx;
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const size_t row = ((size_t)16 * d + k) * Bpad + b;
-          px[k] = tx[row];
-          py[k] = try_[row];
-        }
-      }
-      if (ng[t]) fp_neg(py, py);
-      u32 ax[16], ay[16], az[16];
-      jac_add_mixed(ax, ay, az, x, y, z, px, py);
-      if (d != 0) {
-        copy16(x, ax);
-        copy16(y, ay);
-        copy16(z, az);
-      }
-    }
-  }
-  const size_t o = (size_t)16 * b;
-  store16(X + o, x);
-  store16(Y + o, y);
-  store16(Z + o, z);
-}
-
 // #10 recover_finish_pallas: qx, qy [B, 16], ok [B], and the keccak
 // block words [34, Bpad] (threads cover Bpad; rows past B finish a zero
 // point, as the reference's padded lanes do).
@@ -305,7 +297,30 @@ k_keccak_rows(const u32* words, int wide, u32* out) {
 // launchers
 // ---------------------------------------------------------------------------
 
+typedef void (*PowKernel)(const u32*, u32*, int, PowDigits);
+// instances by lanes: index 0, 1, 2, 3 for T = 1, 2, 4, 8
+static const PowKernel POW_P[] = {k_pow_p_t1, k_pow_p_t2, k_pow_p_t4,
+                                  k_pow_p_t8};
+static const PowKernel POW_N[] = {k_pow_n_t1, k_pow_n_t2, k_pow_n_t4,
+                                  k_pow_n_t8};
+
+static int lanes_index(int lanes) {
+  return lanes == 1 ? 0 : lanes == 2 ? 1 : lanes == 4 ? 2 : 3;
+}
+
 extern "C" int eg_init(const u32* host_consts, int count) {
+  // the pow table of a 256-thread block at one lane a row is 112 KB,
+  // past the 48 KB a block gets without asking
+  const int most = EG_LANES_MAX_THREADS * POW_TAB_WORDS * 4;
+  for (int i = 0; i < 4; ++i) {
+    if (cudaFuncSetAttribute((const void*)POW_P[i],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most) != cudaSuccess ||
+        cudaFuncSetAttribute((const void*)POW_N[i],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most) != cudaSuccess)
+      return (int)cudaGetLastError();
+  }
   return eg_upload_consts(host_consts, count);
 }
 
@@ -320,17 +335,20 @@ extern "C" int eg_recover_prelude(const void* sigs, const void* hashes, int B,
 }
 
 extern "C" int eg_pow_mod(const void* a, void* out, int M,
-                          const unsigned char* digits, int mod_n,
-                          void* stream) {
+                          const unsigned char* digits, int mod_n, int lanes,
+                          int threads, void* stream) {
   if (M <= 0) return 0;
+  if (!eg_lanes_ok(lanes, threads)) return (int)cudaErrorInvalidValue;
   PowDigits e;
-  memcpy(e.d, digits, sizeof(e.d));
-  if (mod_n)
-    k_pow_n<<<eg_grid(M), EG_THREADS, 0, EG_STREAM(stream)>>>(
-        (const u32*)a, (u32*)out, M, e);
-  else
-    k_pow_p<<<eg_grid(M), EG_THREADS, 0, EG_STREAM(stream)>>>(
-        (const u32*)a, (u32*)out, M, e);
+  for (int q = 0; q < 8; ++q) {
+    e.w[q] = 0;
+    for (int i = 0; i < 8; ++i)
+      e.w[q] |= (u32)(digits[8 * q + i] & 15) << (28 - 4 * i);
+  }
+  const size_t smem = (size_t)(threads / lanes) * POW_TAB_WORDS * 4;
+  const PowKernel k = (mod_n ? POW_N : POW_P)[lanes_index(lanes)];
+  k<<<eg_lanes_grid(M, lanes, threads), threads, smem, EG_STREAM(stream)>>>(
+      (const u32*)a, (u32*)out, M, e);
   return (int)cudaGetLastError();
 }
 
@@ -380,16 +398,6 @@ extern "C" int eg_fp_canon(const void* a, int M, void* out, void* stream) {
   if (M <= 0) return 0;
   k_fp_canon<<<eg_grid(M), EG_THREADS, 0, EG_STREAM(stream)>>>(
       (const u32*)a, M, (u32*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int eg_strauss(const void* dig, const void* neg, const void* trx,
-                          const void* tlrx, const void* try_, int B, int Bpad,
-                          int W, void* X, void* Y, void* Z, void* stream) {
-  if (B <= 0) return 0;
-  k_strauss<<<eg_grid(B), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const u32*)dig, (const u32*)neg, (const u32*)trx, (const u32*)tlrx,
-      (const u32*)try_, B, Bpad, W, (u32*)X, (u32*)Y, (u32*)Z);
   return (int)cudaGetLastError();
 }
 

@@ -241,6 +241,25 @@ def _glv_decompose(k: torch.Tensor):
     return (*sign_split(k1), *sign_split(k2))
 
 
+def _r_tables(rx: torch.Tensor, ry: torch.Tensor):
+    """The affine tables of R and lambda*R (beta * x per entry, same y):
+    ``(trx, try_, tlrx)``."""
+    trx, try_ = _build_affine_table(rx, ry)
+    return trx, try_, FP.mul(trx, FP.const(GLV_BETA, trx))
+
+
+def strauss_inputs(u1: torch.Tensor, u2: torch.Tensor, rx: torch.Tensor,
+                   ry: torch.Tensor):
+    """The ladder kernel's inputs for a ``[B, 16]`` batch: ``(dig, neg,
+    trx, tlrx, try_)`` in :func:`kernels.strauss_tab`'s layout, the R
+    tables built and normalised, then the GLV digits and signs."""
+    B = rx.shape[0]
+    trx, try_, tlrx = _r_tables(rx, ry)
+    dig, neg = K.glv_digits_pallas(u1, u2)
+    return (dig, neg, _table_rows(trx, B), _table_rows(tlrx, B),
+            _table_rows(try_, B))
+
+
 def strauss_gR(u1: torch.Tensor, u2: torch.Tensor, rx: torch.Tensor,
                ry: torch.Tensor):
     """GLV/Strauss ``u1*G + u2*R`` for affine per-row R; Jacobian
@@ -254,14 +273,9 @@ def strauss_gR(u1: torch.Tensor, u2: torch.Tensor, rx: torch.Tensor,
     looked-up y where the half-scalar is negative and a mixed add kept
     where the digit is not 0: 4 x 18 + 4 x 41 launches a window.
     """
-    # the affine tables of R and lambda*R (beta * x per entry, same y)
-    trx, try_ = _build_affine_table(rx, ry)
-    tlrx = FP.mul(trx, FP.const(GLV_BETA, trx))
     if rx.dim() == 2:
-        B = rx.shape[0]
-        dig, neg = K.glv_digits_pallas(u1, u2)
-        return K.strauss_tab(dig, neg, _table_rows(trx, B),
-                             _table_rows(tlrx, B), _table_rows(try_, B), B)
+        return K.strauss_tab(*strauss_inputs(u1, u2, rx, ry), rx.shape[0])
+    trx, try_, tlrx = _r_tables(rx, ry)
 
     # both scalars split in one stacked [2, ...] decomposition; digits
     # LSD first, int64 for the gathers

@@ -31,7 +31,12 @@ write (``ops/opcount.py``), so bytes bound them; the other eleven issue
 more (the pow and ladder kernels several hundred times more) and integer
 operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
-registers.  ``PERF.md`` has each one's time beside its bound.
+registers.  ``PERF.md`` has each one's time beside its bound.  The pow
+and the ladder, nearly all of a recovery's card time, run a group of
+T lanes a row (``csrc/field.cuh`` ``grp_*``), so that a batch puts more
+warps on more SMs; :func:`lanes_for` picks T and the block size from the
+row count, and :func:`pow_mod_lanes` and :func:`strauss_tab_lanes` launch
+any instance (every one gives the same bits).
 
 The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
 sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
@@ -132,6 +137,51 @@ def bpad(b: int) -> int:
     """``b`` rounded up to a multiple of the lane block."""
     block = lane_block()
     return -(-b // block) * block
+
+
+# ---------------------------------------------------------------------------
+# lanes a row of the pow and ladder kernels (csrc/recover.cu, ladder.cu)
+# ---------------------------------------------------------------------------
+
+LANES = build.LANES            # the instances of each kernel
+LANE_THREADS = (64, 128, 256)   # the block sizes they take
+# kernel -> ((most rows, lanes, threads), ...): the first entry whose row
+# limit the row count does not pass (None: no limit).  From the sweep of
+# chip_smoke.py phase lanes (PERF.md has its times), the fastest instance
+# at each swept count: the ladder at 256, 1024, 4096 and 8192 rows, the
+# pow at the same counts and at 16384 and 131072 rows (mod P: its table
+# launches).  The fastest lanes are about the most whose rows * lanes
+# threads still run in one wave; past 8192 rows, where the main path
+# launches no pow mod N, that one keeps one lane a row; the ladder keeps
+# T = 4 (T = 2 spills a few bytes).
+LANES_RULE = {
+    "strauss_tab": ((256, 4, 128), (4096, 8, 64), (None, 4, 256)),
+    "pow_mod_p": ((2048, 8, 64), (4096, 4, 64), (8192, 2, 128),
+                  (16384, 1, 128), (None, 1, 256)),
+    "pow_mod_n": ((256, 4, 128), (2048, 8, 64), (4096, 4, 128),
+                  (8192, 2, 128), (None, 1, 128)),
+}
+
+
+def lanes_for(kernel: str, rows: int, device="cuda") -> tuple[int, int]:
+    """``(lanes a row, threads a block)`` of ``kernel`` (``"strauss_tab"``,
+    ``"pow_mod_p"`` or ``"pow_mod_n"``) at ``rows`` rows: the one rule
+    the wrappers launch by.  A CPU device takes the plain version, whose
+    arithmetic is one thread's: ``(1, 128)``."""
+    if rows <= 0:
+        raise ValueError("rows must be positive")
+    if torch.device(device).type != "cuda":
+        return 1, 128
+    for most, lanes, threads in LANES_RULE[kernel]:
+        if most is None or rows <= most:
+            return lanes, threads
+    raise AssertionError(f"{kernel}: the rule has no entry for {rows} rows")
+
+
+def _check_lanes(lanes: int, threads: int) -> None:
+    if lanes not in LANES or threads not in LANE_THREADS:
+        raise ValueError(f"lanes must be one of {LANES} and threads one of "
+                         f"{LANE_THREADS}, got {lanes} and {threads}")
 
 
 # ---------------------------------------------------------------------------
@@ -514,14 +564,15 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "eg_init": [_P, _I],
     "eg_recover_prelude": [_P] * 2 + [_I] + [_P] * 7 + [_P],
-    "eg_pow_mod": [_P, _P, _I, _P, _I, _P],
+    "eg_pow_mod": [_P, _P, _I, _P, _I, _I, _I, _P],
     "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
     "eg_u1u2": [_P, _P, _P, _I, _P, _P, _P],
     "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _P],
     "eg_point_table": [_P, _P, _I, _P, _P, _P, _P],
     "eg_fp_mul": [_P, _P, _I, _P, _P],
     "eg_fp_canon": [_P, _I, _P, _P],
-    "eg_strauss": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
+    **{f"eg_strauss_t{t}": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P]
+       for t in build.LANES},
     "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_P],
     "eg_keccak_rows": [_P, _I, _P, _P],
     "eg_init_verify": [_P, _I],
@@ -541,15 +592,17 @@ _ARGTYPES = {
     "eg_strauss_rows8": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
     "eg_keccak_round": [_P, _I, _P, _P],
     "eg_init_profile": [_P, _I],
+    **{f"eg_init_ladder_t{t}": [_P, _I] for t in build.LANES},
     "eg_fp_mul_chain": [_P, _P, _I, _I, _I, _P, _P],
     "eg_fp_mul_chain_rows8": [_P, _P, _I, _P, _P],
     "eg_fp_mul_rows8": [_P, _P, _I, _P, _P],
     "eg_add_one_f32": [_P, _I, _P, _P],
     "eg_mul_scalar_f32": [_P, ctypes.c_float, _I, _P, _P],
 }
-# one per source: each translation unit has its own constants block
+# one per translation unit: each has its own constants block
 _INITS = ("eg_init", "eg_init_verify", "eg_init_glue", "eg_init_tiling",
-          "eg_init_profile")
+          "eg_init_profile",
+          *(f"eg_init_ladder_t{t}" for t in build.LANES))
 
 
 def pack_constants() -> np.ndarray:
@@ -651,12 +704,27 @@ def pow_mod_pallas(a, e: int, modulus: str):
     """``[M, 16] -> [M, 16]``: per-row ``a^e`` for a constant e, relaxed
     mod P (``modulus="p"``) or canonical mod N (``"n"``).  Replaces
     ``pow_mod_pallas`` (pallas_kernels.py:525); the one-hot digit input
-    of the TPU kernel becomes 64 digit bytes passed with the launch.
-    Under ``rows8_enabled()`` this is :func:`pow_mod_rows8`."""
+    of the TPU kernel becomes 64 digit bytes passed with the launch, and
+    :func:`lanes_for` sets the lanes a row.  Under ``rows8_enabled()``
+    this is :func:`pow_mod_rows8`."""
     if rows8_enabled():
         return pow_mod_rows8(a, e, modulus)
     if modulus not in ("p", "n"):
         raise ValueError("modulus must be 'p' or 'n'")
+    lanes, threads = lanes_for("pow_mod_" + modulus, max(_rows(a), 1),
+                               a.device)
+    return pow_mod_lanes(a, e, modulus, lanes, threads)
+
+
+def pow_mod_lanes(a, e: int, modulus: str, lanes: int, threads: int):
+    """:func:`pow_mod_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_pow_p_t<lanes>`` or
+    ``k_pow_n_t<lanes>``.  Every instance gives the same bits; the
+    wrapper launches :func:`lanes_for`'s, and chip_smoke.py phase lanes
+    times them all."""
+    if modulus not in ("p", "n"):
+        raise ValueError("modulus must be 'p' or 'n'")
+    _check_lanes(lanes, threads)
     M = _rows(a)
     _check(a, "a", (M, NLIMBS))
     digits = pow_digits(e)
@@ -665,7 +733,7 @@ def pow_mod_pallas(a, e: int, modulus: str):
     out = _empty((M, NLIMBS), a)
     buf = ctypes.create_string_buffer(digits, POW_WINDOWS)
     _launch("pow_mod", "eg_pow_mod", a, out, M, ctypes.addressof(buf),
-            int(modulus == "n"))
+            int(modulus == "n"), lanes, threads)
     return out
 
 
@@ -770,10 +838,23 @@ def strauss_tab(dig, neg, trx, tlrx, try_, batch: int):
     0-3 the half-scalar signs), ``trx/tlrx/try_ [256, Bpad]`` (R and
     lambda*R x, shared y; row ``16*d + k`` = limb k of entry d).
     Returns Jacobian ``(X, Y, Z)`` each ``[batch, 16]``.  Replaces
-    ``strauss_tab`` (pallas_kernels.py:384); under ``rows8_enabled()``
-    this is :func:`strauss_tab_rows8`."""
+    ``strauss_tab`` (pallas_kernels.py:384), on :func:`lanes_for`'s lanes
+    a row; under ``rows8_enabled()`` this is :func:`strauss_tab_rows8`."""
     if rows8_enabled():
         return strauss_tab_rows8(dig, neg, trx, tlrx, try_, batch)
+    lanes, threads = lanes_for("strauss_tab", max(batch, 1), dig.device)
+    return strauss_tab_lanes(dig, neg, trx, tlrx, try_, batch, lanes,
+                             threads)
+
+
+def strauss_tab_lanes(dig, neg, trx, tlrx, try_, batch: int, lanes: int,
+                      threads: int):
+    """:func:`strauss_tab` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_strauss_t<lanes>``
+    (``csrc/ladder.cu``).  Every instance gives the same bits; the
+    wrapper launches :func:`lanes_for`'s, and chip_smoke.py phase lanes
+    times them all."""
+    _check_lanes(lanes, threads)
     W, _, wide = dig.shape
     if batch <= 0 or batch > wide:
         raise ValueError("batch must be in 1..Bpad")
@@ -784,8 +865,8 @@ def strauss_tab(dig, neg, trx, tlrx, try_, batch: int):
     if not _on_card(dig, neg, trx, tlrx, try_):
         return strauss_tab_plain(dig, neg, trx, tlrx, try_, batch)
     X, Y, Z = (_empty((batch, NLIMBS), dig) for _ in range(3))
-    _launch("strauss_tab", "eg_strauss", dig, neg, trx, tlrx, try_, batch,
-            wide, W, X, Y, Z)
+    _launch("strauss_tab", f"eg_strauss_t{lanes}", dig, neg, trx, tlrx,
+            try_, batch, wide, W, X, Y, Z, threads)
     return X, Y, Z
 
 
@@ -1181,6 +1262,7 @@ REPLACES = {
 
 # the source file each kernel is in (under ops/csrc)
 SOURCE_OF = dict.fromkeys(KERNELS, "recover.cu")
+SOURCE_OF["strauss_tab"] = "ladder.cu"
 SOURCE_OF.update(dict.fromkeys(("fn_mul", "fn_red17", "fp_add",
                                 "keccak_block"), "verify.cu"))
 SOURCE_OF.update(dict.fromkeys(("fp_sub", "fp_neg", "fp_mul_small", "fn_sub",

@@ -34,9 +34,14 @@ bound unseen.  Templates are counted by formula (``TEMPLATES``), keyed
 in ``HELPERS`` by their arguments, for example ``"mul_cols<16,16>"``.
 
 Work that depends on the data is counted as this run's data needs it:
-``jac_add_mixed`` runs ``jac_double`` only on rows where both points are
-equal (``DATA_DEPENDENT``), so its count leaves the doubling out and
-``per_row`` adds the doublings the caller says the data takes.
+``jac_add_mixed`` runs ``jac_double`` in place of its sum only on rows
+where both points are equal (``DATA_DEPENDENT``, ``ADD_SUM_CALLS``), so
+its count is the sum's and ``per_row`` swaps in the doublings the caller
+says the data takes.  Work whose result is thrown away or is known
+without it is not counted: ``per_row`` takes the ladder's doublings,
+adds and negations that the caller's digits need (a zero digit's add
+is computed and discarded), and ``pow_row`` leaves out the pow's
+products by 1 (a zero digit of the exponent) and squarings of 1.
 """
 
 from __future__ import annotations
@@ -84,8 +89,72 @@ def mul_chain_rows8(chain: int) -> int:
     return chain * ops("fp_mul")
 
 
+def _bits(T: int) -> list[int]:
+    """The shifts of a group of T lanes: 1, 2, ... below T."""
+    return [1 << i for i in range(T.bit_length() - 1)]
+
+
+def grp_pick(T: int) -> int:
+    """A tree of T - 1 selects for each of the lane's 16/T limbs."""
+    return (16 // T) * (T - 1)
+
+
+def _shift_selects(T: int, j: int) -> int:
+    """grp_shift's selects for limb j: a tree on the bits of rank over
+    the limbs b[j - q], one select where either side may be nonzero."""
+    total = 0
+    live = [0 <= j - q < 16 for q in range(T)]
+    for s in _bits(T):
+        for q in range(0, T, 2 * s):
+            total += live[q] or live[q + s]
+            live[q] = live[q] or live[q + s]
+    return total
+
+
+def grp_shift(T: int) -> int:
+    """The selects of all 16 + T - 1 limbs of the shifted operand of one
+    product (grp_cols takes them one at a time)."""
+    return sum(_shift_selects(T, j) for j in range(16 + T - 1))
+
+
+def grp_cols(T: int) -> int:
+    """One lane's share of the product columns: its 16/T limbs of a
+    against 16 + T - 1 limbs of the shifted b (those past b are zero but
+    multiplied all the same), each product's halves added into columns
+    T*m + j and T*m + j + 1; T = 1 is mul_cols<16, 16>."""
+    if T == 1:
+        return mul_cols(16, 16)
+    S, W = 16 // T, 16 + T - 1
+    total = 2 * S * W
+    for k in range(32):
+        lo = sum(1 for m in range(S) if 0 <= k - T * m < W)
+        hi = sum(1 for m in range(S) if 0 <= k - 1 - T * m < W)
+        total += hi + adds(lo)
+    return total + grp_pick(T) + grp_shift(T)
+
+
+def grp_fold_cols(T: int) -> int:
+    """grp_cols' products and fold32 (at T = 1 exactly those); at T > 1
+    the limbs of b that have products in both passes are selected twice."""
+    if T == 1:
+        return mul_cols(16, 16) + ops("fold32")
+    S, W = 16 // T, 16 + T - 1
+    both = [j for j in range(W)
+            if any(T * m + j >= 15 for m in range(S))
+            and any(T * m + j < 15 for m in range(S))]
+    return (grp_cols(T) + ops("fold32")
+            + sum(_shift_selects(T, j) for j in both))
+
+
+def grp_sum(T: int, nc: int) -> int:
+    """A shuffle and an add a column for each of log2(T) exchanges."""
+    return 2 * nc * len(_bits(T))
+
+
 TEMPLATES = {"mul_cols": mul_cols, "carry": carry, "fn_red_cols": fn_red_cols,
-             "mul_chain_rows8": mul_chain_rows8}
+             "mul_chain_rows8": mul_chain_rows8, "grp_pick": grp_pick,
+             "grp_shift": grp_shift, "grp_cols": grp_cols,
+             "grp_fold_cols": grp_fold_cols, "grp_sum": grp_sum}
 
 # carry_tail: two 16-step carry chains (16 masks, 15 shift-adds), each
 # with its fold of the top carry (a shift, a product-add, a shift-add),
@@ -112,7 +181,8 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
     "carry_tail": (CARRY_TAIL, {}),
     # the folds of columns 16..31 and 16, 17: a product-add a column,
     # an add for columns 2..15, none for 2 and 3 of the second fold
-    "fp_mul": (16 + 14 + 2, {"mul_cols<16,16>": 1, "carry_tail": 1}),
+    "fold32": (16 + 14 + 2, {}),
+    "fp_mul": (0, {"mul_cols<16,16>": 1, "fold32": 1, "carry_tail": 1}),
     "fp_sqr": (-SQR_SAVED, {"fp_mul": 1}),
     "fp_add": (16, {"carry_tail": 1}),
     "fp_sub": (16 * adds(4), {"carry_tail": 1}),
@@ -120,11 +190,8 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
     "fp_mul_small": (16, {"carry_tail": 1}),
     "is_zero_mod": (16 * 2 + 1, {}),
     "select16": (16, {}),
-    "jac_double": (0, {"fp_sqr": 5, "fp_mul": 2, "fp_add": 1, "fp_sub": 5,
-                       "fp_mul_small": 5}),
-    "jac_add_mixed": (3, {"fp_sqr": 3, "fp_mul": 8, "fp_sub": 6,
-                          "fp_mul_small": 5, "is_zero_mod": 3,
-                          "select16": 5, "jac_double": 1}),
+    "jac_double": (0, {"grp_jac_double<1>": 1}),
+    "jac_add_mixed": (0, {"grp_jac_add_mixed<1>": 1}),
     # the borrow chain: an IADD3 a limb, its borrow's shift fused into
     # the next (LEA.HI), the last borrow a shift and a sub; the 16 masks
     # of the difference are counted where it is read (cond_sub), not in
@@ -160,8 +227,48 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
                            "limbs_to_words_be": 2}),
 }
 
+# the T-lane forms of field.cuh, templates on T: (a lane's own
+# operations for one call as a function of T, {counted callee as the
+# source writes it: call sites}), where "<T>" stands for the caller's T.
+# A lane issues its share of the row's products (grp_cols) and, whole,
+# the fold, the exchanges (grp_sum), the carries and everything that is
+# not a product; at T = 1 each is its one-thread form.  The kernels'
+# bounds count the row's work, one-thread forms (per_row); per_lane
+# counts what one lane issues.
+GROUP: dict[str, tuple] = {
+    "grp_fp_mul": (lambda T: 0, {"grp_fold_cols<T>": 1,
+                                 "grp_sum<T,16>": 1, "carry_tail": 1}),
+    # at T = 1 a square's a_i * a_j and a_j * a_i are one product
+    "grp_fp_sqr": (lambda T: -SQR_SAVED if T == 1 else 0,
+                   {"grp_fp_mul<T>": 1}),
+    "grp_fn_mul": (lambda T: 0, {"grp_cols<T>": 1, "grp_sum<T,32>": 1,
+                                 "fn_red_cols<32>": 1}),
+    "grp_jac_double": (lambda T: 0, {
+        "grp_fp_sqr<T>": 5, "grp_fp_mul<T>": 2, "fp_add": 1, "fp_sub": 5,
+        "fp_mul_small": 5}),
+    "grp_jac_add_mixed": (lambda T: 3, {
+        "grp_fp_sqr<T>": 3, "grp_fp_mul<T>": 8, "fp_sub": 6,
+        "fp_mul_small": 5, "is_zero_mod": 3, "select16": 5,
+        "grp_jac_double<T>": 1}),
+}
+
+# grp_jac_add_mixed's counted calls that run only where the points
+# differ (its else branch, the sum): where they are equal the doubling
+# runs in their place
+ADD_SUM_CALLS = {"grp_fp_sqr<T>": 2, "grp_fp_mul<T>": 5, "fp_sub": 4,
+                 "fp_mul_small": 5, "select16": 2}
+
+# the counted calls in the source of the two templates counted by formula
+# that call others: mul_cols (and fold32) at T = 1, the pick and the
+# shift above it
+FORMULA_CALLS = {
+    "grp_cols": {"mul_cols<16,16>": 1, "grp_pick<T>": 1, "grp_shift<T>": 1},
+    "grp_fold_cols": {"mul_cols<16,16>": 1, "fold32": 2, "grp_pick<T>": 1,
+                      "grp_shift<T>": 2},
+}
+
 # (caller, callee): calls that run only on some rows, left out of ops()
-DATA_DEPENDENT = {("jac_add_mixed", "jac_double")}
+DATA_DEPENDENT = {("grp_jac_add_mixed", "grp_jac_double<T>")}
 
 # the kernels of csrc/verify.cu: kernel name -> (__global__ function,
 # {counted field.cuh callee: call sites}); each is one call over one row,
@@ -219,57 +326,123 @@ PROFILE_KERNELS: dict[str, tuple[str, dict[str, int]]] = {
 @functools.cache
 def ops(name: str) -> int:
     """u32 operations of one call of a field.cuh function (``"fp_mul"``
-    or a template instance such as ``"fn_red_cols<32>"``)."""
+    or a template instance such as ``"fn_red_cols<32>"``; a T-lane form's
+    such as ``"grp_fp_mul<4>"`` counts one lane's)."""
     if "<" in name:
         base, args = name[:-1].split("<")
-        fn = TEMPLATES[base]
-        return fn(*(int(a) for a in args.split(",")))
+        targs = [int(a) for a in args.split(",")]
+        if base in TEMPLATES:
+            return TEMPLATES[base](*targs)
+        own, calls = GROUP[base]
+        T = targs[0]
+        return own(T) + sum(n * ops(callee.replace("<T", f"<{T}"))
+                            for callee, n in calls.items()
+                            if (base, callee) not in DATA_DEPENDENT)
     own, calls = HELPERS[name]
-    return own + sum(n * ops(callee) for callee, n in calls.items()
-                     if (name, callee) not in DATA_DEPENDENT)
+    return own + sum(n * ops(callee) for callee, n in calls.items())
+
+
+def _at(T: int, calls: dict[str, int]) -> int:
+    return sum(n * ops(callee.replace("<T", f"<{T}"))
+               for callee, n in calls.items())
+
+
+def per_lane(T: int, windows: int = 33, negations: float = 0.0,
+             ladder_doublings: float = 0.0) -> dict[str, float]:
+    """u32 operations one lane of a T-lane group issues for its row in
+    the pow and ladder kernels: every window's work, whatever its digit
+    (``negations``: the mean number of flagged adds a row; at T = 1, the
+    one thread's)."""
+    mul, sqr = ops(f"grp_fp_mul<{T}>"), ops(f"grp_fp_sqr<{T}>")
+    fn_mul = ops(f"grp_fn_mul<{T}>")
+    fn_sqr = fn_mul - (SQR_SAVED if T == 1 else 0)
+    dbl = ops(f"grp_jac_double<{T}>")
+    madd = ops(f"grp_jac_add_mixed<{T}>")
+    # per window 4 doublings and 4 adds in place (a zero digit's add is
+    # undone from a copy in shared memory); an add that meets equal points
+    # runs the doubling in place of its sum
+    return {
+        "pow_mod_p": 14 * mul + 64 * (4 * sqr + mul),
+        "pow_mod_n": 14 * fn_mul + 64 * (4 * fn_sqr + fn_mul),
+        "strauss_tab": (windows * 4 * (dbl + madd)
+                        + negations * ops("fp_neg")
+                        + ladder_doublings * (dbl - _at(T, ADD_SUM_CALLS))),
+    }
+
+
+def pow_work(e: int) -> tuple[int, int, int]:
+    """``(table products, squarings, window products)`` that the window
+    pow (64 four-bit digits of ``e``, MSD first, a table a^2..a^15 built
+    each entry from the one before) needs for one row of ``a^e``: the
+    table up to ``e``'s largest digit, and from the first nonzero digit
+    on, whose window takes its entry as the accumulator, 4 squarings a
+    window and a product for each nonzero digit.  The kernels issue all
+    64 windows: the squarings of the accumulator's start, 1, and the
+    products by 1 of a zero digit are not counted."""
+    digits = [(e >> (4 * (63 - w))) & 15 for w in range(64)]
+    live = [w for w, d in enumerate(digits) if d]
+    if not live:
+        return 0, 0, 0
+    return (max(max(digits) - 1, 0), 4 * (63 - live[0]), len(live) - 1)
+
+
+def pow_row(e: int, modulus: str) -> int:
+    """u32 operations one row of ``a^e`` needs (:func:`pow_work`), mod P
+    (``modulus="p"``, ``fp_sqr`` squarings) or N (``"n"``): the operation
+    count of the pow kernels' bound, and of their rows8 twins'."""
+    table, squarings, products = pow_work(e)
+    if modulus == "p":
+        mul, sqr = ops("fp_mul"), ops("fp_sqr")
+    elif modulus == "n":
+        mul = ops("fn_mul")
+        sqr = mul - SQR_SAVED
+    else:
+        raise ValueError("modulus must be 'p' or 'n'")
+    return (table + products) * mul + squarings * sqr
 
 
 def per_row(windows: int = 33, negations: float = 0.0,
-            ladder_doublings: float = 0.0) -> dict[str, float]:
+            ladder_doublings: float = 0.0, doublings: float | None = None,
+            adds: float | None = None) -> dict[str, float]:
     """u32 operations per row of each kernel (per padded row for
     glv_digits, recover_finish and keccak_rows, which cover Bpad).
     ``fn_red17`` counts one row of 17 columns, ``keccak_block`` one
     row of 34 words, ``keccak_rows_grid`` one column, ``fp_mul_chain``
     one column of ``PROFILE_CHAIN`` products and ``add_one_f32`` and
-    ``mul_scalar_f32`` one element.  The rows8 kernels do their
-    default-layout twins' arithmetic per row.
+    ``mul_scalar_f32`` one element.  The rows8 kernels count their
+    default-layout twins' function; the pows are :func:`pow_row`'s.
 
-    ``negations`` is the mean number of ladder adds per row whose point
-    is negated (``windows`` x the rows' set sign flags), and
-    ``ladder_doublings`` the mean number of ladder adds per row that meet
-    equal points and so run the doubling path.  The point table doubles
-    once on every row: its first entry is R + R.
+    The ladders count what the caller's digits need, as means a row:
+    ``doublings`` (from the window of the row's first nonzero digit on:
+    before it the accumulator is the point at infinity), ``adds`` (one
+    for each nonzero digit but the first, which lands on infinity and is
+    the looked-up point itself; a zero digit's add is computed and
+    thrown away), ``negations`` (the nonzero digits whose sign flag is
+    set) and ``ladder_doublings`` (adds that meet equal points and so
+    run the doubling in place of the sum).  By default every digit is
+    nonzero and no flag is set: the most a row can need.  An
+    accumulator that comes back to infinity part way (opposite points)
+    is not seen: its next doublings and add count as needed.  The point
+    table doubles once on every row: its first entry is R + R.
     """
     mul, dbl, madd = ops("fp_mul"), ops("jac_double"), ops("jac_add_mixed")
-    # the pow kernels: 14 table products, then 64 windows of 4 squarings
-    # (acc * acc) and one product
-    fn_mul = ops("fn_mul")
-    pow_p = 14 * mul + 64 * (4 * ops("fp_sqr") + mul)
-    pow_n = 14 * fn_mul + 64 * (4 * (fn_mul - SQR_SAVED) + fn_mul)
-    # the ladder kernels: per window 4 doublings and 4 adds, each add's
-    # result kept by a 3-value select on d != 0
-    ladder = (windows * 4 * (dbl + madd + 3 * ops("select16"))
-              + negations * ops("fp_neg") + ladder_doublings * dbl)
+    add_sum = _at(1, ADD_SUM_CALLS)
+    doublings = 4 * (windows - 1) if doublings is None else doublings
+    adds = 4 * windows - 1 if adds is None else adds
+    ladder = (doublings * dbl + adds * madd
+              + negations * ops("fp_neg")
+              + ladder_doublings * (dbl - add_sum))
     return {
         "recover_prelude": 3 * ops("unpack_be") + ops("recover_prelude"),
-        "pow_mod_p": pow_p,
-        "pow_mod_n": pow_n,
         "y_fix": ops("y_fix"),
         "u1u2": ops("u1u2"),
         "glv_digits": 2 * ops("glv_track"),
-        "point_table": 14 * madd + dbl,
+        "point_table": 14 * madd + dbl - add_sum,
         "fp_mul": mul,
         "fp_canon": ops("cond_sub_p"),
         "strauss_tab": ladder,
         "recover_finish": ops("recover_finish"),
         "keccak_rows": ops("keccak_words"),
-        "pow_mod_rows8_p": pow_p,
-        "pow_mod_rows8_n": pow_n,
         "strauss_tab_rows8": ladder,
         "keccak_rows_grid": KECCAK_ROUND,
         **{name: sum(n * ops(callee) for callee, n in calls.items())

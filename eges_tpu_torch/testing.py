@@ -45,6 +45,45 @@ def curve_points(rng: np.random.Generator, n: int):
     return limb_rows([p[0] for p in pts]), limb_rows([p[1] for p in pts])
 
 
+def ladder_inputs(rng: np.random.Generator, B: int, wide: int,
+                  windows: int = 33):
+    """``strauss_tab`` inputs for ``B`` rows of ``wide`` columns (numpy
+    uint32 ``dig [windows, 8, wide]``, ``neg [8, wide]``, ``trx``, ``tlrx``,
+    ``try_ [256, wide]``) whose rows take every branch of the ladder,
+    interleaved so that neighbouring rows part: row ``b % 4 == 0`` random
+    digits and signs over random tables; 1 and 2 the tables of R = G with
+    window 0 adding d*G and then d*R: the doubling path on row 1, and on
+    row 2, whose third sign is set, opposite points (infinity, which the
+    next adds start from); 3 random tables with half its digits zero."""
+    from eges_tpu_torch.ops import curve
+
+    tgx, tgy = curve._g_table16()
+    tlx, _ = curve._g_lam_table16()
+    g_rows = [np.asarray(t, np.uint32).reshape(256) for t in (tgx, tlx, tgy)]
+    dig = rng.integers(0, 16, (windows, 8, wide)).astype(np.uint32)
+    dig[:, 4:] = 0
+    neg = rng.integers(0, 2, (8, wide)).astype(np.uint32)
+    neg[4:] = 0
+    tabs = [rng.integers(0, 1 << 16, (256, wide)).astype(np.uint32)
+            for _ in range(3)]
+    kind = np.arange(wide) % 4
+    same = (kind == 1) | (kind == 2)
+    for tab, g in zip(tabs, g_rows):
+        tab[:, same] = g[:, None]
+    d = rng.integers(1, 16, wide).astype(np.uint32)
+    dig[0, 0, same] = d[same]
+    dig[0, 1, same] = 0
+    dig[0, 2, same] = d[same]
+    dig[0, 3, same] = 0
+    neg[0, same] = 0
+    neg[2, same] = (kind[same] == 2).astype(np.uint32)
+    zero = (kind == 3)[None, None, :] & (rng.integers(0, 2, dig.shape) == 0)
+    dig[zero] = 0
+    dig[:, :, B:] = 0
+    neg[:, B:] = 0
+    return dig, neg, *tabs
+
+
 def _is_x(x: int) -> bool:
     """x^3 + 7 is a square mod P."""
     return pow((pow(x, 3, P) + 7) % P, (P - 1) // 2, P) == 1

@@ -45,10 +45,12 @@ def _limbs(rng, n, bound=1 << 256):
 
 def test_build_reports_every_kernel(dev):
     info = build.build()
-    assert set(info["ptxas"]) >= {
-        "k_recover_prelude", "k_pow_p", "k_pow_n", "k_y_fix", "k_u1u2",
+    lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss")
+             for t in K.LANES}
+    assert set(info["ptxas"]) >= lanes | {
+        "k_recover_prelude", "k_y_fix", "k_u1u2",
         "k_glv_digits", "k_point_table", "k_fp_mul", "k_fp_canon",
-        "k_strauss", "k_recover_finish", "k_keccak_rows", "k_fn_mul",
+        "k_recover_finish", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
         "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
@@ -71,6 +73,61 @@ def test_pow_mod(dev, e, mod):
     bound = N if mod == "n" else 1 << 256
     a = K.from_reference(_limbs(rng, 64, bound), dev)
     _same(K.pow_mod_pallas(a, e, mod), K.pow_mod_plain(a, e, mod))
+
+
+def _lane_rows(lanes, threads, most):
+    """The ragged row counts of one instance: 1, T - 1, 33, one past a
+    block's rows, 8192 and ``most``."""
+    return sorted({1, max(lanes - 1, 1), 33, threads // lanes + 1, 8192,
+                   most})
+
+
+def test_strauss_every_lane_instance(dev):
+    """Every (lanes, threads) instance of the ladder against the plain
+    version, bit for bit, on rows that take the doubling path, meet
+    opposite points and skip zero digits beside random ones."""
+    rng = np.random.default_rng(21)
+    ins = [K.from_reference(t, dev)
+           for t in tt.ladder_inputs(rng, 8192, K.bpad(8192))]
+    want = K.strauss_tab_plain(*ins, 8192)
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, 8192):
+                got = K.strauss_tab_lanes(*ins, rows, lanes, threads)
+                _same(got, tuple(w[:rows] for w in want))
+
+
+@pytest.mark.parametrize("e,mod", [((P + 1) // 4, "p"), (P - 2, "p"),
+                                   (N - 2, "n")])
+def test_pow_every_lane_instance(dev, e, mod):
+    """Every (lanes, threads) instance of the pow against the plain
+    version, bit for bit, up to the table's 131072 rows."""
+    rng = np.random.default_rng(22)
+    M = 131072
+    a = rng.integers(0, 1 << 16, (M, 16)).astype(np.uint32)
+    if mod == "n":
+        a[:, 15] &= 0x7FFF
+    bound = N if mod == "n" else 1 << 256
+    a[:8] = _limbs(rng, 8, bound)
+    a = K.from_reference(a, dev)
+    want = K.pow_mod_plain(a, e, mod)
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, M):
+                _same(K.pow_mod_lanes(a[:rows], e, mod, lanes, threads),
+                      want[:rows])
+
+
+def test_lanes_rule_launches_clean_instances(dev):
+    """The instances lanes_for picks build with no stack frame and no
+    spill."""
+    ptxas = build.build()["ptxas"]
+    for kernel, rule in K.LANES_RULE.items():
+        name = {"strauss_tab": "k_strauss", "pow_mod_p": "k_pow_p",
+                "pow_mod_n": "k_pow_n"}[kernel]
+        for _, lanes, _ in rule:
+            rec = ptxas[f"{name}_t{lanes}"]
+            assert rec["stack_bytes"] == rec["spill_store_bytes"] == 0, rec
 
 
 def test_prelude_y_fix_u1u2(dev):

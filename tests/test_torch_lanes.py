@@ -1,0 +1,203 @@
+"""The pow and ladder kernels' T-lane design on the CPU: the rule that
+picks the lanes a row (``lanes_for``), the CPU routing of the launch
+entries that take any instance, and the lane split of a product, modelled
+in numpy as ``csrc/field.cuh`` computes it (``grp_pick``, ``grp_shift``,
+``grp_cols``, ``grp_fold_cols``, ``fold32``, ``grp_sum``), held against the reference's
+product.  The CUDA instances themselves run in ``tests/test_torch_cuda.py``
+and ``chip_smoke.py`` phase ``lanes``."""
+
+from __future__ import annotations
+
+import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
+import numpy as np
+import pytest
+import torch
+
+from eges_tpu.ops import pallas_kernels as pk
+from eges_tpu_torch import testing as tt
+from eges_tpu_torch.ops import kernels as K
+from eges_tpu_torch.ops.bigint import N, P
+
+torch.set_num_threads(1)
+
+ROWS = (1, 2, 3, 7, 8, 33, 255, 256, 257, 1023, 1024, 8191, 8192, 65536,
+        65537, 131072, 1 << 20)
+
+
+@pytest.mark.parametrize("kernel", sorted(K.LANES_RULE))
+def test_lanes_for_gives_an_instance_at_every_row_count(kernel):
+    for rows in ROWS:
+        lanes, threads = K.lanes_for(kernel, rows)
+        assert lanes in K.LANES and threads in K.LANE_THREADS
+        assert threads % 32 == 0 and 32 % lanes == 0
+
+
+def test_lanes_for_cpu_tensors_is_one_lane():
+    for kernel in K.LANES_RULE:
+        for rows in ROWS:
+            assert K.lanes_for(kernel, rows, torch.device("cpu"))[0] == 1
+            assert K.lanes_for(kernel, rows, "cpu")[0] == 1
+
+
+def test_lanes_for_rejects_what_it_cannot_launch():
+    with pytest.raises(ValueError):
+        K.lanes_for("strauss_tab", 0)
+    with pytest.raises(KeyError):
+        K.lanes_for("fp_mul", 8)
+
+
+def _rows(seed, n, bound=1 << 256):
+    return tt.limb_rows(tt.field_values(np.random.default_rng(seed), n,
+                                        bound))
+
+
+def test_pow_of_no_rows_is_no_rows():
+    """An empty batch launches nothing and gives an empty result."""
+    a = torch.zeros(0, 16, dtype=torch.int32)
+    for mod in ("p", "n"):
+        assert tuple(K.pow_mod_pallas(a, P - 2, mod).shape) == (0, 16)
+
+
+def test_pow_lane_entry_on_cpu_is_the_plain_version():
+    """Any instance given CPU tensors runs the plain version (the modulus
+    does not change the routing; the mod-N plain pow is the slow one)."""
+    e, mod = (P + 1) // 4, "p"
+    a = _rows(31, 4)
+    want = pk.pow_mod_np(a, e, mod)
+    K.reset_launches()
+    for lanes in (1, 4):
+        got = K.pow_mod_lanes(K.from_reference(a), e, mod, lanes, 128)
+        np.testing.assert_array_equal(K.to_reference(got), want)
+    np.testing.assert_array_equal(
+        K.to_reference(K.pow_mod_pallas(K.from_reference(a), e, mod)), want)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+def test_ladder_lane_entry_on_cpu_is_the_plain_version():
+    """Two windows of the ladder over inputs that take its doubling and
+    opposite-point paths, against the reference's twin."""
+    n = 8
+    wide = K.bpad(n)
+    ins = tt.ladder_inputs(np.random.default_rng(32), n, wide, windows=2)
+    want = pk.strauss_tab_np(*ins)
+    K.reset_launches()
+    got = K.strauss_tab_lanes(*(K.from_reference(t) for t in ins), n, 8, 64)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(
+            K.to_reference(g), np.stack(w, axis=-1)[:n])
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
+                                           (1, 512)])
+def test_lane_entries_reject_other_instances(lanes, threads):
+    a = K.from_reference(_rows(33, 2))
+    with pytest.raises(ValueError):
+        K.pow_mod_lanes(a, P - 2, "p", lanes, threads)
+
+
+# ---------------------------------------------------------------------------
+# the lane split of field.cuh, in numpy (uint32 wraps as on the card)
+# ---------------------------------------------------------------------------
+
+def _pick(a, T, rank):
+    """grp_pick: as[m] = a[T*m + rank] by a tree of selects."""
+    out = []
+    for m in range(16 // T):
+        v = [a[T * m + q] for q in range(T)]
+        s = 1
+        while s < T:
+            for q in range(0, T, 2 * s):
+                v[q] = v[q + s] if rank & s else v[q]
+            s <<= 1
+        out.append(v[0])
+    return out
+
+
+def _shift(b, j, T, rank):
+    """grp_shift: b[j - rank], zero outside b, by a tree of selects."""
+    zero = np.zeros_like(b[0])
+    v = [b[j - q] if 0 <= j - q < 16 else zero for q in range(T)]
+    s = 1
+    while s < T:
+        for q in range(0, T, 2 * s):
+            v[q] = v[q + s] if rank & s else v[q]
+        s <<= 1
+    return v[0]
+
+
+def _cols(a, b, T, rank):
+    """grp_cols at T > 1: the lane's products into columns T*m + j."""
+    cols = [np.zeros_like(a[0]) for _ in range(32)]
+    picked = _pick(a, T, rank)
+    for j in range(16 + T - 1):
+        bj = _shift(b, j, T, rank)
+        for m, am in enumerate(picked):
+            p = am * bj
+            cols[T * m + j] = cols[T * m + j] + (p & np.uint32(0xFFFF))
+            cols[T * m + j + 1] = cols[T * m + j + 1] + (p >> np.uint32(16))
+    return cols
+
+
+def _fold_cols(a, b, T, rank):
+    """grp_fold_cols at T > 1: the products of columns 15..31 first, into
+    columns that fold32 folds (columns 0..14 zero), then the products of
+    the lower columns added to its result."""
+    hi = [np.zeros_like(a[0]) for _ in range(32)]
+    picked = _pick(a, T, rank)
+    for j in range(16 + T - 1):
+        bj = _shift(b, j, T, rank)
+        for m, am in enumerate(picked):
+            if T * m + j >= 15:
+                p = am * bj
+                hi[T * m + j] = hi[T * m + j] + (p & np.uint32(0xFFFF))
+                hi[T * m + j + 1] = hi[T * m + j + 1] + (p >> np.uint32(16))
+    r = _fold32(hi)
+    for j in range(16 + T - 1):
+        bj = _shift(b, j, T, rank)
+        for m, am in enumerate(picked):
+            if T * m + j < 15:
+                p = am * bj
+                r[T * m + j] = r[T * m + j] + (p & np.uint32(0xFFFF))
+                r[T * m + j + 1] = r[T * m + j + 1] + (p >> np.uint32(16))
+    return r
+
+
+def _fold32(c):
+    lo = list(c[:16]) + [np.zeros_like(c[0])] * 2
+    for j in range(16):
+        lo[j] = lo[j] + c[16 + j] * np.uint32(977)
+        lo[j + 2] = lo[j + 2] + c[16 + j]
+    r = lo[:16]
+    for j in range(2):
+        r[j] = r[j] + lo[16 + j] * np.uint32(977)
+        r[j + 2] = r[j + 2] + lo[16 + j]
+    return r
+
+
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_lane_split_sums_to_the_reference_product(T):
+    """Each lane's folded columns (grp_fold_cols' two passes), summed over
+    the group (grp_sum's exchanges add them), carried by the reference's
+    tail, give the reference's relaxed product bit for bit, as do the
+    fold32 of each lane's whole columns; the unfolded columns summed give
+    the reference's columns (grp_fn_mul's path)."""
+    a = [np.asarray(v) for v in np.asarray(_rows(34, 12), np.uint32).T]
+    b = [np.asarray(v) for v in np.asarray(_rows(35, 12), np.uint32).T]
+    for limb in a + b:              # row 0: every limb 0xFFFF
+        limb[0] = 0xFFFF
+    parts = [_cols(a, b, T, rank) for rank in range(T)]
+    whole = [sum(p[k] for p in parts) for k in range(32)]
+    want_cols = pk._k_mul_cols_vv(a, b, np)
+    for k in range(31):
+        np.testing.assert_array_equal(whole[k], want_cols[k])
+    want = np.stack(pk._k_mul(a, b, np))
+    folded = [sum(_fold32(p)[k] for p in parts) for k in range(16)]
+    np.testing.assert_array_equal(np.stack(pk._k_carry_tail(folded, np)),
+                                  want)
+    lanes = [_fold_cols(a, b, T, rank) for rank in range(T)]
+    for k in range(16):
+        np.testing.assert_array_equal(sum(f[k] for f in lanes), folded[k])
+    two_pass = [sum(f[k] for f in lanes) for k in range(16)]
+    np.testing.assert_array_equal(np.stack(pk._k_carry_tail(two_pass, np)),
+                                  want)

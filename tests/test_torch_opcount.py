@@ -1,9 +1,10 @@
 """The op count behind chip_smoke.py's bounds, held against the CUDA
 source it counts: every device function of ``field.cuh`` makes exactly
-the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it,
-and so does every kernel of ``verify.cu`` and ``glue.cu``; every kernel
-of ``tiling.cu`` and ``profile.cu`` has exactly the counted call sites
-listed for it, and so does ``profile.cu``'s chain template."""
+the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it
+(the T-lane forms ``grp_*<T>`` included), and so does every kernel of
+``verify.cu`` and ``glue.cu``; every kernel of ``tiling.cu`` and
+``profile.cu`` has exactly the counted call sites listed for it, and so
+does ``profile.cu``'s chain template."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import re
 import pytest
 
 from eges_tpu_torch.ops import opcount
+from eges_tpu_torch.ops.bigint import N, P
 
 FIELD_CUH = (pathlib.Path(__file__).resolve().parents[1] / "eges_tpu_torch"
              / "ops" / "csrc" / "field.cuh")
@@ -52,7 +54,8 @@ def _definitions(src: str) -> dict[str, tuple[bool, str]]:
 
 
 def _counted_calls(body: str) -> collections.Counter:
-    counted = set(opcount.HELPERS) | set(opcount.TEMPLATES)
+    counted = set(opcount.HELPERS) | set(opcount.TEMPLATES) | set(
+        opcount.GROUP)
     calls = collections.Counter()
     for m in _CALL.finditer(body):
         if m.group(1) in counted:
@@ -71,7 +74,8 @@ def test_every_field_function_is_counted_or_moves_only():
     plain = {n for n, (tmpl, _) in defs.items() if not tmpl}
     templates = {n for n, (tmpl, _) in defs.items() if tmpl}
     assert plain == set(opcount.HELPERS) | UNCOUNTED
-    assert templates | _templates(PROFILE_CU) == set(opcount.TEMPLATES)
+    assert templates | _templates(PROFILE_CU) == (set(opcount.TEMPLATES)
+                                                  | set(opcount.GROUP))
 
 
 @pytest.mark.parametrize("name", sorted(opcount.HELPERS))
@@ -83,7 +87,47 @@ def test_helper_calls_match_the_source(name):
 @pytest.mark.parametrize("caller,callee", sorted(opcount.DATA_DEPENDENT))
 def test_data_dependent_calls_run_under_a_branch(caller, callee):
     _, body = _definitions(_source())[caller]
-    assert re.search(r"\bif\s*\(\s*\w+\s*\)\s*" + callee + r"\s*\(", body)
+    assert re.search(r"\bif\s*\(\s*\w+\s*\)\s*\{?\s*" + re.escape(callee)
+                     + r"\s*\(", body)
+
+
+@pytest.mark.parametrize("name", sorted(opcount.GROUP))
+def test_group_form_calls_match_the_source(name):
+    tmpl, body = _definitions(_source())[name]
+    assert tmpl and dict(_counted_calls(body)) == opcount.GROUP[name][1]
+
+
+@pytest.mark.parametrize("name", sorted(opcount.FORMULA_CALLS))
+def test_formula_template_calls_match_the_source(name):
+    tmpl, body = _definitions(_source())[name]
+    assert tmpl and dict(_counted_calls(body)) == opcount.FORMULA_CALLS[name]
+
+
+@pytest.mark.parametrize("group,one", [
+    ("grp_fp_mul", "fp_mul"), ("grp_fp_sqr", "fp_sqr"),
+    ("grp_fn_mul", "fn_mul"), ("grp_jac_double", "jac_double"),
+    ("grp_jac_add_mixed", "jac_add_mixed")])
+def test_one_lane_group_form_counts_as_the_one_thread_form(group, one):
+    """T = 1 is the one-thread form: the same count; the one-thread point
+    formulas are calls of it."""
+    assert opcount.ops(f"{group}<1>") == opcount.ops(one)
+    if one.startswith("jac_"):
+        assert opcount.HELPERS[one] == (0, {f"{group}<1>": 1})
+
+
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_a_lane_issues_between_its_share_and_the_row(T):
+    """A lane of a T-lane group issues less than the one thread of a row
+    and at least the one thread's work over T (the share phase sass holds
+    each lane's pow loop to); what a row needs, the bound's count, is no
+    more than the one thread issues."""
+    one, lane = opcount.per_lane(1), opcount.per_lane(T)
+    for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab"):
+        assert one[kernel] / T <= lane[kernel] < one[kernel]
+    assert opcount.ops(f"grp_fp_sqr<{T}>") >= opcount.ops("fp_sqr") // T
+    assert opcount.per_row()["strauss_tab"] < one["strauss_tab"]
+    assert opcount.pow_row(P - 2, "p") < one["pow_mod_p"]
+    assert opcount.pow_row(N - 2, "n") < one["pow_mod_n"]
 
 
 def test_the_mixed_add_count_leaves_the_doubling_out():
@@ -97,11 +141,54 @@ def test_the_mixed_add_count_leaves_the_doubling_out():
         + 5 * opcount.ops("fp_mul_small") + 3 * opcount.ops("is_zero_mod")
         + 5 * opcount.ops("select16") + 3)
     rows = opcount.per_row()
+    add_sum = (2 * sqr + 5 * mul + 4 * opcount.ops("fp_sub")
+               + 5 * opcount.ops("fp_mul_small") + 2 * opcount.ops("select16"))
     assert rows["point_table"] == (14 * opcount.ops("jac_add_mixed")
-                                   + opcount.ops("jac_double"))
+                                   + opcount.ops("jac_double") - add_sum)
     more = opcount.per_row(ladder_doublings=2.0)
-    assert more["strauss_tab"] - rows["strauss_tab"] == (
-        2 * opcount.ops("jac_double"))
+    for ladder in ("strauss_tab", "strauss_tab_rows8"):
+        assert more[ladder] - rows[ladder] == 2 * (
+            opcount.ops("jac_double") - add_sum)
+
+
+@pytest.mark.parametrize("e,want", [
+    (P - 2, (14, 252, 63)), ((P + 1) // 4, (14, 252, 62)),
+    (N - 2, (14, 252, 61)), (1, (0, 0, 0)), (0, (0, 0, 0)),
+    (0x2 << 4, (1, 4, 0)), ((0x3 << 4 * 62) + 0x1, (2, 248, 1))])
+def test_pow_work_leaves_out_products_by_one(e, want):
+    """Table products up to the largest digit; squarings and products
+    from the first nonzero digit on, none for a zero digit."""
+    assert opcount.pow_work(e) == want
+
+
+def test_pow_row_counts_its_products():
+    mul, sqr = opcount.ops("fp_mul"), opcount.ops("fp_sqr")
+    fn_mul = opcount.ops("fn_mul")
+    assert opcount.pow_row(P - 2, "p") == 77 * mul + 252 * sqr
+    assert opcount.pow_row(N - 2, "n") == (
+        75 * fn_mul + 252 * (fn_mul - opcount.SQR_SAVED))
+    with pytest.raises(ValueError):
+        opcount.pow_row(P - 2, "q")
+
+
+def test_ladder_counts_what_its_digits_need():
+    """By default every digit is nonzero: window 0's doublings (of the
+    point at infinity) and the first add (onto it) are left out; the
+    caller's counts replace them."""
+    dbl, madd = opcount.ops("jac_double"), opcount.ops("jac_add_mixed")
+    neg = opcount.ops("fp_neg")
+    assert opcount.per_row()["strauss_tab"] == 128 * dbl + 131 * madd
+    got = opcount.per_row(doublings=100.0, adds=90.5, negations=3.0)
+    assert got["strauss_tab"] == 100 * dbl + 90.5 * madd + 3 * neg
+
+
+def test_the_sum_runs_only_where_the_points_differ():
+    """The calls of grp_jac_add_mixed's else branch (the sum) are
+    ADD_SUM_CALLS; its doubling branch holds the doubling alone."""
+    _, body = _definitions(_source())["grp_jac_add_mixed"]
+    m = re.search(r"if \(dbl\) \{(.*?)\} else \{(.*?)\n  \}", body, re.S)
+    assert dict(_counted_calls(m.group(1))) == {"grp_jac_double<T>": 1}
+    assert dict(_counted_calls(m.group(2))) == opcount.ADD_SUM_CALLS
 
 
 _KERNEL = re.compile(r"__global__\s+void\s+__launch_bounds__\(\w+\)\s*"
@@ -183,11 +270,8 @@ def test_tiling_kernel_counts():
     """The rows8 kernels do their default-layout twins' arithmetic per
     row; the round kernel counts its 25 lanes' operations per column."""
     rows = opcount.per_row(negations=5.0, ladder_doublings=1.0)
-    mul, fn_mul = opcount.ops("fp_mul"), opcount.ops("fn_mul")
-    assert rows["pow_mod_rows8_p"] == rows["pow_mod_p"] == (
-        78 * mul + 256 * opcount.ops("fp_sqr"))
-    assert rows["pow_mod_rows8_n"] == rows["pow_mod_n"] == (
-        334 * fn_mul - 256 * opcount.SQR_SAVED)
+    # both pows and both ladders compute one function each: the rows8
+    # twins' bounds count what it needs (pow_row, per_row's ladder)
     assert rows["strauss_tab_rows8"] == rows["strauss_tab"]
     theta = 5 * 2 * 2 + 25 * (2 + 2)
     assert rows["keccak_rows_grid"] == opcount.KECCAK_ROUND == (

@@ -28,18 +28,21 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    kernels of the un-fused path at its shapes for a [4, 1024] window
    (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
    checked at a ragged 4097 rows.
-2b. lanes: every (T, block) instance of the pow and the ladder (T = 1,
-   2, 4, 8 lanes a row; 64, 128, 256 threads) at 1024, 4096 and 8192
-   rows (mod P and mod N for the pow, and the table's 131072 rows mod
-   P; the ladder also on a recovery's own inputs at 1024 and 8192), bit
-   for bit against the plain version, timed by events and cold beside
-   the bound, with registers, stack and spills and the instance
-   ``lanes_for`` picks, which must beat T = 1.
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
    every row held against the host model, with the launch counts of
    that run (18 per batch).
+3b. lanes: every (T, block) instance of the pow, the point table and
+   the ladder (T = 1, 2, 4, 8 lanes a row; 64, 128, 256 threads) at
+   256, 1024, 4096 and 8192 rows (mod P and mod N for the pow, and the
+   table's 16384 and 131072 rows mod P; the ladder also on a recovery's
+   own inputs at 1024 and 8192; the point table on seeded points and
+   on the R of phase 3's block padded to its bucket, invalid rows and
+   zero-byte pad rows among them), bit for bit against the plain
+   version, timed by events and cold beside the bound, with registers,
+   stack and spills and the instance ``lanes_for`` picks, which must
+   beat T = 1.
 4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
@@ -109,9 +112,13 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    (#20d, with ``x + 1.0``'s time as its library time), and #21
    ``mul_scalar_f32`` on that tile and on 2^24 float32 elements (with
    ATen's ``x * s`` as its library time, which must not beat the byte
-   bound either); each held bit for bit against its plain version,
-   timed with CUDA events back to back and one call at a time on cold
-   L2 (the kernel alone) beside its bound and the plain version's time.
+   bound either; at 2^24 also on views that start off 16 bytes and
+   counts that leave a scalar tail); each held bit for bit against its
+   plain version (float32 by bit pattern), timed with CUDA events back
+   to back and one call at a time on cold L2 (the kernel alone) beside
+   its bound and the plain version's time.  #21 and #20d then run
+   against their library calls in ABBA rounds (``profile_ab`` lines:
+   events and cold, medians and spreads).
 12. analysis: the port's static-analysis gate
    (``eges_tpu_torch.harness.analysis``) over this checkout, which must
    show no unsuppressed finding, no error and no stale baseline (finding
@@ -166,21 +173,31 @@ AB_8192 = 5                         # timed 8192-row batches a round
 AB_CALLS = 100                      # timed calls a round for each p50
 B_PROFILE = (4096, 131072)          # the harness's batch; one filling 132 SMs
 RAGGED_CHAIN = (4096 + 128, 128)    # #20a's ragged check: columns, lane
-# phase lanes: the ladder at the 256-row vote round, the latency bucket,
-# half and all of the main batch, the pow's B-row launches (p: sqrt and
-# Z^-1, n: r^-1) at the same counts and its table launches (16 B rows) of
-# the 1024- and 8192-row batches
+# phase lanes: the ladder and the point table at the 256-row vote round,
+# the latency bucket, half and all of the main batch, the pow's B-row
+# launches (p: sqrt and Z^-1, n: r^-1) at the same counts and its table
+# launches (16 B rows) of the 1024- and 8192-row batches
 LANE_SHAPES = (("strauss_tab", 256), ("strauss_tab", 1024),
                ("strauss_tab", 4096), ("strauss_tab", 8192),
+               ("point_table", 256), ("point_table", 1024),
+               ("point_table", 4096), ("point_table", 8192),
                ("pow_mod_p", 256), ("pow_mod_p", 1024), ("pow_mod_p", 4096),
                ("pow_mod_p", 8192), ("pow_mod_n", 256), ("pow_mod_n", 1024),
                ("pow_mod_n", 4096), ("pow_mod_n", 8192),
                ("pow_mod_p", 16384), ("pow_mod_p", 131072))
 # the ladder also on a recovery's own inputs: its digits' zeros are not
-# random (window 0 is zero on most rows), which is what parted warps
+# random (window 0 is zero on most rows), which is what parted warps; the
+# point table on the R of the config-4 block (its invalid rows, the x = 0
+# of r = 0 among them, and its zero-byte pad rows up to the bucket)
 LANE_RECOVERY_ROWS = (1024, 8192)
+TABLE_RECOVERY_ROWS = (256, 1024, 4096, 8192)
 MEASURE_BATCHES = (1024, 8192)      # measure_recover's batches
 MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
+# #21 and #20d against their library calls in one call: rounds in ABBA
+# order, each round events over AB_F32_REPS calls and AB_F32_COLD cold ones
+AB_F32_ORDER = ("kernel", "library", "library", "kernel", "kernel",
+                "library")
+AB_F32_REPS, AB_F32_COLD = 20, 5
 # fp_mul_small launches of one un-fused batch by k: each doubling takes
 # k = 2 three times, 3 and 8 once; each mixed add k = 2 four times and 4
 # once, besides its doubling; 33 windows of 4 + 4, 14 table adds
@@ -188,7 +205,8 @@ MUL_SMALL_K = {2: 1418, 3: 278, 4: 146, 8: 278}
 # the __global__ functions of a kernel, where they are not k_<name>; the
 # pow and the ladder list the instances their wrapper launches
 LANE_GLOBALS = {"pow_mod_p": "k_pow_p_t{}", "pow_mod_n": "k_pow_n_t{}",
-                "strauss_tab": "k_strauss_t{}"}
+                "strauss_tab": "k_strauss_t{}",
+                "point_table": "k_point_table_t{}"}
 
 
 def launched_instances(kernel: str) -> tuple[str, ...]:
@@ -261,6 +279,8 @@ def timed(fn):
 
 
 def max_abs_err(got, want) -> int:
+    """The largest difference of the u32 words (float32 values: of their
+    bit patterns, so 0 is bit for bit)."""
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
     err = 0
@@ -268,6 +288,8 @@ def max_abs_err(got, want) -> int:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
                                  f"{w.shape} {w.dtype}")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
         d = ((g.to(torch.int64) & 0xFFFFFFFF)
              - (w.to(torch.int64) & 0xFFFFFFFF)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
@@ -316,9 +338,9 @@ def phase_build():
              if r is None or r["stack_bytes"] or r["spill_store_bytes"]
              or r["spill_load_bytes"]}
     if dirty:
-        raise AssertionError(f"the pow and ladder instances the wrappers "
-                             f"launch must have no stack frame and no "
-                             f"spill: {dirty}")
+        raise AssertionError(f"the lane instances the wrappers launch "
+                             f"must have no stack frame and no spill: "
+                             f"{dirty}")
     return info
 
 
@@ -326,12 +348,13 @@ def phase_sass(path):
     """The op half of every bound counts no more than the card issues
     (``ops/opcount.py``): each kernel without a branch or a call issues
     at least its counted operations, and so does every loop of the
-    F_P product chain (an ``fp_mul`` an iteration) and of the F_P pow,
-    in the ``sm_90a`` code of the built library (``cuobjdump -sass``).
-    The pow runs T lanes a row, so each instance's loops are held to a
-    lane's share of an ``fp_sqr``: its count over T, rounded down (at
-    T = 1 the whole count).  Emits the counts, and the instruction mix
-    of the chain's loop."""
+    F_P product chain (an ``fp_mul`` an iteration), of the F_P pow and
+    of the point table (a mixed add an entry), in the ``sm_90a`` code of
+    the built library (``cuobjdump -sass``).  The pow and the table run
+    T lanes a row, so each instance's loops are held to a lane's share
+    of an ``fp_sqr`` or of a ``jac_add_mixed``: its count over T,
+    rounded down (at T = 1 the whole count).  Emits the counts, and the
+    instruction mix of the chain's loop."""
     import collections
 
     from eges_tpu_torch.ops import build, kernels as K, opcount
@@ -343,6 +366,7 @@ def phase_sass(path):
     held = [("k_fp_mul_chain", "fp_mul", 1),
             ("k_fp_mul_chain_rows8", "fp_mul", 1)]
     held += [(f"k_pow_p_t{t}", "fp_sqr", t) for t in K.LANES]
+    held += [(f"k_point_table_t{t}", "jac_add_mixed", t) for t in K.LANES]
     loops = {fn: (helper, opcount.ops(helper) // t,
                   [len(b) for b in build.loop_bodies(code[fn])])
              for fn, helper, t in held}
@@ -481,15 +505,17 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     return records
 
 
-def phase_lanes(dev, clock_hz, ptxas):
-    """Every instance of the pow and the ladder (T = 1, 2, 4, 8 lanes a
-    row in blocks of 64, 128 and 256 threads) at the main path's row
-    counts: each held bit for bit against the plain version and timed by
-    CUDA events back to back and cold (``profutil.cuda_event_ms``),
-    beside its bound (the row's work, ``ops/opcount.py``), what one lane
-    issues, its registers, stack frame and spills, and the instance
-    ``lanes_for`` picks; the ladder on seeded inputs that take all its
-    branches and on a recovery's own.  Fails if an instance differs, if
+def phase_lanes(dev, clock_hz, ptxas, rows4):
+    """Every instance of the pow, the point table and the ladder (T = 1,
+    2, 4, 8 lanes a row in blocks of 64, 128 and 256 threads) at the main
+    path's row counts: each held bit for bit against the plain version
+    and timed by CUDA events back to back and cold
+    (``profutil.cuda_event_ms``), beside its bound (the row's work,
+    ``ops/opcount.py``), what one lane issues, its registers, stack frame
+    and spills, and the instance ``lanes_for`` picks; the ladder on
+    seeded inputs that take all its branches and on a recovery's own, the
+    point table on seeded points and on the R of ``rows4``, the config-4
+    block, padded as the facade pads it.  Fails if an instance differs, if
     a time beats its bound, or if the picked instance is not faster than
     every T = 1 instance at the B-row shapes (the pow's table launches
     of 16 B rows: no more than 3% slower).  Each pow shape also times
@@ -516,12 +542,27 @@ def phase_lanes(dev, clock_hz, ptxas):
     want_pow = {m: K.pow_mod_plain(pw[m], exps[m], m) for m in pw}
     real = _recovery_ladder_inputs(rng, B, dev)
     want_real = K.strauss_tab_plain(*real, B)
+    tabs = {"seeded": tuple(K.from_reference(t, dev)
+                            for t in _affine_points(rng, B)),
+            "recovery": _recovery_r(rows4, dev)}
+    want_tab = {d: K.point_table_plain(*r) for d, r in tabs.items()}
     slow = []
     shapes = ([(k, r, "seeded") for k, r in LANE_SHAPES]
-              + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS])
+              + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS]
+              + [("point_table", r, "recovery")
+                 for r in TABLE_RECOVERY_ROWS])
     for kernel, rows, data in shapes:
         local = None
-        if data == "recovery":
+        if kernel == "point_table":
+            px, py = (t[:rows] for t in tabs[data])
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = nbytes(px, py) + 3 * 14 * 64 * rows
+            want = tuple(w[:, :rows] for w in want_tab[data])
+
+            def call(lanes, threads, px=px, py=py):
+                return K.point_table_lanes(px, py, lanes, threads)
+        elif data == "recovery":
             row_args, lane_args = ladder_args(real[0], real[1], rows)
             row_ops = opcount.per_row(**row_args)[kernel]
             nb = nbytes(real[0][..., :rows], real[1][:, :rows],
@@ -617,6 +658,24 @@ def phase_lanes(dev, clock_hz, ptxas):
         raise AssertionError("; ".join(slow))
 
 
+def _recovery_r(rows4, dev):
+    """R as a fused recovery of the config-4 block hands it to the point
+    table: ``rows4``'s signatures padded with zero-byte rows to the
+    8192-row bucket (as the facade pads), through ``recover_prelude``
+    (x), the square-root pow and ``y_fix`` (y)."""
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.bigint import P
+
+    sigs, hashes, _ = rows4
+    s = np.zeros((B_MAIN, 65), np.uint8)
+    h = np.zeros((B_MAIN, 32), np.uint8)
+    s[:len(sigs)], h[:len(hashes)] = sigs, hashes
+    x, y_sq, _, _, _, _, v = K.recover_prelude_pallas(
+        *(torch.from_numpy(a).to(dev) for a in (s, h)))
+    y, _ = K.y_fix_pallas(K.pow_mod_pallas(y_sq, (P + 1) // 4, "p"), y_sq, v)
+    return x, y
+
+
 def _recovery_ladder_inputs(rng, n, dev):
     """The ladder's inputs of a recovery of ``n`` rows (64 signed rows
     tiled): u1 = -z/r, u2 = s/r and R from the host model, then the R
@@ -687,7 +746,7 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
     if name == "pow_mod":
         names = (launched_instances("pow_mod_p")
                  + launched_instances("pow_mod_n"))
-    elif name == "strauss_tab":
+    elif name in ("strauss_tab", "point_table"):
         names = launched_instances(name)
     else:
         names = GLOBALS.get(name, ("k_" + name,))
@@ -1508,25 +1567,73 @@ def phase_profile_kernels(dev, clock_hz, ptxas):
           "library_ms": rec["library_ms"],
           "library_cold_ms": cuda_event_ms(lambda: x + 1.0, cold=True),
           "library": "x + 1.0"})
+    _ab_f32("add_one_f32", "8x128", lambda: K.add_one_f32(x),
+            lambda: x + 1.0, "x + 1.0")
     # #21 at the floor's tile (the shape phase analysis drives it at) and
     # at MUL_SCALAR_BIG elements, where bytes and not the launch set the
-    # time; its library call is ATen's x * s on the same float32 scalar
+    # time; its library call is ATen's x * s on the same float32 scalar.
+    # The big case also at views that start off 16 bytes and at counts
+    # that leave a scalar tail (bit for bit).
     s = K._f32(time.time())
     for label, shape in (("8x128", (8, 128)), ("2^24", (MUL_SCALAR_BIG,))):
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
             dev)
         x.view(-1)[:5] = torch.tensor((0.0, -0.0, 3e38, -1e-30, 2.0**24),
                                       device=dev)
+        flat = x.view(-1)
+        ragged = ()
+        if label == "2^24":
+            views = [flat[1:], flat[2:-1], flat[3:-2], flat[1:2],
+                     flat[:3], flat[1:6], flat[5:5 + 4 * 1000 + 3]]
+            ragged = [(lambda v=v: K.mul_scalar_f32(v, s),
+                       lambda v=v: K.mul_scalar_f32_plain(v, s))
+                      for v in views]
         lib = {"library_ms": cuda_event_ms(lambda: x * s, reps=5),
                "library_cold_ms": cuda_event_ms(lambda: x * s, cold=True)}
         rec = check("mul_scalar_f32", label, (
             lambda: K.mul_scalar_f32(x, s),
             lambda: K.mul_scalar_f32_plain(x, s), 2 * nbytes(x),
-            x.numel() * OPS["mul_scalar_f32"]), extra=lib)
+            x.numel() * OPS["mul_scalar_f32"]), ragged,
+            "views from 1, 2, 3 and 5 elements in, of 1, 3, 5, 4003 and "
+            "2^24 - 1, 3, 5 elements",
+            extra=lib)
         if min(lib.values()) < rec["bound_ms"]:
             raise AssertionError(f"mul_scalar_f32 {label}: x * s at {lib} "
                                  f"beats the bound of {rec['bound_ms']} ms")
+        _ab_f32("mul_scalar_f32", label, lambda: K.mul_scalar_f32(x, s),
+                lambda: x * s, "x * s", rec["bound_ms"])
     return records
+
+
+def _ab_f32(name, label, kern, lib, lib_name, bound_ms=None):
+    """A float32 kernel and its library call in turns (AB_F32_ORDER), in
+    this one call: each round's mean ms by events over AB_F32_REPS calls
+    back to back and over AB_F32_COLD calls each on cold L2; emits every
+    round, each side's median and spread, and the kernel's median over
+    the library's."""
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
+
+    fns = {"kernel": kern, "library": lib}
+    runs = {who: {"ms": [], "cold_ms": []} for who in fns}
+    for who in AB_F32_ORDER:
+        runs[who]["ms"].append(cuda_event_ms(fns[who], reps=AB_F32_REPS))
+        runs[who]["cold_ms"].append(cuda_event_ms(fns[who], reps=AB_F32_COLD,
+                                                  cold=True))
+    med = {who: {k: float(np.median(v)) for k, v in r.items()}
+           for who, r in runs.items()}
+    out = {"phase": "profile_ab", "name": name, "shape": label,
+           "library": lib_name, "order": list(AB_F32_ORDER), "rounds": runs,
+           "median": med,
+           "spread": {who: {k: max(v) - min(v) for k, v in r.items()}
+                      for who, r in runs.items()},
+           "kernel_over_library": {
+               k: med["kernel"][k] / med["library"][k] for k in med["kernel"]}}
+    if bound_ms is not None:
+        out["bound_ms"] = bound_ms
+        out["bound_share"] = {k: bound_ms / v
+                              for k, v in med["kernel"].items()}
+    emit(out)
+    return out
 
 
 @contextlib.contextmanager
@@ -1670,9 +1777,9 @@ def main() -> int:
     phase_sass(info["path"])
     rng = np.random.default_rng(SEED)
     records = phase_kernels(rng, dev, clock_hz, info["ptxas"])
-    phase_lanes(dev, clock_hz, info["ptxas"])
     paths = {}
     paths["recover"], rows, slice_out = phase_slice(rng)
+    phase_lanes(dev, clock_hz, info["ptxas"], rows)
     phase_e2e(rows)
     paths["verify"], r3, r4 = phase_verify()
     paths["keccak"] = phase_keccak(dev)

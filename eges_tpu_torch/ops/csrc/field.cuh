@@ -27,8 +27,8 @@ typedef uint32_t u32;
 
 #define EG_FD __device__ __forceinline__
 // The one-thread point formulas are real calls: each is some thousands
-// of instructions, and the kernels that take them one thread a row
-// (point_table, the rows8 ladder) need not grow by a copy of each.
+// of instructions, and the kernel that takes them one thread a row (the
+// rows8 ladder) need not grow by a copy of each.
 #define EG_CALL static __device__ __noinline__
 
 constexpr u32 MASK = 0xFFFFu;
@@ -403,12 +403,12 @@ EG_FD void grp_jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
 // reference: P1 at infinity, equal points (the doubling path), opposite
 // points (infinity).  The reference computes both the sum and the
 // doubling on every row and selects; here each runs only where it is
-// taken, which gives the same bits: the doubling at the first entry of
-// the point table (R + R) on every row, and in the ladder only when the
-// accumulator equals the added point.  The lanes of a group hold one row,
-// so they take the branch together.  The sum's products are in an order
-// that lets each input die at its last use (the same products of the
-// same values).  Outputs may alias the Jacobian inputs.
+// taken, which gives the same bits: in the ladder and the point table
+// only when the running point equals the added one (the table's first
+// entry, R + R, calls the doubling itself).  The lanes of a group hold
+// one row, so they take the branch together.  The sum's products are in
+// an order that lets each input die at its last use (the same products
+// of the same values).  Outputs may alias the Jacobian inputs.
 template <int T>
 EG_FD void grp_jac_add_mixed(u32* X, u32* Y, u32* Z, const u32* X1,
                              const u32* Y1, const u32* Z1, const u32* x2,
@@ -460,7 +460,7 @@ EG_FD void grp_jac_add_mixed(u32* X, u32* Y, u32* Z, const u32* X1,
   select16(Z, p1_inf, one, Z3);
 }
 
-// The one-thread formulas (point_table and the rows8 ladder).
+// The one-thread formulas (the rows8 ladder).
 EG_CALL void jac_double(u32* X3, u32* Y3, u32* Z3, const u32* X1,
                         const u32* Y1, const u32* Z1) {
   grp_jac_double<1>(X3, Y3, Z3, X1, Y1, Z1, 0u, 1u);

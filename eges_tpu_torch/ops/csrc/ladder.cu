@@ -1,16 +1,18 @@
 // #9 strauss_tab, the GLV/Strauss ladder of batched sender recovery and
-// classic verify, for sm_90a: one instance of T lanes a row for each
-// build of this file (-DEG_LANES=1, 2, 4 or 8; ops/build.py builds all
-// four side by side, since each is one function of some thousands of
+// classic verify, and #6 point_table, the per-row table d*R it reads, for
+// sm_90a: one instance of each kernel of T lanes a row for each build of
+// this file (-DEG_LANES=1, 2, 4 or 8; ops/build.py builds all four side
+// by side, since each ladder is one function of some thousands of
 // inlined products and the slowest thing to build).  Each build has its
-// own constants block, its init entry point and its launcher, all named
-// by T.
+// own constants block, its init entry point and its launchers, all
+// named by T.
 //
-// What bounds it on the H100: integer operations, some 2.4 million a row
-// (ops/opcount.py), in one dependent chain; one thread a row leaves most
-// SMs and issue slots idle at the batch sizes the node runs, so a group
-// of T lanes shares each row's products (field.cuh grp_*) and a batch
-// puts T times the warps on the card.
+// What bounds them on the H100: integer operations, some 2.4 million a
+// row for the ladder and 161,000 for the table (ops/opcount.py), in one
+// dependent chain; one thread a row leaves most SMs and issue slots idle
+// at the batch sizes the node runs, so a group of T lanes shares each
+// row's products (field.cuh grp_*) and a batch puts T times the warps on
+// the card.
 
 #include "launch.cuh"
 
@@ -134,5 +136,66 @@ extern "C" int EG_NAMED(eg_strauss_t)(const void* dig, const void* neg,
                           EG_STREAM(stream)>>>(
       (const u32*)dig, (const u32*)neg, (const u32*)trx, (const u32*)tlrx,
       (const u32*)try_, B, Bpad, W, (u32*)X, (u32*)Y, (u32*)Z);
+  return (int)cudaGetLastError();
+}
+
+// #6 point_table_pallas: Jacobian d*R for d = 2..15, each of X, Y, Z
+// [14, B, 16], on a group of T lanes a row (field.cuh grp_*, inlined: R,
+// the running point and the formulas' temporaries stay in registers).
+// The TPU kernel walked the 14 entries on a grid axis with the running
+// point in VMEM; here they are a loop in the group.  Entry 2R is R + R,
+// where the mixed add takes its doubling branch on every row: Z = 1 gives
+// x2 * Z^2 and y2 * Z^3 back bit for bit, so H and r are the same
+// difference of equal limbs, zero mod P, whatever the relaxed R.  So the
+// doubling runs directly.  Entries 3R..15R are 13 mixed adds, each
+// group taking its branch as the ladder's adds do (a row meets its own
+// point only where it is degenerate: x = 0 rows at some entries).
+// Lane `rank` of a group stores limbs rank, rank + T, ... of each value
+// (picked by grp_pick), so a warp's stores cover whole 64-byte rows.
+template <int T>
+static __device__ __forceinline__ void store_split(u32* o, const u32* v,
+                                                   u32 rank) {
+  u32 w[16 / T];
+  grp_pick<T>(w, v, rank);
+#pragma unroll
+  for (int m = 0; m < 16 / T; ++m) o[T * m + rank] = w[m];
+}
+
+template <int T>
+static __device__ __forceinline__ void point_table_rows(
+    const u32* px, const u32* py, int B, u32* X, u32* Y, u32* Z) {
+  const EgGroup g = eg_group<T>(B);
+  u32 PX[16], PY[16], x[16], y[16], z[16];
+  load16(PX, px + (size_t)16 * g.in);
+  load16(PY, py + (size_t)16 * g.in);
+  one16(z);
+  grp_jac_double<T>(x, y, z, PX, PY, z, g.rank, g.mask);
+#pragma unroll 1
+  for (int d = 0; d < 14; ++d) {
+    if (d > 0)
+      grp_jac_add_mixed<T>(x, y, z, x, y, z, PX, PY, g.rank, g.mask);
+    if (g.row < B) {
+      const size_t o = ((size_t)d * B + g.row) * 16;
+      store_split<T>(X + o, x, g.rank);
+      store_split<T>(Y + o, y, g.rank);
+      store_split<T>(Z + o, z, g.rank);
+    }
+  }
+}
+
+extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)
+EG_NAMED(k_point_table_t)(const u32* px, const u32* py, int B, u32* X,
+                          u32* Y, u32* Z) {
+  point_table_rows<EG_LANES>(px, py, B, X, Y, Z);
+}
+
+extern "C" int EG_NAMED(eg_point_table_t)(const void* px, const void* py,
+                                          int B, void* X, void* Y, void* Z,
+                                          int threads, void* stream) {
+  if (B <= 0) return 0;
+  if (!eg_lanes_ok(EG_LANES, threads)) return (int)cudaErrorInvalidValue;
+  EG_NAMED(k_point_table_t)<<<eg_lanes_grid(B, EG_LANES, threads), threads,
+                              0, EG_STREAM(stream)>>>(
+      (const u32*)px, (const u32*)py, B, (u32*)X, (u32*)Y, (u32*)Z);
   return (int)cudaGetLastError();
 }

@@ -14,9 +14,8 @@
 // k_add_one_f32, is the reference's copy kernel (x + 1.0 on one (8, 128)
 // float32 tile): the cost of launching a hand-written kernel through the
 // ctypes wrapper, against one ATen launch.  The fifth, k_mul_scalar_f32, is
-// the launch-purity fixture's kernel (x * s on float32, any size): the same
-// one-thread-per-element shape as the copy kernel, with the scalar an
-// argument.
+// the launch-purity fixture's kernel (x * s on float32, any size, the
+// scalar an argument): a stream of 16-byte accesses.
 //
 // What bounds them on the H100 (about ten u32 operations issue in the
 // time one byte of device memory moves): a 64-multiply chain does some
@@ -41,6 +40,10 @@ using namespace eg;
 // columns is one block of 1024 threads, so the kernel must fit 64
 // registers a thread.
 #define EG_CHAIN_THREADS 1024
+// #21's block and its float4s in flight a thread, from a sweep of 128 to
+// 1024 threads x 1, 2 or 4 float4s at 2^24 elements (PERF.md)
+#define EG_STREAM_THREADS 256
+#define EG_STREAM_VEC 4
 
 // #20a _chain_kernel_1d (harness/profile_mulchain.py): `chain` products
 // a = a * b on the columns of [16, wide] limb-major values; limb k of
@@ -103,13 +106,45 @@ k_add_one_f32(const float* x, int n, float* out) {
 // burns the host clock read at trace time into the kernel as a float32
 // constant.  Here the scalar is an argument that the wrapper casts to
 // float32 on the host, so each element is one IEEE single-precision
-// multiply (nothing to contract into an FMA), bit-identical to the
-// plain version's.  Bound by bytes: 8 bytes an element against one
-// operation.
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_mul_scalar_f32(const float* x, float s, int n, float* out) {
-  EG_ROW(n)
-  out[b] = x[b] * s;
+// multiply (__fmul_rn: never contracted into an FMA), bit-identical to
+// the plain version's.  Bound by bytes: 8 bytes an element against one
+// operation.  So it streams 16-byte accesses (float4), read through the
+// non-coherent path (ld.global.nc) and written evict-first (__stcs:
+// every byte is touched once).  Block b takes EG_STREAM_VEC float4s a
+// thread from float4 b * EG_STREAM_THREADS * EG_STREAM_VEC on, thread t
+// those t, t + EG_STREAM_THREADS, ..., all loaded before any is stored;
+// one pass of blocks covers the tensor.  The elements before x's first
+// 16-byte boundary (`head`, up to 3) and after its last whole float4 (up
+// to 3) are scalar, one a thread; the wrapper gives `out` the offset of
+// `x` mod 16 bytes, so the same elements of both are aligned.
+extern "C" __global__ void __launch_bounds__(EG_STREAM_THREADS)
+k_mul_scalar_f32(const float* x, float s, int n, int head, float* out) {
+  const int tid = blockIdx.x * EG_STREAM_THREADS + threadIdx.x;
+  const int nv = (n - head) >> 2;
+  const int tail = head + 4 * nv;
+  if (tid < head) out[tid] = __fmul_rn(x[tid], s);
+  if (tid < n - tail) out[tail + tid] = __fmul_rn(x[tail + tid], s);
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  float4* ov = reinterpret_cast<float4*>(out + head);
+  const int base = blockIdx.x * EG_STREAM_THREADS * EG_STREAM_VEC +
+                   threadIdx.x;
+  float4 v[EG_STREAM_VEC];
+#pragma unroll
+  for (int j = 0; j < EG_STREAM_VEC; ++j) {
+    const int i = base + j * EG_STREAM_THREADS;
+    if (i < nv) v[j] = __ldg(xv + i);
+  }
+#pragma unroll
+  for (int j = 0; j < EG_STREAM_VEC; ++j) {
+    const int i = base + j * EG_STREAM_THREADS;
+    if (i < nv) {
+      v[j].x = __fmul_rn(v[j].x, s);
+      v[j].y = __fmul_rn(v[j].y, s);
+      v[j].z = __fmul_rn(v[j].z, s);
+      v[j].w = __fmul_rn(v[j].w, s);
+      __stcs(ov + i, v[j]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -157,10 +192,18 @@ extern "C" int eg_add_one_f32(const void* x, int n, void* out,
   return (int)cudaGetLastError();
 }
 
+// x and out must be float-aligned and share their offset mod 16 bytes.
 extern "C" int eg_mul_scalar_f32(const void* x, float s, int n, void* out,
                                  void* stream) {
   if (n <= 0) return 0;
-  k_mul_scalar_f32<<<eg_grid(n), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const float*)x, s, n, (float*)out);
+  const size_t ax = (size_t)x, ao = (size_t)out;
+  if (ax % 4 || ax % 16 != ao % 16) return (int)cudaErrorInvalidValue;
+  const int lead = (int)((16 - ax % 16) % 16 / 4);  // to x's first float4
+  const int head = lead < n ? lead : n;
+  const int per_block = EG_STREAM_THREADS * EG_STREAM_VEC;
+  const int blocks = ((n - head) / 4 + per_block - 1) / per_block;
+  k_mul_scalar_f32<<<blocks < 1 ? 1 : blocks, EG_STREAM_THREADS, 0,
+                     EG_STREAM(stream)>>>((const float*)x, s, n, head,
+                                          (float*)out);
   return (int)cudaGetLastError();
 }

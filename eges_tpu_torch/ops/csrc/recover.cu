@@ -1,13 +1,14 @@
-// Ten of the eleven kernels of batched sender recovery (ecrecover) for
-// sm_90a; the ladder (#9) is in ladder.cu.
+// Nine of the eleven kernels of batched sender recovery (ecrecover) for
+// sm_90a; the point table (#6) and the ladder (#9) are in ladder.cu.
 //
 // Each __global__ replaces one Pallas kernel of
 // eges_tpu/ops/pallas_kernels.py (named beside it) and runs one thread
 // per batch row over the field library of field.cuh, so its results are
-// bit-identical to the reference's numpy twins; the pow and the ladder
-// (#9, in ladder.cu), nearly all of the work, run a group of T lanes a
-// row instead (one instance each for T = 1, 2, 4 and 8; ops/kernels.py
-// lanes_for picks T and the block size from the row count).  The TPU kernels walked
+// bit-identical to the reference's numpy twins; the pow, the point table
+// and the ladder (#6 and #9, in ladder.cu), nearly all of the work, run a
+// group of T lanes a row instead (one instance each for T = 1, 2, 4 and
+// 8; ops/kernels.py lanes_for picks T and the block size from the row
+// count).  The TPU kernels walked
 // windows, table entries and pow digits on a sequential grid axis with
 // the running state in VMEM; blocks on Hopper run in no order, so each
 // of those walks is a loop inside the thread (or group) here.
@@ -21,7 +22,7 @@
 // What bounds each kernel on the H100 (about ten u32 operations issue in
 // the time one byte of device memory moves): fp_mul, fp_canon,
 // recover_prelude, y_fix and recover_finish issue fewer than that per
-// byte and are bound by bytes; the other six by integer operations.  All of
+// byte and are bound by bytes; the other five by integer operations.  All of
 // them read each input once, write each output once and keep every
 // intermediate in registers (the pow table in shared memory).  Against
 // the operation bound, the lane groups put more warps on more SMs to
@@ -206,27 +207,6 @@ k_glv_digits(const u32* u1, const u32* u2, int B, int Bpad, u32* dig,
   for (int t = 4; t < 8; ++t) neg[(size_t)t * Bpad + b] = 0;
 }
 
-// #6 point_table_pallas: Jacobian d*R for d = 2..15 by 14 chained mixed
-// adds; outputs [14, B, 16] each.
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_point_table(const u32* px, const u32* py, int B, u32* X, u32* Y, u32* Z) {
-  EG_ROW(B)
-  u32 PX[16], PY[16], x[16], y[16], z[16];
-  load16(PX, px + (size_t)16 * b);
-  load16(PY, py + (size_t)16 * b);
-  copy16(x, PX);
-  copy16(y, PY);
-  one16(z);
-#pragma unroll 1
-  for (int d = 0; d < 14; ++d) {
-    jac_add_mixed(x, y, z, x, y, z, PX, PY);
-    const size_t o = ((size_t)d * B + b) * 16;
-    store16(X + o, x);
-    store16(Y + o, y);
-    store16(Z + o, z);
-  }
-}
-
 // #7 fp_mul_pallas
 extern "C" __global__ void __launch_bounds__(EG_THREADS)
 k_fp_mul(const u32* a, const u32* bv, int M, u32* out) {
@@ -375,14 +355,6 @@ extern "C" int eg_glv_digits(const void* u1, const void* u2, int B, int Bpad,
   if (Bpad <= 0) return 0;
   k_glv_digits<<<eg_grid(Bpad), EG_THREADS, 0, EG_STREAM(stream)>>>(
       (const u32*)u1, (const u32*)u2, B, Bpad, (u32*)dig, (u32*)neg);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int eg_point_table(const void* px, const void* py, int B, void* X,
-                              void* Y, void* Z, void* stream) {
-  if (B <= 0) return 0;
-  k_point_table<<<eg_grid(B), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const u32*)px, (const u32*)py, B, (u32*)X, (u32*)Y, (u32*)Z);
   return (int)cudaGetLastError();
 }
 

@@ -31,12 +31,13 @@ write (``ops/opcount.py``), so bytes bound them; the other eleven issue
 more (the pow and ladder kernels several hundred times more) and integer
 operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
-registers.  ``PERF.md`` has each one's time beside its bound.  The pow
-and the ladder, nearly all of a recovery's card time, run a group of
-T lanes a row (``csrc/field.cuh`` ``grp_*``), so that a batch puts more
-warps on more SMs; :func:`lanes_for` picks T and the block size from the
-row count, and :func:`pow_mod_lanes` and :func:`strauss_tab_lanes` launch
-any instance (every one gives the same bits).
+registers.  ``PERF.md`` has each one's time beside its bound.  The pow,
+the point table and the ladder, nearly all of a recovery's card time,
+run a group of T lanes a row (``csrc/field.cuh`` ``grp_*``), so that a
+batch puts more warps on more SMs; :func:`lanes_for` picks T and the
+block size from the row count, and :func:`pow_mod_lanes`,
+:func:`point_table_lanes` and :func:`strauss_tab_lanes` launch any
+instance (every one gives the same bits).
 
 The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
 sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
@@ -55,7 +56,7 @@ limb-major columns (:func:`fp_mul_chain_pallas`) and on rows8 tiles
 (:func:`add_one_f32`, ``x + 1.0``).  Beside them, :func:`mul_scalar_f32`
 (``x * s``) is the counterpart of the reference's launch-purity fixture
 kernel, whose ``s`` was the host clock burned into a trace; here ``s``
-is an argument.
+is an argument, and the kernel streams 16-byte accesses.
 """
 
 from __future__ import annotations
@@ -140,7 +141,8 @@ def bpad(b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# lanes a row of the pow and ladder kernels (csrc/recover.cu, ladder.cu)
+# lanes a row of the pow, point-table and ladder kernels (csrc/recover.cu,
+# ladder.cu)
 # ---------------------------------------------------------------------------
 
 LANES = build.LANES            # the instances of each kernel
@@ -148,14 +150,16 @@ LANE_THREADS = (64, 128, 256)   # the block sizes they take
 # kernel -> ((most rows, lanes, threads), ...): the first entry whose row
 # limit the row count does not pass (None: no limit).  From the sweep of
 # chip_smoke.py phase lanes (PERF.md has its times), the fastest instance
-# at each swept count: the ladder at 256, 1024, 4096 and 8192 rows, the
-# pow at the same counts and at 16384 and 131072 rows (mod P: its table
-# launches).  The fastest lanes are about the most whose rows * lanes
-# threads still run in one wave; past 8192 rows, where the main path
-# launches no pow mod N, that one keeps one lane a row; the ladder keeps
-# T = 4 (T = 2 spills a few bytes).
+# at each swept count: the ladder and the point table at 256, 1024, 4096
+# and 8192 rows, the pow at the same counts and at 16384 and 131072 rows
+# (mod P: its table launches).  The fastest lanes are about the most
+# whose rows * lanes threads still run in one wave; past 8192 rows, where
+# the main path launches no pow mod N, that one keeps one lane a row; the
+# ladder keeps T = 4 (T = 2 spills a few bytes), and so does the point
+# table (T = 8 takes two waves there).
 LANES_RULE = {
     "strauss_tab": ((256, 4, 128), (4096, 8, 64), (None, 4, 256)),
+    "point_table": ((1024, 8, 128), (4096, 8, 256), (None, 4, 256)),
     "pow_mod_p": ((2048, 8, 64), (4096, 4, 64), (8192, 2, 128),
                   (16384, 1, 128), (None, 1, 256)),
     "pow_mod_n": ((256, 4, 128), (2048, 8, 64), (4096, 4, 128),
@@ -165,9 +169,9 @@ LANES_RULE = {
 
 def lanes_for(kernel: str, rows: int, device="cuda") -> tuple[int, int]:
     """``(lanes a row, threads a block)`` of ``kernel`` (``"strauss_tab"``,
-    ``"pow_mod_p"`` or ``"pow_mod_n"``) at ``rows`` rows: the one rule
-    the wrappers launch by.  A CPU device takes the plain version, whose
-    arithmetic is one thread's: ``(1, 128)``."""
+    ``"point_table"``, ``"pow_mod_p"`` or ``"pow_mod_n"``) at ``rows``
+    rows: the one rule the wrappers launch by.  A CPU device takes the
+    plain version, whose arithmetic is one thread's: ``(1, 128)``."""
     if rows <= 0:
         raise ValueError("rows must be positive")
     if torch.device(device).type != "cuda":
@@ -568,10 +572,11 @@ _ARGTYPES = {
     "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
     "eg_u1u2": [_P, _P, _P, _I, _P, _P, _P],
     "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _P],
-    "eg_point_table": [_P, _P, _I, _P, _P, _P, _P],
     "eg_fp_mul": [_P, _P, _I, _P, _P],
     "eg_fp_canon": [_P, _I, _P, _P],
     **{f"eg_strauss_t{t}": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P]
+       for t in build.LANES},
+    **{f"eg_point_table_t{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
        for t in build.LANES},
     "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_P],
     "eg_keccak_rows": [_P, _I, _P, _P],
@@ -784,14 +789,26 @@ def point_table_pallas(px, py):
     """``[B, 16]`` affine R -> Jacobian ``d*R`` for d in 2..15, each of X,
     Y, Z ``[14, B, 16]``.  Replaces ``point_table_pallas``
     (pallas_kernels.py:611); the entry walk on the TPU grid is a loop in
-    the thread."""
+    a group of :func:`lanes_for`'s lanes a row."""
+    lanes, threads = lanes_for("point_table", max(_rows(px), 1), px.device)
+    return point_table_lanes(px, py, lanes, threads)
+
+
+def point_table_lanes(px, py, lanes: int, threads: int):
+    """:func:`point_table_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_point_table_t<lanes>``
+    (``csrc/ladder.cu``).  Every instance gives the same bits; the
+    wrapper launches :func:`lanes_for`'s, and chip_smoke.py phase lanes
+    times them all."""
+    _check_lanes(lanes, threads)
     B = _rows(px)
     _check(px, "px", (B, NLIMBS))
     _check(py, "py", (B, NLIMBS))
     if not _on_card(px, py):
         return point_table_plain(px, py)
     X, Y, Z = (_empty((14, B, NLIMBS), px) for _ in range(3))
-    _launch("point_table", "eg_point_table", px, py, B, X, Y, Z)
+    _launch("point_table", f"eg_point_table_t{lanes}", px, py, B, X, Y, Z,
+            threads)
     return X, Y, Z
 
 
@@ -1212,7 +1229,10 @@ def mul_scalar_f32(x, s):
     the host, one hand-written kernel launch.  Replaces the launch-purity
     fixture's ``_impure_kernel`` (tests/analysis_fixtures/jit/eges_tpu/
     ops/impure_kernel.py:10, launched at :16), whose ``s`` is the host
-    clock read at trace time."""
+    clock read at trace time.  Any contiguous float32 tensor, a view at
+    any offset included: the output is allocated at the input's offset
+    mod 16 bytes, so both share their aligned elements (the kernel
+    streams 16-byte accesses)."""
     if not isinstance(x, torch.Tensor):
         raise TypeError("x: expected a tensor")
     _check(x, "x", x.shape, torch.float32)
@@ -1220,9 +1240,18 @@ def mul_scalar_f32(x, s):
         raise ValueError("x: too many elements for one launch")
     if not _on_card(x):
         return mul_scalar_f32_plain(x, s)
-    out = torch.empty_like(x)
+    out = _same_phase_empty(x)
     _launch("mul_scalar_f32", "eg_mul_scalar_f32", x, _f32(s), x.numel(), out)
     return out
+
+
+def _same_phase_empty(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of ``x``'s shape, type and device whose data starts
+    at ``x``'s address mod 16 bytes (a view into a buffer up to 3
+    elements longer), so that 16-byte accesses line up in both."""
+    lead = x.data_ptr() % 16 // x.element_size()
+    buf = torch.empty(x.numel() + lead, dtype=x.dtype, device=x.device)
+    return buf[lead:].view(x.shape)
 
 
 # the Pallas kernel each one replaces (eges_tpu/ops/pallas_kernels.py
@@ -1262,7 +1291,7 @@ REPLACES = {
 
 # the source file each kernel is in (under ops/csrc)
 SOURCE_OF = dict.fromkeys(KERNELS, "recover.cu")
-SOURCE_OF["strauss_tab"] = "ladder.cu"
+SOURCE_OF["strauss_tab"] = SOURCE_OF["point_table"] = "ladder.cu"
 SOURCE_OF.update(dict.fromkeys(("fn_mul", "fn_red17", "fp_add",
                                 "keccak_block"), "verify.cu"))
 SOURCE_OF.update(dict.fromkeys(("fp_sub", "fp_neg", "fp_mul_small", "fn_sub",

@@ -350,9 +350,10 @@ def _at(T: int, calls: dict[str, int]) -> int:
 def per_lane(T: int, windows: int = 33, negations: float = 0.0,
              ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations one lane of a T-lane group issues for its row in
-    the pow and ladder kernels: every window's work, whatever its digit
-    (``negations``: the mean number of flagged adds a row; at T = 1, the
-    one thread's)."""
+    the pow, ladder and point-table kernels: every window's work,
+    whatever its digit (``negations``: the mean number of flagged adds a
+    row; at T = 1, the one thread's), and the table's doubling and 13
+    adds on a row whose points differ."""
     mul, sqr = ops(f"grp_fp_mul<{T}>"), ops(f"grp_fp_sqr<{T}>")
     fn_mul = ops(f"grp_fn_mul<{T}>")
     fn_sqr = fn_mul - (SQR_SAVED if T == 1 else 0)
@@ -360,13 +361,15 @@ def per_lane(T: int, windows: int = 33, negations: float = 0.0,
     madd = ops(f"grp_jac_add_mixed<{T}>")
     # per window 4 doublings and 4 adds in place (a zero digit's add is
     # undone from a copy in shared memory); an add that meets equal points
-    # runs the doubling in place of its sum
+    # runs the doubling in place of its sum.  The point table: its first
+    # entry, R + R, a doubling; then 13 adds
     return {
         "pow_mod_p": 14 * mul + 64 * (4 * sqr + mul),
         "pow_mod_n": 14 * fn_mul + 64 * (4 * fn_sqr + fn_mul),
         "strauss_tab": (windows * 4 * (dbl + madd)
                         + negations * ops("fp_neg")
                         + ladder_doublings * (dbl - _at(T, ADD_SUM_CALLS))),
+        "point_table": 13 * madd + dbl,
     }
 
 

@@ -45,6 +45,28 @@ def curve_points(rng: np.random.Generator, n: int):
     return limb_rows([p[0] for p in pts]), limb_rows([p[1] for p in pts])
 
 
+def table_points(rng: np.random.Generator, n: int):
+    """``point_table`` inputs: n rows of R as ``(x [n, 16], y [n, 16])``
+    limbs whose classes alternate so that neighbouring rows part: row
+    ``b % 4 == 0`` a curve point d*G; 1 a zero row; 2 the R that a
+    zero-byte pad signature gives (x = 0, y the even root of 7, which is
+    no square: not on the curve); 3 random values, not on the curve, the
+    extremes of :func:`field_values` first.  Rows of x = 0 meet their own
+    point at some entries of the table (the doubling path)."""
+    y7 = pow(7, (P + 1) // 4, P)
+    y7 = P - y7 if y7 & 1 else y7
+    xs = field_values(rng, n)
+    ys = [rand_int(rng, 1 << 256) for _ in range(n)]
+    for b in range(n):
+        if b % 4 == 0:
+            xs[b], ys[b] = host.point_mul(1 + rand_int(rng, N - 1), host.G)
+        elif b % 4 == 1:
+            xs[b] = ys[b] = 0
+        elif b % 4 == 2:
+            xs[b], ys[b] = 0, y7
+    return limb_rows(xs), limb_rows(ys)
+
+
 def ladder_inputs(rng: np.random.Generator, B: int, wide: int,
                   windows: int = 33):
     """``strauss_tab`` inputs for ``B`` rows of ``wide`` columns (numpy

@@ -45,11 +45,11 @@ def _limbs(rng, n, bound=1 << 256):
 
 def test_build_reports_every_kernel(dev):
     info = build.build()
-    lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss")
-             for t in K.LANES}
+    lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss",
+                                     "point_table") for t in K.LANES}
     assert set(info["ptxas"]) >= lanes | {
         "k_recover_prelude", "k_y_fix", "k_u1u2",
-        "k_glv_digits", "k_point_table", "k_fp_mul", "k_fp_canon",
+        "k_glv_digits", "k_fp_mul", "k_fp_canon",
         "k_recover_finish", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
@@ -118,13 +118,30 @@ def test_pow_every_lane_instance(dev, e, mod):
                       want[:rows])
 
 
+def test_point_table_every_lane_instance(dev):
+    """Every (lanes, threads) instance of the point table against the
+    plain version, bit for bit, on rows of every class of
+    ``testing.table_points`` side by side (curve points, zero rows, the
+    pad row x = 0 and values off the curve: groups of one warp that take
+    the add's doubling beside groups that take its sum)."""
+    rng = np.random.default_rng(23)
+    px, py = (K.from_reference(t, dev) for t in tt.table_points(rng, 8192))
+    want = K.point_table_plain(px, py)
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, 8192):
+                got = K.point_table_lanes(px[:rows], py[:rows], lanes,
+                                          threads)
+                _same(got, tuple(w[:, :rows] for w in want))
+
+
 def test_lanes_rule_launches_clean_instances(dev):
     """The instances lanes_for picks build with no stack frame and no
     spill."""
     ptxas = build.build()["ptxas"]
     for kernel, rule in K.LANES_RULE.items():
         name = {"strauss_tab": "k_strauss", "pow_mod_p": "k_pow_p",
-                "pow_mod_n": "k_pow_n"}[kernel]
+                "pow_mod_n": "k_pow_n", "point_table": "k_point_table"}[kernel]
         for _, lanes, _ in rule:
             rec = ptxas[f"{name}_t{lanes}"]
             assert rec["stack_bytes"] == rec["spill_store_bytes"] == 0, rec
@@ -424,6 +441,29 @@ def test_mul_scalar_f32(dev):
         "mul_scalar_f32": 6}
 
 
+def test_mul_scalar_f32_any_view(dev):
+    """#21 bit for bit on views that start 4, 8 and 12 bytes past a
+    16-byte boundary, on 1, 3, 5 and 4k + 3 elements, on the (8, 128)
+    tile and on 2^24 elements with the special values; the output shares
+    the input's offset mod 16 bytes, and nothing falls back."""
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal(1 << 24, dtype=np.float32)
+    x[:5] = (0.0, -0.0, 3e38, -1e-30, 2.0**24)
+    flat = torch.from_numpy(x).to(dev)
+    s = 1760000000.123456
+    views = [flat[1:], flat[2:-1], flat[3:-2], flat[1:2], flat[:3],
+             flat[1:6], flat[5:5 + 4 * 1000 + 3], flat[:1024].view(8, 128),
+             flat]
+    K.reset_launches()
+    for v in views:
+        got = K.mul_scalar_f32(v, s)
+        assert got.data_ptr() % 16 == v.data_ptr() % 16
+        _same(got.view(torch.int32),
+              K.mul_scalar_f32_plain(v, s).view(torch.int32))
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "mul_scalar_f32": len(views)}
+
+
 @pytest.mark.parametrize("call", [
     lambda a, t, x: K.fp_mul_chain_pallas(a[:, :4000].contiguous(),
                                           a[:, :4000].contiguous()),
@@ -438,6 +478,7 @@ def test_mul_scalar_f32(dev):
     lambda a, t, x: K.mul_scalar_f32(x.double(), 2.0),
     lambda a, t, x: K.mul_scalar_f32(x.T, 2.0),
     lambda a, t, x: K.mul_scalar_f32(x.int(), 2.0),
+    lambda a, t, x: K.point_table_lanes(a[:, :16], a[:, :16], 4, 96),
 ])
 def test_profile_wrappers_raise_on_card(dev, call):
     """Misshapen input on the card raises; no wrapper falls back to its

@@ -1,6 +1,7 @@
-"""The pow and ladder kernels' T-lane design on the CPU: the rule that
-picks the lanes a row (``lanes_for``), the CPU routing of the launch
-entries that take any instance, and the lane split of a product, modelled
+"""The pow, point-table and ladder kernels' T-lane design on the CPU: the
+rule that picks the lanes a row (``lanes_for``), the CPU routing of the
+launch entries that take any instance, the point table's first entry as
+the doubling that the kernels run, and the lane split of a product, modelled
 in numpy as ``csrc/field.cuh`` computes it (``grp_pick``, ``grp_shift``,
 ``grp_cols``, ``grp_fold_cols``, ``fold32``, ``grp_sum``), held against the reference's
 product.  The CUDA instances themselves run in ``tests/test_torch_cuda.py``
@@ -32,16 +33,17 @@ def test_lanes_for_gives_an_instance_at_every_row_count(kernel):
         assert threads % 32 == 0 and 32 % lanes == 0
 
 
-def test_lanes_for_cpu_tensors_is_one_lane():
-    for kernel in K.LANES_RULE:
-        for rows in ROWS:
-            assert K.lanes_for(kernel, rows, torch.device("cpu"))[0] == 1
-            assert K.lanes_for(kernel, rows, "cpu")[0] == 1
+@pytest.mark.parametrize("kernel", sorted(K.LANES_RULE))
+def test_lanes_for_cpu_tensors_is_one_lane(kernel):
+    for rows in ROWS:
+        assert K.lanes_for(kernel, rows, torch.device("cpu"))[0] == 1
+        assert K.lanes_for(kernel, rows, "cpu")[0] == 1
 
 
-def test_lanes_for_rejects_what_it_cannot_launch():
+@pytest.mark.parametrize("kernel", sorted(K.LANES_RULE))
+def test_lanes_for_rejects_what_it_cannot_launch(kernel):
     with pytest.raises(ValueError):
-        K.lanes_for("strauss_tab", 0)
+        K.lanes_for(kernel, 0)
     with pytest.raises(KeyError):
         K.lanes_for("fp_mul", 8)
 
@@ -88,12 +90,52 @@ def test_ladder_lane_entry_on_cpu_is_the_plain_version():
     assert sum(K.LAUNCHES.values()) == 0
 
 
+def test_point_table_lane_entry_on_cpu_is_the_plain_version():
+    """Any instance given CPU tensors runs the plain version, and that
+    equals the reference's twin on every row class of
+    ``testing.table_points``: curve points, zero rows, the pad row x = 0
+    and values off the curve."""
+    px, py = tt.table_points(np.random.default_rng(36), 8)
+    want = pk.point_table_np(px, py)
+    tx, ty = K.from_reference(px), K.from_reference(py)
+    K.reset_launches()
+    for got in (K.point_table_lanes(tx, ty, 1, 128),
+                K.point_table_lanes(tx, ty, 8, 64),
+                K.point_table_pallas(tx, ty)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(K.to_reference(g), w)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+def test_point_table_first_entry_is_the_doubling():
+    """R + R: with Z = 1 the mixed add's H and r are zero mod P on every
+    relaxed R (curve points, zero rows, x = 0, off the curve, the
+    extreme limbs), so it takes its doubling branch, and the doubling
+    alone (what the lane kernels run for entry 2R) gives the table's
+    first entry bit for bit."""
+    from eges_tpu_torch.ops import field
+
+    px, py = tt.table_points(np.random.default_rng(37), 16)
+    PX, PY = (K.from_reference(t).to(torch.int64) & K.M32 for t in (px, py))
+    one = torch.zeros_like(PX)
+    one[:, 0] = 1
+    zz = field.sqr(one)
+    H = field.sub(field.mul(PX, zz), PX)
+    r = field.sub(field.mul(field.mul(PY, one), zz), PY)
+    assert field.is_zero_mod(H).all() and field.is_zero_mod(r).all()
+    table = K.point_table_plain(K.from_reference(px), K.from_reference(py))
+    for got, want in zip(field.jac_double(PX, PY, one), table):
+        assert torch.equal(got.to(torch.int32), want[0])
+
+
 @pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
                                            (1, 512)])
 def test_lane_entries_reject_other_instances(lanes, threads):
     a = K.from_reference(_rows(33, 2))
     with pytest.raises(ValueError):
         K.pow_mod_lanes(a, P - 2, "p", lanes, threads)
+    with pytest.raises(ValueError):
+        K.point_table_lanes(a, a, lanes, threads)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it
 (the T-lane forms ``grp_*<T>`` included), and so does every kernel of
 ``verify.cu`` and ``glue.cu``; every kernel of ``tiling.cu`` and
 ``profile.cu`` has exactly the counted call sites listed for it, and so
-does ``profile.cu``'s chain template."""
+does ``profile.cu``'s chain template; the point table of ``ladder.cu``
+makes the calls its lane count counts."""
 
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ VERIFY_CU = FIELD_CUH.with_name("verify.cu")
 GLUE_CU = FIELD_CUH.with_name("glue.cu")
 TILING_CU = FIELD_CUH.with_name("tiling.cu")
 PROFILE_CU = FIELD_CUH.with_name("profile.cu")
+LADDER_CU = FIELD_CUH.with_name("ladder.cu")
 # functions of field.cuh that move values and count no operations
 # (rotl64 is counted inside keccak_words' own operations; rows8_at is
 # the address of a rows8 tile element)
@@ -122,7 +124,7 @@ def test_a_lane_issues_between_its_share_and_the_row(T):
     each lane's pow loop to); what a row needs, the bound's count, is no
     more than the one thread issues."""
     one, lane = opcount.per_lane(1), opcount.per_lane(T)
-    for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab"):
+    for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab", "point_table"):
         assert one[kernel] / T <= lane[kernel] < one[kernel]
     assert opcount.ops(f"grp_fp_sqr<{T}>") >= opcount.ops("fp_sqr") // T
     assert opcount.per_row()["strauss_tab"] < one["strauss_tab"]
@@ -180,6 +182,28 @@ def test_ladder_counts_what_its_digits_need():
     assert opcount.per_row()["strauss_tab"] == 128 * dbl + 131 * madd
     got = opcount.per_row(doublings=100.0, adds=90.5, negations=3.0)
     assert got["strauss_tab"] == 100 * dbl + 90.5 * madd + 3 * neg
+
+
+def test_point_table_lane_counts_its_doubling_and_13_adds():
+    """``k_point_table_t<T>`` (ladder.cu) runs one doubling (entry 2R)
+    and, in its 14-entry loop, the mixed add of the ladder; ``per_lane``
+    counts 13 of those adds and the doubling."""
+    src = _source(LADDER_CU)
+    start = src.index("{", src.index("point_table_rows("))
+    depth, i = 0, start
+    while True:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        i += 1
+        if depth == 0:
+            break
+    body = src[start:i]
+    assert dict(_counted_calls(body)) == {"grp_jac_double<T>": 1,
+                                          "grp_jac_add_mixed<T>": 1}
+    assert re.search(r"for \(int d = 0; d < 14; \+\+d\)", body)
+    for T in (1, 2, 4, 8):
+        assert opcount.per_lane(T)["point_table"] == (
+            13 * opcount.ops(f"grp_jac_add_mixed<{T}>")
+            + opcount.ops(f"grp_jac_double<{T}>"))
 
 
 def test_the_sum_runs_only_where_the_points_differ():

@@ -10,13 +10,16 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 1. build: compile ``eges_tpu_torch/ops/csrc`` with nvcc for sm_90a (one
    nvcc for each source, ``ladder.cu`` one for each lane count, all
    started together); seconds, and registers, stack frame and spills
-   per kernel, which must be 0 and 0 for every pow and ladder instance
-   ``lanes_for`` can pick.  Then sass: the built code (``cuobjdump``)
+   per kernel, which must be 0 and 0 for every pow, table and ladder
+   instance ``lanes_for`` can pick and for every fp_mul and finish
+   instance.  Then sass: the built code (``cuobjdump``)
    issues at least the operations ``ops/opcount.py`` counts, in every
    kernel without a branch or a call and in every loop of the product
    chain and of the pow (a T-lane pow's loops against a lane's share,
-   the count over T), so no operation bound counts more than the
-   card does; with the instruction mix of the chain's loop.
+   the count over T, and so on the shortest path through each fp_mul and
+   finish instance), so no operation
+   bound counts more than the card does; with the instruction mix of the
+   chain's loop.
 2. kernel: each of the twenty-one kernels at its path's shapes on
    seeded random and extreme inputs, held bit for bit against its plain
    PyTorch version on the same CUDA tensors (tolerance 0: the arithmetic
@@ -27,27 +30,35 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    B = 4000 (a config-4 block's transaction hashes); the six glue
    kernels of the un-fused path at its shapes for a [4, 1024] window
    (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
-   checked at a ragged 4097 rows.
+   checked at a ragged 4097 rows (fp_mul also on views 4, 8 and 12
+   bytes off a 16-byte boundary).  fp_mul and the finish also timed one
+   call at a time on cold L2 (``cold_ms``), with the share of the bound
+   that time reaches.
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
    every row held against the host model, with the launch counts of
    that run (18 per batch).
-3b. lanes: every (T, block) instance of the pow, the point table and
-   the ladder (T = 1, 2, 4, 8 lanes a row; 64, 128, 256 threads) at
-   256, 1024, 4096 and 8192 rows (mod P and mod N for the pow, and the
-   table's 16384 and 131072 rows mod P; the ladder also on a recovery's
+3b. lanes: every (T, block) instance of the pow, the point table, the
+   ladder, fp_mul and the finish (T = 1, 2, 4, 8 lanes a row; 64, 128,
+   256 threads) at 256, 1024, 4096 and 8192 rows (mod P and mod N for
+   the pow, and the table's 16384 and 131072 rows mod P, fp_mul also at
+   16384 and 131072, and on a ragged view 4 bytes off; the ladder also
+   on a recovery's
    own inputs at 1024 and 8192; the point table on seeded points and
    on the R of phase 3's block padded to its bucket, invalid rows and
    zero-byte pad rows among them), bit for bit against the plain
    version, timed by events and cold beside the bound, with registers,
    stack and spills and the instance ``lanes_for`` picks, which must
-   beat T = 1.
+   beat T = 1 (fp_mul and the finish by cold times, within 3%; fp_mul
+   may pick T = 1).
 4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
    memory; under the profiler, the device ms of each of the four pow
-   launches and of the ladder in one recovery of 8192 and of 1024 rows.
+   launches and of the ladder in one recovery of 8192 and of 1024 rows
+   (a traced window that lacks a launch is traced again, three windows
+   at most: the profiler has dropped a window's first kernel).
 5. verify slice: a BASELINE config-3 vote round (256 committee
    signatures against the validators' 64-byte keys) and a config-4 one
    (1024 rows, the consensus verify batch cap), every row class of
@@ -101,8 +112,10 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    ``profile_floor`` (all eight child configs must report),
    ``measure_recover`` at 1024 and 8192 (its gate must hold),
    ``profile_kernels2`` at 4096 (into ``build/``), ``profile_stages``
-   at 1024 and the launch census ``hlo_census`` at 1024 (its hand-written
-   kernels by name must equal the fused path's 18 launches).  Then the
+   at 1024 and the launch census ``hlo_census`` at 1024 and 8192 (its
+   hand-written kernels by name must equal the fused path's 18 launches,
+   a short window traced again as in phase 4; the device time of each
+   fp_mul and finish launch and the card's idle share of the window).  Then the
    harness's four kernels (``profile.cu``), one ``profile_kernel`` line
    for each kernel and shape: the 64-multiply chain on ``[16, B]``
    columns at lane blocks of 256 and 1024 (#20a, also at a ragged 4096 +
@@ -184,7 +197,17 @@ LANE_SHAPES = (("strauss_tab", 256), ("strauss_tab", 1024),
                ("pow_mod_p", 256), ("pow_mod_p", 1024), ("pow_mod_p", 4096),
                ("pow_mod_p", 8192), ("pow_mod_n", 256), ("pow_mod_n", 1024),
                ("pow_mod_n", 4096), ("pow_mod_n", 8192),
-               ("pow_mod_p", 16384), ("pow_mod_p", 131072))
+               ("pow_mod_p", 16384), ("pow_mod_p", 131072),
+               *(("fp_mul", r) for r in (256, 1024, 4096, 8192, 16384,
+                                         131072)),
+               *(("recover_finish", r) for r in (256, 1024, 4096, 8192)))
+# the lane kernels whose launch takes less than the wrapper's host time:
+# timed cold beside events (phases kernel and lanes, which picks and
+# checks them by cold times); every instance must build clean, and phase
+# sass holds each on its shortest path
+SHORT_LANE_KERNELS = ("fp_mul", "recover_finish")
+CENSUS_BATCHES = (1024, 8192)       # hlo_census's recoveries
+PROFILE_TRIES = 3                   # traced windows a profiled check takes
 # the ladder also on a recovery's own inputs: its digits' zeros are not
 # random (window 0 is zero on most rows), which is what parted warps; the
 # point table on the R of the config-4 block (its invalid rows, the x = 0
@@ -206,7 +229,9 @@ MUL_SMALL_K = {2: 1418, 3: 278, 4: 146, 8: 278}
 # pow and the ladder list the instances their wrapper launches
 LANE_GLOBALS = {"pow_mod_p": "k_pow_p_t{}", "pow_mod_n": "k_pow_n_t{}",
                 "strauss_tab": "k_strauss_t{}",
-                "point_table": "k_point_table_t{}"}
+                "point_table": "k_point_table_t{}",
+                "fp_mul": "k_fp_mul_t{}",
+                "recover_finish": "k_recover_finish_t{}"}
 
 
 def launched_instances(kernel: str) -> tuple[str, ...]:
@@ -330,6 +355,8 @@ def phase_build():
     K.library()
     launched = {g: info["ptxas"].get(g) for kernel in LANE_GLOBALS
                 for g in launched_instances(kernel)}
+    launched.update({g: info["ptxas"].get(g) for k in SHORT_LANE_KERNELS
+                     for g in (LANE_GLOBALS[k].format(t) for t in K.LANES)})
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
           "compiled": info["built"], "library": os.path.basename(
               info["path"]), "ptxas": info["ptxas"],
@@ -339,6 +366,7 @@ def phase_build():
              or r["spill_load_bytes"]}
     if dirty:
         raise AssertionError(f"the lane instances the wrappers launch "
+                             f"(and every fp_mul and finish instance) "
                              f"must have no stack frame and no spill: "
                              f"{dirty}")
     return info
@@ -353,8 +381,12 @@ def phase_sass(path):
     the built library (``cuobjdump -sass``).  The pow and the table run
     T lanes a row, so each instance's loops are held to a lane's share
     of an ``fp_sqr`` or of a ``jac_add_mixed``: its count over T,
-    rounded down (at T = 1 the whole count).  Emits the counts, and the
-    instruction mix of the chain's loop."""
+    rounded down (at T = 1 the whole count).  The fp_mul and finish
+    instances are held the same way on their shortest path from entry to
+    exit (``build.least_path``): at least a lane's share of the row's
+    count; what ``opcount.per_lane`` counts for one lane is shown beside
+    it.  Emits the counts, and the instruction mix of
+    the chain's loop."""
     import collections
 
     from eges_tpu_torch.ops import build, kernels as K, opcount
@@ -370,14 +402,21 @@ def phase_sass(path):
     loops = {fn: (helper, opcount.ops(helper) // t,
                   [len(b) for b in build.loop_bodies(code[fn])])
              for fn, helper, t in held}
+    paths = {fn: [round(OPS[k]) // t, round(opcount.per_lane(t)[k]),
+                  build.least_path(code[fn])]
+             for k in SHORT_LANE_KERNELS for t in K.LANES
+             for fn in [LANE_GLOBALS[k].format(t)]}
     bad = [n for n, (counted, issued) in straight.items() if counted > issued]
     bad += [fn for fn, (_, share, sizes) in loops.items()
             if not sizes or min(sizes) < share]
+    bad += [fn for fn, (share, _, issued) in paths.items() if issued < share]
     body = build.loop_bodies(code["k_fp_mul_chain"])[0]
     mix = collections.Counter(build.opcode(i) for i in body)
     emit({"phase": "sass", "straight_line": straight,
           "loops": {fn: {"helper": h, "counted": share, "issued": sizes}
                     for fn, (h, share, sizes) in loops.items()},
+          "least_paths": {fn: {"counted": c, "lane_ops": n, "issued": i}
+                          for fn, (c, n, i) in paths.items()},
           "chain_loop_mix": dict(mix.most_common())})
     if len(straight) < 10 or bad:
         raise AssertionError(f"op counts above the issued instructions: "
@@ -404,6 +443,7 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     Returns per-kernel records (ms and bounds cover all of a kernel's
     launches in one batch)."""
     from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
     from eges_tpu_torch.ops import kernels as K, opcount
     from eges_tpu_torch.ops.bigint import N, P
 
@@ -498,16 +538,64 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     cases += _verify_kernel_cases(dev, OPS)
     glue, ragged = _glue_kernel_cases(dev, OPS)
     cases += glue
+    ragged["fp_mul"] = _fp_mul_views(dev)
     records = {}
     for name, launches in cases:
+        extra = _cold(launches) if name in SHORT_LANE_KERNELS else None
+        if name == "fp_mul":
+            # what streaming the same bytes takes, cold: ATen's a ^ b reads
+            # both operands and writes one tensor of their size (not the
+            # same function: a floor of the measurement, no library time)
+            extra["stream_cold_ms"] = len(launches) * cuda_event_ms(
+                lambda: a_m ^ b_m, reps=10, cold=True)
         records[name] = _check_kernel(name, launches, ragged.get(name, ()),
-                                      RAGGED, clock_hz, ptxas, "kernel")
+                                      RAGGED, clock_hz, ptxas, "kernel",
+                                      extra)
     return records
 
 
+def _cold(launches):
+    """``{"cold_ms": ...}``: the kernel calls of one batch's launches,
+    each timed alone on cold L2 (a launch repeated on the main path is
+    timed once)."""
+    from eges_tpu_torch.harness.profutil import cuda_event_ms
+
+    done = {}
+    for kern, *_ in launches:
+        if kern not in done:
+            done[kern] = cuda_event_ms(kern, reps=10, cold=True)
+    return {"cold_ms": sum(done[kern] for kern, *_ in launches)}
+
+
+def _fp_mul_views(dev):
+    """fp_mul's ragged checks, ``(kernel call, plain call)`` at ``RAGGED``
+    rows: aligned operands, and views that start 4, 8 and 12 bytes past a
+    16-byte boundary as either or both operands (the kernel's word path,
+    no copy)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED + 10)
+    n = RAGGED
+    a, b = (K.from_reference(tt.limb_rows(tt.field_values(rng, n)), dev)
+            for _ in range(2))
+
+    def view(t, off):
+        buf = torch.empty(16 * n + off, dtype=torch.int32, device=dev)
+        v = buf[off:].view(n, 16)
+        v.copy_(t)
+        return v
+
+    pairs = [(a, b)] + [(view(a, off), b) for off in (1, 2, 3)] + [
+        (a, view(b, 1)), (view(a, 2), view(b, 3))]
+    return [(lambda x=x, y=y: K.fp_mul_pallas(x, y),
+             lambda x=x, y=y: K.fp_mul_plain(x, y)) for x, y in pairs]
+
+
 def phase_lanes(dev, clock_hz, ptxas, rows4):
-    """Every instance of the pow, the point table and the ladder (T = 1,
-    2, 4, 8 lanes a row in blocks of 64, 128 and 256 threads) at the main
+    """Every instance of the pow, the point table, the ladder, fp_mul and
+    the finish (T = 1, 2, 4, 8 lanes a row in blocks of 64, 128 and 256
+    threads) at the main
     path's row counts: each held bit for bit against the plain version
     and timed by CUDA events back to back and cold
     (``profutil.cuda_event_ms``), beside its bound (the row's work,
@@ -515,10 +603,13 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
     and spills, and the instance ``lanes_for`` picks; the ladder on
     seeded inputs that take all its branches and on a recovery's own, the
     point table on seeded points and on the R of ``rows4``, the config-4
-    block, padded as the facade pads it.  Fails if an instance differs, if
+    block, padded as the facade pads it; fp_mul (also on a ragged view 4
+    bytes off, every instance) and the finish on seeded values, picked
+    and held by their cold times.  Fails if an instance differs, if
     a time beats its bound, or if the picked instance is not faster than
     every T = 1 instance at the B-row shapes (the pow's table launches
-    of 16 B rows: no more than 3% slower).  Each pow shape also times
+    of 16 B rows, fp_mul and the finish: no more than 3% slower; the
+    finish must not pick T = 1).  Each pow shape also times
     the one-thread design with its table in local memory (the rows8
     twin #19a, on its own tiles), the pow's design before the lanes."""
     from eges_tpu_torch import testing as tt
@@ -546,6 +637,18 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                             for t in _affine_points(rng, B)),
             "recovery": _recovery_r(rows4, dev)}
     want_tab = {d: K.point_table_plain(*r) for d, r in tabs.items()}
+    mul = (pw["p"], K.from_reference(
+        rng.integers(0, 1 << 16, (M, 16)).astype(np.uint32), dev))
+    want_mul = K.fp_mul_plain(*mul)
+    # a ragged view 4 bytes off: fp_mul's word path, each instance
+    buf = torch.empty(16 * RAGGED + 1, dtype=torch.int32, device=dev)
+    mis = buf[1:].view(RAGGED, 16)
+    mis.copy_(mul[1][:RAGGED])
+    want_mis = K.fp_mul_plain(mul[0][:RAGGED], mis)
+    fin = [K.from_reference(tt.limb_rows(tt.field_values(rng, B)), dev)
+           for _ in range(4)]
+    fin[2][::97] = 0                     # Z = 0: the point at infinity
+    fin.append(K.from_reference(rng.integers(0, 2, B).astype(np.uint32), dev))
     slow = []
     shapes = ([(k, r, "seeded") for k, r in LANE_SHAPES]
               + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS]
@@ -553,7 +656,31 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                  for r in TABLE_RECOVERY_ROWS])
     for kernel, rows, data in shapes:
         local = None
-        if kernel == "point_table":
+        also = ()       # (kernel call, plain result) held at every instance
+        if kernel == "fp_mul":
+            a, b = (t[:rows] for t in mul)
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = 3 * nbytes(a)
+            want = want_mul[:rows]
+
+            def call(lanes, threads, a=a, b=b):
+                return K.fp_mul_lanes(a, b, lanes, threads)
+
+            if rows == 4096:
+                also = ((lambda lanes, threads: K.fp_mul_lanes(
+                    mul[0][:RAGGED], mis, lanes, threads), want_mis),)
+        elif kernel == "recover_finish":
+            ins = tuple(t[:rows] for t in fin)
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = (nbytes(*ins) + 2 * 64 * rows + 4 * rows
+                  + 34 * 4 * K.bpad(rows))
+            want = K.recover_finish_plain(*ins)
+
+            def call(lanes, threads, ins=ins):
+                return K.recover_finish_lanes(*ins, lanes, threads)
+        elif kernel == "point_table":
             px, py = (t[:rows] for t in tabs[data])
             row_ops = opcount.per_row()[kernel]
             lane_args = {}
@@ -613,15 +740,19 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
         for lanes in K.LANES:
             share = opcount.per_lane(lanes, **lane_args)[kernel]
             for threads in K.LANE_THREADS:
-                err = max_abs_err(call(lanes, threads), want)
+                err = max([max_abs_err(call(lanes, threads), want)]
+                          + [max_abs_err(c(lanes, threads), w)
+                             for c, w in also])
                 if err:
                     raise AssertionError(
                         f"{kernel} at {rows} rows, {lanes} lanes, "
                         f"{threads} threads: differs from the plain "
                         f"version (max abs err {err})")
                 ms = cuda_event_ms(call, lanes, threads, reps=5)
-                cold = cuda_event_ms(call, lanes, threads, reps=3,
-                                     cold=True)
+                # the median of more cold calls where cold times pick
+                cold = cuda_event_ms(
+                    call, lanes, threads, cold=True,
+                    reps=7 if kernel in SHORT_LANE_KERNELS else 3)
                 if min(ms, cold) < bound_ms:
                     raise AssertionError(
                         f"{kernel} at {rows} rows: {min(ms, cold)} ms "
@@ -634,11 +765,12 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                              "stack": g.get("stack_bytes"),
                              "spill": g.get("spill_store_bytes")})
         chosen = K.lanes_for(kernel, rows)
-        ms_of = {(i["lanes"], i["threads"]): i["ms"] for i in inst}
+        key = "cold_ms" if kernel in SHORT_LANE_KERNELS else "ms"
+        ms_of = {(i["lanes"], i["threads"]): i[key] for i in inst}
         t1 = min(v for (lanes, _), v in ms_of.items() if lanes == 1)
         best = min(ms_of, key=ms_of.get)
         line = {"phase": "lanes", "kernel": kernel, "rows": rows,
-                "data": data,
+                "data": data, "picked_by": key,
                 "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
                 "row_ops": round(row_ops), "equal": True,
                 "chosen": list(chosen), "chosen_ms": ms_of[chosen],
@@ -648,9 +780,11 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                                                         / local_ms, 4),
                 "instances": inst}
         emit(line)
-        limit = 1.03 if rows > B else 1.0
-        if ms_of[chosen] > limit * t1 or (limit == 1.0
-                                          and ms_of[chosen] == t1):
+        # fp_mul may keep one lane a row: its pick need only not lose
+        limit = 1.03 if rows > B or kernel in SHORT_LANE_KERNELS else 1.0
+        if ms_of[chosen] > limit * t1 or (
+                limit == 1.0 and ms_of[chosen] == t1) or (
+                kernel == "recover_finish" and chosen[0] == 1):
             slow.append(f"{kernel} at {rows} rows ({data}): lanes_for's "
                         f"{chosen} takes {ms_of[chosen]} ms against T = "
                         f"1's {t1}")
@@ -709,7 +843,8 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
     call, bytes, ops)``: held bit for bit against the plain version and
     timed; then its ragged ``(kernel call, plain call)`` pairs.  Emits
     and returns the record (ms and bound cover all the launches), with
-    ``extra`` keys."""
+    ``extra`` keys; an extra ``cold_ms`` gets the share of the bound it
+    reaches, and must not beat the bound either."""
     from eges_tpu_torch.harness.profutil import cuda_event_ms
 
     rec = {"name": name, **(extra or {}), "max_abs_err": 0, "ms": 0.0,
@@ -736,6 +871,11 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
     if rec["ms"] < rec["bound_ms"]:
         raise AssertionError(f"{name}: {rec['ms']} ms beats its bound of "
                              f"{rec['bound_ms']} ms: the bound is no floor")
+    if "cold_ms" in rec:
+        rec["cold_bound_share"] = rec["bound_ms"] / rec["cold_ms"]
+        if rec["cold_ms"] < rec["bound_ms"]:
+            raise AssertionError(f"{name}: cold {rec['cold_ms']} ms beats "
+                                 f"its bound of {rec['bound_ms']} ms")
     for kern, plain in ragged:
         err = max_abs_err(kern(), plain())
         if err:
@@ -746,7 +886,7 @@ def _check_kernel(name, launches, ragged, ragged_rows, clock_hz, ptxas,
     if name == "pow_mod":
         names = (launched_instances("pow_mod_p")
                  + launched_instances("pow_mod_n"))
-    elif name in ("strauss_tab", "point_table"):
+    elif name in LANE_GLOBALS:
         names = launched_instances(name)
     else:
         names = GLOBALS.get(name, ("k_" + name,))
@@ -981,20 +1121,25 @@ def phase_e2e(rows):
 def _lane_launches(sigs, hashes) -> dict:
     """One fused recovery of these rows on device tensors under the
     profiler: the device ms of its pow launches and of its ladder, in
-    the order they ran."""
+    the order they ran.  The profiler has dropped the first kernel of a
+    window (a traced recovery lacked its first pow launch, which the
+    wrappers' launch counts had): a window short of a launch is traced
+    again, up to PROFILE_TRIES windows in all."""
     from eges_tpu_torch.crypto.verifier import ecrecover_batch
     from eges_tpu_torch.harness.profutil import profile_window
 
     s = torch.from_numpy(np.ascontiguousarray(sigs)).to("cuda")
     h = torch.from_numpy(np.ascontiguousarray(hashes)).to("cuda")
-    events, _ = profile_window(ecrecover_batch, s, h)
-    split = {"pow": [us / 1e3 for n, us in events if n.startswith("k_pow_")],
-             "ladder": [us / 1e3 for n, us in events
-                        if n.startswith("k_strauss_")]}
-    if len(split["pow"]) != 4 or len(split["ladder"]) != 1:
-        raise AssertionError(f"a recovery ran {split}: want 4 pow launches "
-                             "and one ladder")
-    return split
+    for _ in range(PROFILE_TRIES):
+        events, _ = profile_window(ecrecover_batch, s, h)
+        split = {"pow": [us / 1e3 for n, us in events
+                         if n.startswith("k_pow_")],
+                 "ladder": [us / 1e3 for n, us in events
+                            if n.startswith("k_strauss_")]}
+        if len(split["pow"]) == 4 and len(split["ladder"]) == 1:
+            return split
+    raise AssertionError(f"a recovery ran {split}: want 4 pow launches and "
+                         "one ladder")
 
 
 def _committee_rows():
@@ -1513,9 +1658,6 @@ def phase_profile_kernels(dev, clock_hz, ptxas):
                  **(extra or {})}
         rec = _check_kernel(name, [entry], ragged, ragged_rows, clock_hz,
                             ptxas, "profile_kernel", extra)
-        if rec["cold_ms"] < rec["bound_ms"]:
-            raise AssertionError(f"{name} {label}: cold {rec['cold_ms']} ms "
-                                 f"beats its bound of {rec['bound_ms']} ms")
         first = records.setdefault(name, rec)
         first.setdefault("shapes", {})[label] = {
             k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1681,12 +1823,7 @@ def phase_profile(dev):
             4096, str(build.BUILD_DIR / "kernel_profile2.json"), rng, dev)
     with _prefixed("profile_stages"):
         out["stages"] = profile_stages.main(1024, rng, dev)
-    with _prefixed("hlo_census"):
-        census = hlo_census.main(1024, rng, dev)
-    launches = dict(K.LAUNCHES)
-    launches["add_one_f32"] += floor["results"]["pallasnop"]["launches"].get(
-        "add_one_f32", 0)
-    # the census window is one fused recovery: its hand-written kernels
+    # each census window is one fused recovery: its hand-written kernels
     # by name, mapped to their wrappers, are the pinned 18 launches
     wrapper_of = {g: name for name in K.KERNELS
                   for g in GLOBALS.get(name, ("k_" + name,))}
@@ -1694,16 +1831,46 @@ def phase_profile(dev):
                        if kernel.startswith("pow_mod") else kernel
                        for kernel, fmt in LANE_GLOBALS.items()
                        for t in K.LANES})
-    by_wrapper = {}
-    for g, n in census["hand_written"].items():
-        by_wrapper[wrapper_of[g]] = by_wrapper.get(wrapper_of[g], 0) + n
-    if not (by_wrapper == census["launches"] == FUSED_RECOVER_LAUNCHES):
-        raise AssertionError(f"launch census: kernels {by_wrapper}, wrappers "
-                             f"{census['launches']}, want "
-                             f"{FUSED_RECOVER_LAUNCHES}")
-    out["census"] = {k: census[k] for k in (
-        "hand_written", "aten", "copy", "wall_ms", "kernel_ms", "busy_share",
-        "copy_us")}
+
+    def by_wrapper(census):
+        counts = {}
+        for g, n in census["hand_written"].items():
+            counts[wrapper_of[g]] = counts.get(wrapper_of[g], 0) + n
+        return counts
+
+    censuses = {}
+    with _prefixed("hlo_census"):
+        for B in CENSUS_BATCHES:
+            # a window the profiler left short is traced again
+            # (_lane_launches)
+            for _ in range(PROFILE_TRIES):
+                census = hlo_census.main(B, rng, dev)
+                kernels = by_wrapper(census)
+                if kernels == census["launches"] == FUSED_RECOVER_LAUNCHES:
+                    break
+            else:
+                raise AssertionError(f"launch census at {B}: kernels "
+                                     f"{kernels}, wrappers "
+                                     f"{census['launches']}, want "
+                                     f"{FUSED_RECOVER_LAUNCHES}")
+            censuses[B] = census
+    launches = dict(K.LAUNCHES)
+    launches["add_one_f32"] += floor["results"]["pallasnop"]["launches"].get(
+        "add_one_f32", 0)
+    out["census"] = {}
+    for B, census in censuses.items():
+        # the device ms of each fp_mul and finish launch, in order
+        each = {name: [us / 1e3 for g, v in census["launch_us"].items()
+                       if g.startswith(prefix) for us in v]
+                for name, prefix in (("fp_mul", "k_fp_mul_t"),
+                                     ("recover_finish",
+                                      "k_recover_finish_t"))}
+        out["census"][B] = {
+            **{k: census[k] for k in (
+                "hand_written", "aten", "copy", "wall_ms", "kernel_ms",
+                "busy_share", "idle_share", "copy_us")},
+            "fp_mul_launch_ms": each["fp_mul"],
+            "recover_finish_launch_ms": each["recover_finish"]}
     out["launches"] = {k: v for k, v in launches.items() if v}
     emit(out)
     return launches
@@ -1809,7 +1976,8 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "ptxas": rec["ptxas"],
-            **{k: rec[k] for k in ("twin_ms", "path_ms", "shapes")
+            **{k: rec[k] for k in ("twin_ms", "path_ms", "shapes", "cold_ms",
+                                   "cold_bound_share", "stream_cold_ms")
                if k in rec}})
     emit({"kernels": kernels})
     print(card, flush=True)

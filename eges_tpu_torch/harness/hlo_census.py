@@ -10,9 +10,11 @@ CUDA activity (``profutil.profile_window``: a warm-up call inside the
 session, then the window).  It lists every
 kernel the card ran by name and count, the hand-written kernels
 (``k_*`` of ``ops/csrc``) apart from ATen's and from copies and memsets,
-prints the top 20 by count, and sets the summed kernel time against
-the window's wall time (the card's busy share of the window; the
-profiler's own cost is inside the wall time).  The wrappers' launch
+prints the top 20 by count, gives the device time of each hand-written
+launch in the order they ran, and sets the summed kernel time against
+the window's wall time (the card's busy share of the window, and its
+idle share, the rest; the profiler's own cost is inside the wall
+time).  The wrappers' launch
 counts of the same window (``ops.kernels.LAUNCHES``) come beside it.
 
 Usage: ``python -m eges_tpu_torch.harness.hlo_census [B] [--seed S]``.
@@ -43,17 +45,22 @@ def kind_of(name: str) -> str:
 
 def census(events) -> dict:
     """``[(kernel name, device us)]`` -> counts and device us by name and
-    kind."""
+    kind, and each hand-written kernel's launches' device us in the order
+    they ran (``launch_us``)."""
     count = collections.Counter()
     us = collections.Counter()
+    launch_us: dict[str, list[float]] = {}
     for name, dur in events:
         count[name] += 1
         us[name] += dur
+        if kind_of(name) == "hand_written":
+            launch_us.setdefault(name, []).append(dur)
     by_kind: dict[str, dict[str, int]] = {"hand_written": {}, "aten": {},
                                           "copy": {}}
     for name, n in count.items():
         by_kind[kind_of(name)][name] = n
     return {"count": dict(count), "us": dict(us), **by_kind,
+            "launch_us": launch_us,
             "kernel_us": sum(us[n] for n in count if kind_of(n) != "copy"),
             "copy_us": sum(us[n] for n in count if kind_of(n) == "copy")}
 
@@ -96,6 +103,7 @@ def main(B: int = 1024, rng: np.random.Generator | None = None,
     out.update({"batch": B, "wall_ms": wall * 1e3,
                 "kernel_ms": out["kernel_us"] / 1e3,
                 "busy_share": out["kernel_us"] / 1e3 / (wall * 1e3),
+                "idle_share": 1.0 - out["kernel_us"] / 1e3 / (wall * 1e3),
                 "launches": launches})
     print(f"window on {torch.cuda.get_device_name(dev)}: wall "
           f"{out['wall_ms']:.3f} ms, {sum(out['count'].values())} device "
@@ -108,6 +116,9 @@ def main(B: int = 1024, rng: np.random.Generator | None = None,
     print("hand-written by name:", dict(sorted(out["hand_written"].items())),
           flush=True)
     print("wrapper launches:", launches, flush=True)
+    print("hand-written launches, device us in order:",
+          {n: [round(u, 3) for u in v]
+           for n, v in sorted(out["launch_us"].items())}, flush=True)
     print("top 20 by count:", flush=True)
     for name, n in collections.Counter(out["count"]).most_common(20):
         print(f"  {n:6d} {out['us'][name]:10.1f} us  {kind_of(name):12s} "

@@ -186,8 +186,10 @@ def cuda_event_ms(fn, *args, reps: int = 10, device=None,
     ``FLUSH_BYTES`` are written, so its inputs come from device memory,
     and the card is still writing when the host has enqueued the call:
     the events then time the kernel and the card's few microseconds from
-    event to kernel, not the host.  Raises for a device that is not a
-    card."""
+    event to kernel, not the host; the median of the ``reps`` calls is
+    returned, since a call whose host enqueue stalls past the flush
+    times the host too (seen as single calls of 0.2-0.5 ms among 0.01 ms
+    ones).  Raises for a device that is not a card."""
     import torch
 
     from eges_tpu_torch import resolve_device
@@ -200,15 +202,15 @@ def cuda_event_ms(fn, *args, reps: int = 10, device=None,
     end = torch.cuda.Event(enable_timing=True)
     if cold:
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-        total = 0.0
+        times = []
         for _ in range(reps):
             flush.zero_()
             start.record()
             fn(*args)
             end.record()
             torch.cuda.synchronize(dev)
-            total += start.elapsed_time(end)
-        return total / reps
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
     torch.cuda.synchronize(dev)
     start.record()
     for _ in range(reps):

@@ -160,6 +160,41 @@ def loop_bodies(code: list[tuple[int, str]]) -> list[list[str]]:
             if opcode(ins) == "BRA" and _target(ins) < addr]
 
 
+def least_path(code: list[tuple[int, str]]) -> int:
+    """The fewest instructions any thread's run of a kernel issues, from
+    its entry to an EXIT: the shortest path through its code, where a
+    predicated branch or EXIT may go either way and an unpredicated one
+    always goes (a loop on the way counts once).  Raises on an indirect
+    branch or a call, whose targets the listing does not give."""
+    index = {a: i for i, (a, _) in enumerate(code)}
+    dist = {0: 1}                     # instructions issued up to and at i
+    todo = [0]
+    best = None
+    while todo:
+        nxt = []
+        for i in todo:
+            ins = code[i][1]
+            op = opcode(ins)
+            cond = ins.startswith("@")
+            if op.startswith(("BRX", "JMP", "CALL", "RET")):
+                raise ValueError(f"no path count through {ins}")
+            succ = []
+            if op == "EXIT":
+                best = dist[i] if best is None else min(best, dist[i])
+            elif op.startswith("BRA"):
+                succ.append(index[_target(ins)])
+            if cond or not (op == "EXIT" or op.startswith("BRA")):
+                succ.append(i + 1)
+            for j in succ:
+                if j < len(code) and j not in dist:
+                    dist[j] = dist[i] + 1
+                    nxt.append(j)
+        todo = nxt
+    if best is None:
+        raise ValueError("no path reaches an EXIT")
+    return best
+
+
 # cicc's stack (measured on nvcc 12.9: the ladder built with 1 GiB and
 # crashed with 8 MiB, and also with no limit, where threads fall back to a
 # small default stack)

@@ -12,10 +12,11 @@
 //
 // The one thread per batch row that runs these functions keeps a value
 // in registers (arrays indexed only by unrolled constants); the compiler
-// spills what does not fit.  The pow and ladder kernels run the T-lane
-// forms (grp_*<T>, below the one-thread ones): a group of T lanes a row.  Constants live in __constant__ memory and
-// are uploaded once per translation unit from Python (ops/kernels.py
-// pack_constants), so the limb values have one source.
+// spills what does not fit.  The pow, ladder, point-table, fp_mul and
+// finish kernels run the T-lane forms (grp_*<T>, below the one-thread
+// ones): a group of T lanes a row.  Constants live in __constant__
+// memory and are uploaded once per translation unit from Python
+// (ops/kernels.py pack_constants), so the limb values have one source.
 #pragma once
 
 #include <stddef.h>
@@ -221,7 +222,7 @@ EG_FD u32 is_zero_mod(const u32* a) {
 // T lanes a row
 // ---------------------------------------------------------------------------
 //
-// The pow and ladder kernels run a row on a group of T consecutive lanes
+// The lane kernels run a row on a group of T consecutive lanes
 // of a warp (T = 1, 2, 4 or 8; launch.cuh eg_group gives a lane its rank
 // in the group and the group's mask).  Every lane holds the row's values
 // and takes the same branches.  A product shares its 256 partial
@@ -786,18 +787,21 @@ EG_FD void limbs_to_words_be(u32* w, const u32* a) {
 
 // Jacobian result + raw Z^-1 + accumulated validity -> affine (qx, qy)
 // masked by the final ok, and the 34 padded keccak block words of
-// qx || qy.  Returns ok.
-EG_FD u32 recover_finish(u32* qx, u32* qy, u32* words, const u32* X,
-                         const u32* Y, const u32* Z, const u32* zi_raw,
-                         u32 ok_in) {
+// qx || qy, on a group of T lanes a row (#10's kernels): the four
+// products shared out (grp_fp_mul), the canonicalisations, selects and
+// words run whole in every lane.  Returns ok.
+template <int T>
+EG_FD u32 grp_recover_finish(u32* qx, u32* qy, u32* words, const u32* X,
+                             const u32* Y, const u32* Z, const u32* zi_raw,
+                             u32 ok_in, u32 rank, u32 mask) {
   const u32 inf = is_zero_mod(Z);
   u32 zi[16], zi2[16], x[16], y[16], t[16];
   cond_sub_p(zi, zi_raw);
-  fp_sqr(zi2, zi);
-  fp_mul(x, X, zi2);
+  grp_fp_sqr<T>(zi2, zi, rank, mask);
+  grp_fp_mul<T>(x, X, zi2, rank, mask);
   cond_sub_p(x, x);
-  fp_mul(t, zi, zi2);
-  fp_mul(y, Y, t);
+  grp_fp_mul<T>(t, zi, zi2, rank, mask);
+  grp_fp_mul<T>(y, Y, t, rank, mask);
   cond_sub_p(y, y);
   const u32 ok = ok_in * (1u - inf);
   u32 zero[16];

@@ -151,16 +151,7 @@ extern "C" int EG_NAMED(eg_strauss_t)(const void* dig, const void* neg,
 // group taking its branch as the ladder's adds do (a row meets its own
 // point only where it is degenerate: x = 0 rows at some entries).
 // Lane `rank` of a group stores limbs rank, rank + T, ... of each value
-// (picked by grp_pick), so a warp's stores cover whole 64-byte rows.
-template <int T>
-static __device__ __forceinline__ void store_split(u32* o, const u32* v,
-                                                   u32 rank) {
-  u32 w[16 / T];
-  grp_pick<T>(w, v, rank);
-#pragma unroll
-  for (int m = 0; m < 16 / T; ++m) o[T * m + rank] = w[m];
-}
-
+// (launch.cuh store_split), so a warp's stores cover whole 64-byte rows.
 template <int T>
 static __device__ __forceinline__ void point_table_rows(
     const u32* px, const u32* py, int B, u32* X, u32* Y, u32* Z) {

@@ -1,7 +1,7 @@
 // Launch plumbing shared by the kernel sources (recover.cu, verify.cu):
 // the block size, the one-row-per-thread guard, row loads and stores,
-// the grid size, the lane groups of the pow and ladder kernels, and the
-// upload of the Consts block of field.cuh.
+// the grid size, the lane groups of the lane kernels and their split
+// stores, and the upload of the Consts block of field.cuh.
 //
 // Each source is its own translation unit with its own copy of the
 // __constant__ block K (field.cuh declares it static), so each exports
@@ -36,7 +36,8 @@ static inline dim3 eg_grid(int n) {
   return dim3((unsigned)((n + EG_THREADS - 1) / EG_THREADS));
 }
 
-// T lanes a row (the pow and ladder kernels): blocks of 64, 128 or 256
+// T lanes a row (the pow, ladder, point-table, fp_mul and finish
+// kernels): blocks of 64, 128 or 256
 // threads, T = 1, 2, 4 or 8.  A block is whole warps and T divides 32,
 // so a group never straddles two warps.  Every group runs, the groups
 // past the last row on a clamped row, because no lane may leave before
@@ -59,6 +60,18 @@ static __device__ __forceinline__ EgGroup eg_group(int rows) {
   const eg::u32 lane = threadIdx.x & 31u;
   g.mask = ((1u << T) - 1u) << (lane & ~(eg::u32)(T - 1));
   return g;
+}
+
+// Lane `rank` of a group stores limbs rank, rank + T, ... of v (picked
+// by grp_pick), so a warp's stores cover whole 64-byte rows.
+template <int T>
+static __device__ __forceinline__ void store_split(eg::u32* o,
+                                                   const eg::u32* v,
+                                                   eg::u32 rank) {
+  eg::u32 w[16 / T];
+  eg::grp_pick<T>(w, v, rank);
+#pragma unroll
+  for (int m = 0; m < 16 / T; ++m) o[T * m + rank] = w[m];
 }
 
 // 1 when the launch shape is one the lane kernels take.

@@ -2,13 +2,13 @@
 // sm_90a; the point table (#6) and the ladder (#9) are in ladder.cu.
 //
 // Each __global__ replaces one Pallas kernel of
-// eges_tpu/ops/pallas_kernels.py (named beside it) and runs one thread
-// per batch row over the field library of field.cuh, so its results are
-// bit-identical to the reference's numpy twins; the pow, the point table
-// and the ladder (#6 and #9, in ladder.cu), nearly all of the work, run a
-// group of T lanes a row instead (one instance each for T = 1, 2, 4 and
-// 8; ops/kernels.py lanes_for picks T and the block size from the row
-// count).  The TPU kernels walked
+// eges_tpu/ops/pallas_kernels.py (named beside it) over the field
+// library of field.cuh, so its results are bit-identical to the
+// reference's numpy twins.  Most run one thread per batch row; the pow,
+// fp_mul and the finish (and the point table and the ladder in
+// ladder.cu) run a group of T lanes a row instead (one instance each for
+// T = 1, 2, 4 and 8; ops/kernels.py lanes_for picks T and the block size
+// from the row count).  The TPU kernels walked
 // windows, table entries and pow digits on a sequential grid axis with
 // the running state in VMEM; blocks on Hopper run in no order, so each
 // of those walks is a loop inside the thread (or group) here.
@@ -24,9 +24,10 @@
 // recover_prelude, y_fix and recover_finish issue fewer than that per
 // byte and are bound by bytes; the other five by integer operations.  All of
 // them read each input once, write each output once and keep every
-// intermediate in registers (the pow table in shared memory).  Against
-// the operation bound, the lane groups put more warps on more SMs to
-// hide the latency of a row's one dependent chain.
+// intermediate in registers (the pow table and fp_mul's row tiles in
+// shared memory).  fp_mul reads and writes 16-byte vectors through
+// its tiles; against the latency of a row's one dependent chain, the
+// lane groups put more warps on more SMs.
 //
 // Each launcher has a plain C interface for ctypes: device pointers and
 // the stream arrive as void*, the kernel is queued on that stream, and
@@ -75,7 +76,8 @@ struct PowDigits {
 
 constexpr int POW_TAB_WORDS = 14 * 8;  // a row's table, entries 2..15
 
-extern __shared__ u32 eg_smem[];
+// 16-byte aligned: fp_mul's row tiles are read and written as uint4
+extern __shared__ __align__(16) u32 eg_smem[];
 
 static __device__ __forceinline__ u32 pow_digit(const PowDigits& e, int i) {
   const int q = i >> 3;
@@ -207,16 +209,136 @@ k_glv_digits(const u32* u1, const u32* u2, int B, int Bpad, u32* dig,
   for (int t = 4; t < 8; ++t) neg[(size_t)t * Bpad + b] = 0;
 }
 
-// #7 fp_mul_pallas
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_fp_mul(const u32* a, const u32* bv, int M, u32* out) {
-  EG_ROW(M)
-  u32 A[16], Bv[16], O[16];
-  load16(A, a + (size_t)16 * b);
-  load16(Bv, bv + (size_t)16 * b);
-  fp_mul(O, A, Bv);
-  store16(out + (size_t)16 * b, O);
+// #7 fp_mul_pallas: the relaxed F_P product of [M, 16] rows, bound by
+// bytes (192 a row against 997 operations).  One thread a row reading
+// its own 16 words at a 64-byte stride made each load of a warp touch
+// 32 separate sectors; here a block's rows go through shared memory, so
+// device memory is read and written as 16-byte vectors, neighbouring
+// threads on neighbouring addresses (ld.global.nc in, evict-first out:
+// each byte is touched once).  A block of `threads` holds threads / T
+// rows, each row a group of T lanes (field.cuh grp_fp_mul; T = 1 is
+// fp_mul itself).  The tile is [rows][4] uint4 with chunk c of row r at
+// slot 4r + (c ^ ((r >> 1) & 3)): the copy's 8 neighbouring uint4s (two
+// rows) and a row's reads by 8 neighbouring rows each cover all 32 banks
+// once.  An operand whose address is not 16-byte aligned (a view of any
+// contiguous [M, 16] tensor; `vec` is 0) is copied a word a thread,
+// still neighbour to neighbour; the output is allocated aligned.
+static __device__ __forceinline__ int tile_slot(int r, int c) {
+  return 4 * r + (c ^ ((r >> 1) & 3));
 }
+
+// Rows [0, n) of `a` and `b` into the tiles ta and tb, all loads issued
+// before any is stored.  4 * rows / blockDim.x = 4 / T uint4s of each
+// operand a thread (half the threads at T = 8).
+template <int T>
+static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
+                                               const u32* a, const u32* b,
+                                               int n, int vec) {
+  if (vec) {
+    constexpr int V = (4 + T - 1) / T;
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    const uint4* b4 = reinterpret_cast<const uint4*>(b);
+    uint4 va[V], vb[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 4 * n) {
+        va[k] = __ldg(a4 + i);
+        vb[k] = __ldg(b4 + i);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 4 * n) {
+        ta[tile_slot(i >> 2, i & 3)] = va[k];
+        tb[tile_slot(i >> 2, i & 3)] = vb[k];
+      }
+    }
+  } else {
+    constexpr int W = 16 / T;
+    u32* wa = reinterpret_cast<u32*>(ta);
+    u32* wb = reinterpret_cast<u32*>(tb);
+    u32 va[W], vb[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 16 * n) {
+        va[k] = __ldg(a + i);
+        vb[k] = __ldg(b + i);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 16 * n) {
+        const int w = 4 * tile_slot(i >> 4, (i >> 2) & 3) + (i & 3);
+        wa[w] = va[k];
+        wb[w] = vb[k];
+      }
+    }
+  }
+}
+
+static __device__ __forceinline__ void tile_row(u32* o, const uint4* t,
+                                                int r) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint4 v = t[tile_slot(r, c)];
+    o[4 * c] = v.x;
+    o[4 * c + 1] = v.y;
+    o[4 * c + 2] = v.z;
+    o[4 * c + 3] = v.w;
+  }
+}
+
+template <int T>
+static __device__ __forceinline__ void fp_mul_rows(const u32* a,
+                                                   const u32* b, int M,
+                                                   int vec, u32* out) {
+  const EgGroup g = eg_group<T>(M);
+  const int rows = blockDim.x / T, lr = threadIdx.x / T;
+  const int r0 = blockIdx.x * rows;
+  const int n = M - r0 < rows ? M - r0 : rows;
+  const size_t o = (size_t)16 * r0;
+  uint4* ta = reinterpret_cast<uint4*>(eg_smem);
+  uint4* tb = ta + 4 * rows;
+  tile_in<T>(ta, tb, a + o, b + o, n, vec);
+  __syncthreads();
+  u32 A[16], Bv[16], O[16];
+  tile_row(A, ta, lr);
+  tile_row(Bv, tb, lr);
+  grp_fp_mul<T>(O, A, Bv, g.rank, g.mask);
+  // the product over its row of ta: lane rank writes chunks rank, rank +
+  // T, ... (every lane of the group has read the row by the product's
+  // last shuffle)
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c % T == (int)g.rank)
+      ta[tile_slot(lr, c)] =
+          make_uint4(O[4 * c], O[4 * c + 1], O[4 * c + 2], O[4 * c + 3]);
+  }
+  __syncthreads();
+  uint4* o4 = reinterpret_cast<uint4*>(out + o);
+  constexpr int V = (4 + T - 1) / T;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < 4 * n) __stcs(o4 + i, ta[tile_slot(i >> 2, i & 3)]);
+  }
+}
+
+#define EG_FP_MUL_KERNEL(T)                                              \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)     \
+      k_fp_mul_t##T(const u32* a, const u32* b, int M, int vec,          \
+                    u32* out) {                                          \
+    fp_mul_rows<T>(a, b, M, vec, out);                                   \
+  }
+
+EG_FP_MUL_KERNEL(1)
+EG_FP_MUL_KERNEL(2)
+EG_FP_MUL_KERNEL(4)
+EG_FP_MUL_KERNEL(8)
 
 // #8 fp_canon_pallas
 extern "C" __global__ void __launch_bounds__(EG_THREADS)
@@ -229,37 +351,58 @@ k_fp_canon(const u32* a, int M, u32* out) {
 }
 
 // #10 recover_finish_pallas: qx, qy [B, 16], ok [B], and the keccak
-// block words [34, Bpad] (threads cover Bpad; rows past B finish a zero
-// point, as the reference's padded lanes do).
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_recover_finish(const u32* X, const u32* Y, const u32* Z, const u32* zi,
-                 const u32* ok_in, int B, int Bpad, u32* qx, u32* qy,
-                 u32* ok, u32* words) {
-  EG_ROW(Bpad)
+// block words [34, Bpad] (groups cover Bpad; rows past B finish a zero
+// point, as the reference's padded lanes do).  Four dependent products
+// and three canonicalisations a row: one thread a row left most SMs idle
+// and nothing to hide the chain's latency, so a group of T lanes shares
+// each product (field.cuh grp_recover_finish).  Lane `rank` stores limbs
+// rank, rank + T, ... of qx and qy and the words k = rank (mod T): the
+// words are limb-major, so those stores stay coalesced across groups.
+template <int T>
+static __device__ __forceinline__ void finish_rows(
+    const u32* X, const u32* Y, const u32* Z, const u32* zi,
+    const u32* ok_in, int B, int Bpad, u32* qx, u32* qy, u32* ok,
+    u32* words) {
+  const EgGroup g = eg_group<T>(Bpad);
+  const bool live = g.in < B;
+  const size_t o = (size_t)16 * (live ? g.in : 0);
   u32 Xv[16], Yv[16], Zv[16], ZI[16], QX[16], QY[16], Wd[34];
-  u32 oki = 0;
-  if (b < B) {
-    const size_t o = (size_t)16 * b;
-    load16(Xv, X + o);
-    load16(Yv, Y + o);
-    load16(Zv, Z + o);
-    load16(ZI, zi + o);
-    oki = ok_in[b];
-  } else {
-    zero16(Xv);
-    zero16(Yv);
-    zero16(Zv);
-    zero16(ZI);
-  }
-  const u32 OK = recover_finish(QX, QY, Wd, Xv, Yv, Zv, ZI, oki);
-  if (b < B) {
-    store16(qx + (size_t)16 * b, QX);
-    store16(qy + (size_t)16 * b, QY);
-    ok[b] = OK;
-  }
 #pragma unroll
-  for (int k = 0; k < 34; ++k) words[(size_t)k * Bpad + b] = Wd[k];
+  for (int k = 0; k < 16; ++k) {
+    Xv[k] = live ? X[o + k] : 0u;
+    Yv[k] = live ? Y[o + k] : 0u;
+    Zv[k] = live ? Z[o + k] : 0u;
+    ZI[k] = live ? zi[o + k] : 0u;
+  }
+  const u32 oki = live ? ok_in[g.in] : 0u;
+  const u32 OK = grp_recover_finish<T>(QX, QY, Wd, Xv, Yv, Zv, ZI, oki,
+                                       g.rank, g.mask);
+  const int b = g.row;
+  if (b < B) {
+    store_split<T>(qx + (size_t)16 * b, QX, g.rank);
+    store_split<T>(qy + (size_t)16 * b, QY, g.rank);
+    if (g.rank == 0) ok[b] = OK;
+  }
+  if (b < Bpad) {
+#pragma unroll
+    for (int k = 0; k < 34; ++k)
+      if (k % T == (int)g.rank) words[(size_t)k * Bpad + b] = Wd[k];
+  }
 }
+
+#define EG_FINISH_KERNEL(T)                                                \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)       \
+      k_recover_finish_t##T(const u32* X, const u32* Y, const u32* Z,      \
+                            const u32* zi, const u32* ok_in, int B,        \
+                            int Bpad, u32* qx, u32* qy, u32* ok,           \
+                            u32* words) {                                  \
+    finish_rows<T>(X, Y, Z, zi, ok_in, B, Bpad, qx, qy, ok, words);        \
+  }
+
+EG_FINISH_KERNEL(1)
+EG_FINISH_KERNEL(2)
+EG_FINISH_KERNEL(4)
+EG_FINISH_KERNEL(8)
 
 // #11 keccak_rows_pallas: one Keccak-f[1600] per column of [34, wide].
 extern "C" __global__ void __launch_bounds__(EG_THREADS)
@@ -358,11 +501,22 @@ extern "C" int eg_glv_digits(const void* u1, const void* u2, int B, int Bpad,
   return (int)cudaGetLastError();
 }
 
+typedef void (*FpMulKernel)(const u32*, const u32*, int, int, u32*);
+static const FpMulKernel FP_MUL[] = {k_fp_mul_t1, k_fp_mul_t2, k_fp_mul_t4,
+                                     k_fp_mul_t8};
+
+// vec: 1 when a and b are 16-byte aligned; out must be.
 extern "C" int eg_fp_mul(const void* a, const void* b, int M, void* out,
-                         void* stream) {
+                         int vec, int lanes, int threads, void* stream) {
   if (M <= 0) return 0;
-  k_fp_mul<<<eg_grid(M), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const u32*)a, (const u32*)b, M, (u32*)out);
+  if (!eg_lanes_ok(lanes, threads) || (size_t)out % 16 ||
+      (vec && ((size_t)a % 16 || (size_t)b % 16)))
+    return (int)cudaErrorInvalidValue;
+  // two tiles of threads / lanes rows: at most 32 KB
+  const size_t smem = (size_t)(threads / lanes) * 2 * 64;
+  FP_MUL[lanes_index(lanes)]<<<eg_lanes_grid(M, lanes, threads), threads,
+                               smem, EG_STREAM(stream)>>>(
+      (const u32*)a, (const u32*)b, M, vec, (u32*)out);
   return (int)cudaGetLastError();
 }
 
@@ -373,12 +527,24 @@ extern "C" int eg_fp_canon(const void* a, int M, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
+typedef void (*FinishKernel)(const u32*, const u32*, const u32*,
+                             const u32*, const u32*, int, int, u32*, u32*,
+                             u32*, u32*);
+static const FinishKernel FINISH[] = {k_recover_finish_t1,
+                                      k_recover_finish_t2,
+                                      k_recover_finish_t4,
+                                      k_recover_finish_t8};
+
 extern "C" int eg_recover_finish(const void* X, const void* Y, const void* Z,
                                  const void* zi, const void* ok_in, int B,
                                  int Bpad, void* qx, void* qy, void* ok,
-                                 void* words, void* stream) {
+                                 void* words, int lanes, int threads,
+                                 void* stream) {
   if (Bpad <= 0) return 0;
-  k_recover_finish<<<eg_grid(Bpad), EG_THREADS, 0, EG_STREAM(stream)>>>(
+  if (!eg_lanes_ok(lanes, threads) || B <= 0 || B > Bpad)
+    return (int)cudaErrorInvalidValue;
+  FINISH[lanes_index(lanes)]<<<eg_lanes_grid(Bpad, lanes, threads), threads,
+                               0, EG_STREAM(stream)>>>(
       (const u32*)X, (const u32*)Y, (const u32*)Z, (const u32*)zi,
       (const u32*)ok_in, B, Bpad, (u32*)qx, (u32*)qy, (u32*)ok, (u32*)words);
   return (int)cudaGetLastError();

@@ -33,11 +33,14 @@ operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.  The pow,
 the point table and the ladder, nearly all of a recovery's card time,
-run a group of T lanes a row (``csrc/field.cuh`` ``grp_*``), so that a
-batch puts more warps on more SMs; :func:`lanes_for` picks T and the
-block size from the row count, and :func:`pow_mod_lanes`,
-:func:`point_table_lanes` and :func:`strauss_tab_lanes` launch any
-instance (every one gives the same bits).
+and ``fp_mul`` and the finish run a group of T lanes a row
+(``csrc/field.cuh`` ``grp_*``), so that a batch puts more warps on more
+SMs; :func:`lanes_for` picks T and the block size from the row count,
+and :func:`pow_mod_lanes`, :func:`point_table_lanes`,
+:func:`strauss_tab_lanes`, :func:`fp_mul_lanes` and
+:func:`recover_finish_lanes` launch any instance (every one gives the
+same bits).  ``fp_mul`` moves its rows through shared memory, so that
+device memory sees 16-byte accesses, neighbour to neighbour.
 
 The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
 sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
@@ -141,8 +144,8 @@ def bpad(b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# lanes a row of the pow, point-table and ladder kernels (csrc/recover.cu,
-# ladder.cu)
+# lanes a row of the pow, point-table, ladder, fp_mul and finish kernels
+# (csrc/recover.cu, ladder.cu)
 # ---------------------------------------------------------------------------
 
 LANES = build.LANES            # the instances of each kernel
@@ -156,7 +159,13 @@ LANE_THREADS = (64, 128, 256)   # the block sizes they take
 # whose rows * lanes threads still run in one wave; past 8192 rows, where
 # the main path launches no pow mod N, that one keeps one lane a row; the
 # ladder keeps T = 4 (T = 2 spills a few bytes), and so does the point
-# table (T = 8 takes two waves there).
+# table (T = 8 takes two waves there).  fp_mul and the finish are swept
+# at the same counts (fp_mul also at 16384 and 131072) on cold times: a
+# launch of either takes less than the wrapper's host time, which back
+# to back events would measure.  fp_mul takes 4 lanes a row up to 8192
+# rows, some 8% faster than one, and 2 beyond, within 1% of one lane
+# where bytes bound it; the finish takes 4 lanes in blocks of 128 at
+# every count (within 2% of the fastest, about 1.5x faster than one).
 LANES_RULE = {
     "strauss_tab": ((256, 4, 128), (4096, 8, 64), (None, 4, 256)),
     "point_table": ((1024, 8, 128), (4096, 8, 256), (None, 4, 256)),
@@ -164,12 +173,15 @@ LANES_RULE = {
                   (16384, 1, 128), (None, 1, 256)),
     "pow_mod_n": ((256, 4, 128), (2048, 8, 64), (4096, 4, 128),
                   (8192, 2, 128), (None, 1, 128)),
+    "fp_mul": ((8192, 4, 64), (16384, 2, 64), (None, 2, 128)),
+    "recover_finish": ((None, 4, 128),),
 }
 
 
 def lanes_for(kernel: str, rows: int, device="cuda") -> tuple[int, int]:
-    """``(lanes a row, threads a block)`` of ``kernel`` (``"strauss_tab"``,
-    ``"point_table"``, ``"pow_mod_p"`` or ``"pow_mod_n"``) at ``rows``
+    """``(lanes a row, threads a block)`` of ``kernel`` (a key of
+    ``LANES_RULE``: ``"strauss_tab"``, ``"point_table"``, ``"pow_mod_p"``,
+    ``"pow_mod_n"``, ``"fp_mul"`` or ``"recover_finish"``) at ``rows``
     rows: the one rule the wrappers launch by.  A CPU device takes the
     plain version, whose arithmetic is one thread's: ``(1, 128)``."""
     if rows <= 0:
@@ -572,13 +584,13 @@ _ARGTYPES = {
     "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
     "eg_u1u2": [_P, _P, _P, _I, _P, _P, _P],
     "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _P],
-    "eg_fp_mul": [_P, _P, _I, _P, _P],
+    "eg_fp_mul": [_P, _P, _I, _P, _I, _I, _I, _P],
     "eg_fp_canon": [_P, _I, _P, _P],
     **{f"eg_strauss_t{t}": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P]
        for t in build.LANES},
     **{f"eg_point_table_t{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
        for t in build.LANES},
-    "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_P],
+    "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_I] * 2 + [_P],
     "eg_keccak_rows": [_P, _I, _P, _P],
     "eg_init_verify": [_P, _I],
     "eg_fn_mul": [_P, _P, _I, _P, _P],
@@ -839,8 +851,31 @@ def _unary(name: str, a, plain):
 
 def fp_mul_pallas(a, b):
     """``[M, 16] x [M, 16] -> [M, 16]`` relaxed F_P product.  Replaces
-    ``fp_mul_pallas`` (pallas_kernels.py:279)."""
-    return _binary("fp_mul", a, b, fp_mul_plain)
+    ``fp_mul_pallas`` (pallas_kernels.py:279), on :func:`lanes_for`'s
+    lanes a row.  Any contiguous ``[M, 16]`` int32 operands, views at
+    any offset included."""
+    lanes, threads = lanes_for("fp_mul", max(_rows(a), 1), a.device)
+    return fp_mul_lanes(a, b, lanes, threads)
+
+
+def fp_mul_lanes(a, b, lanes: int, threads: int):
+    """:func:`fp_mul_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_fp_mul_t<lanes>``.  The kernel reads
+    16-byte vectors where both operands start on a 16-byte boundary and
+    single words otherwise (a view 4, 8 or 12 bytes in), without a copy;
+    the output is a fresh, aligned tensor.  Every instance gives the
+    same bits; the wrapper launches :func:`lanes_for`'s, and
+    chip_smoke.py phase lanes times them all."""
+    _check_lanes(lanes, threads)
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    _check(b, "b", (M, NLIMBS))
+    if not _on_card(a, b):
+        return fp_mul_plain(a, b)
+    out = _empty((M, NLIMBS), a)
+    vec = int(a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    _launch("fp_mul", "eg_fp_mul", a, b, M, out, vec, lanes, threads)
+    return out
 
 
 def fp_canon_pallas(a):
@@ -890,7 +925,19 @@ def strauss_tab_lanes(dig, neg, trx, tlrx, try_, batch: int, lanes: int,
 def recover_finish_pallas(X, Y, Z, zi_raw, ok_in):
     """``(X, Y, Z, zi_raw) [B, 16]``, ``ok_in [B]`` -> ``(qx, qy [B, 16]
     canonical and masked, ok [B], words [34, Bpad])``.  Replaces
-    ``recover_finish_pallas`` (pallas_kernels.py:1685)."""
+    ``recover_finish_pallas`` (pallas_kernels.py:1685), on
+    :func:`lanes_for`'s lanes a row (of the Bpad rows it covers)."""
+    lanes, threads = lanes_for("recover_finish", max(bpad(_rows(X)), 1),
+                               X.device)
+    return recover_finish_lanes(X, Y, Z, zi_raw, ok_in, lanes, threads)
+
+
+def recover_finish_lanes(X, Y, Z, zi_raw, ok_in, lanes: int, threads: int):
+    """:func:`recover_finish_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_recover_finish_t<lanes>``.  Every
+    instance gives the same bits; the wrapper launches
+    :func:`lanes_for`'s, and chip_smoke.py phase lanes times them all."""
+    _check_lanes(lanes, threads)
     B = _rows(X)
     for t, what in ((X, "X"), (Y, "Y"), (Z, "Z"), (zi_raw, "zi_raw")):
         _check(t, what, (B, NLIMBS))
@@ -901,7 +948,7 @@ def recover_finish_pallas(X, Y, Z, zi_raw, ok_in):
     qx, qy = _empty((B, NLIMBS), X), _empty((B, NLIMBS), X)
     ok, words = _empty((B,), X), _empty((34, wide), X)
     _launch("recover_finish", "eg_recover_finish", X, Y, Z, zi_raw, ok_in, B,
-            wide, qx, qy, ok, words)
+            wide, qx, qy, ok, words, lanes, threads)
     return qx, qy, ok, words
 
 

@@ -21,8 +21,10 @@ The rules aim at the fewest instructions the card could issue, so that
 an operation bound counts no more than the card does.
 ``chip_smoke.py`` (phase ``sass``) checks it on every run against the
 ``sm_90a`` code: each loop of the product chain against ``fp_mul``
-(997 counted), each loop of the pow against ``fp_sqr`` (757), and each
-kernel without a branch or a call against its instruction count.
+(997 counted), each loop of the pow against ``fp_sqr`` (757), each
+kernel without a branch or a call against its instruction count, and
+the shortest path through each fp_mul and finish instance against a
+lane's share of the row's count (the count over T).
 
 ``HELPERS`` gives each device function of ``field.cuh`` its own
 operations (its loops, counted by hand) and the counted functions it
@@ -222,9 +224,6 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
                       "fn_red_cols<32>": 4, "fn_sub": 3, "glv_sign_split": 2,
                       "glv_digits33": 2}),
     "limbs_to_words_be": (8, {}),
-    "recover_finish": (2, {"is_zero_mod": 1, "cond_sub_p": 3, "fp_sqr": 1,
-                           "fp_mul": 3, "select16": 4,
-                           "limbs_to_words_be": 2}),
 }
 
 # the T-lane forms of field.cuh, templates on T: (a lane's own
@@ -250,6 +249,11 @@ GROUP: dict[str, tuple] = {
         "grp_fp_sqr<T>": 3, "grp_fp_mul<T>": 8, "fp_sub": 6,
         "fp_mul_small": 5, "is_zero_mod": 3, "select16": 5,
         "grp_jac_double<T>": 1}),
+    # #10's row: the ok product and its 1 - inf; the canonicalisations,
+    # selects and words run whole in every lane
+    "grp_recover_finish": (lambda T: 2, {
+        "is_zero_mod": 1, "cond_sub_p": 3, "grp_fp_sqr<T>": 1,
+        "grp_fp_mul<T>": 3, "select16": 4, "limbs_to_words_be": 2}),
 }
 
 # grp_jac_add_mixed's counted calls that run only where the points
@@ -350,10 +354,12 @@ def _at(T: int, calls: dict[str, int]) -> int:
 def per_lane(T: int, windows: int = 33, negations: float = 0.0,
              ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations one lane of a T-lane group issues for its row in
-    the pow, ladder and point-table kernels: every window's work,
-    whatever its digit (``negations``: the mean number of flagged adds a
-    row; at T = 1, the one thread's), and the table's doubling and 13
-    adds on a row whose points differ."""
+    the pow, ladder, point-table, fp_mul and finish kernels: every
+    window's work, whatever its digit (``negations``: the mean number of
+    flagged adds a row; at T = 1, the one thread's), the table's doubling
+    and 13 adds on a row whose points differ, one product (fp_mul) and
+    the finish's four products with its canonicalisations, selects and
+    words."""
     mul, sqr = ops(f"grp_fp_mul<{T}>"), ops(f"grp_fp_sqr<{T}>")
     fn_mul = ops(f"grp_fn_mul<{T}>")
     fn_sqr = fn_mul - (SQR_SAVED if T == 1 else 0)
@@ -370,6 +376,8 @@ def per_lane(T: int, windows: int = 33, negations: float = 0.0,
                         + negations * ops("fp_neg")
                         + ladder_doublings * (dbl - _at(T, ADD_SUM_CALLS))),
         "point_table": 13 * madd + dbl,
+        "fp_mul": mul,
+        "recover_finish": ops(f"grp_recover_finish<{T}>"),
     }
 
 
@@ -444,7 +452,7 @@ def per_row(windows: int = 33, negations: float = 0.0,
         "fp_mul": mul,
         "fp_canon": ops("cond_sub_p"),
         "strauss_tab": ladder,
-        "recover_finish": ops("recover_finish"),
+        "recover_finish": ops("grp_recover_finish<1>"),
         "keccak_rows": ops("keccak_words"),
         "strauss_tab_rows8": ladder,
         "keccak_rows_grid": KECCAK_ROUND,

@@ -46,11 +46,11 @@ def _limbs(rng, n, bound=1 << 256):
 def test_build_reports_every_kernel(dev):
     info = build.build()
     lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss",
-                                     "point_table") for t in K.LANES}
+                                     "point_table", "fp_mul",
+                                     "recover_finish") for t in K.LANES}
     assert set(info["ptxas"]) >= lanes | {
         "k_recover_prelude", "k_y_fix", "k_u1u2",
-        "k_glv_digits", "k_fp_mul", "k_fp_canon",
-        "k_recover_finish", "k_keccak_rows", "k_fn_mul",
+        "k_glv_digits", "k_fp_canon", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
         "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
@@ -135,13 +135,67 @@ def test_point_table_every_lane_instance(dev):
                 _same(got, tuple(w[:, :rows] for w in want))
 
 
+def test_fp_mul_every_lane_instance_on_any_view(dev):
+    """Every (lanes, threads) instance of fp_mul against the plain version,
+    bit for bit, at ragged row counts up to 131072, and on views 4, 8 and
+    12 bytes off a 16-byte boundary as either operand (the word path):
+    no copy, no fallback, one launch a call."""
+    rng = np.random.default_rng(29)
+    M = 131072
+    a = K.from_reference(rng.integers(0, 1 << 16, (M, 16)).astype(
+        np.uint32), dev)
+    a[:8] = K.from_reference(_limbs(rng, 8), dev)
+    a[8] = 0xFFFF
+    b = a.flip(0).contiguous()
+    want = K.fp_mul_plain(a, b)
+    views = []
+    for off in (1, 2, 3):
+        buf = torch.empty(16 * 4097 + off, dtype=torch.int32, device=dev)
+        views.append(buf[off:].view(4097, 16))
+        views[-1].copy_(a[:4097])
+    K.reset_launches()
+    calls = 0
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, M):
+                _same(K.fp_mul_lanes(a[:rows], b[:rows], lanes, threads),
+                      want[:rows])
+                calls += 1
+            for v in views:
+                _same(K.fp_mul_lanes(v, b[:4097], lanes, threads),
+                      want[:4097])
+                _same(K.fp_mul_lanes(b[:4097], v, lanes, threads),
+                      K.fp_mul_plain(b[:4097], v))
+                calls += 2
+    assert K.LAUNCHES["fp_mul"] == calls
+
+
+def test_finish_every_lane_instance(dev):
+    """Every (lanes, threads) instance of the finish against the plain
+    version, bit for bit (qx, qy, ok and all Bpad columns of the words),
+    on rows with points at infinity and dropped oks, at ragged batches."""
+    rng = np.random.default_rng(30)
+    B = 8192
+    X, Y, Z, zi = (K.from_reference(_limbs(rng, B), dev) for _ in range(4))
+    Z[::97] = 0
+    ok = K.from_reference(rng.integers(0, 2, B).astype(np.uint32), dev)
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, 300):
+                ins = tuple(t[:rows] for t in (X, Y, Z, zi, ok))
+                _same(K.recover_finish_lanes(*ins, lanes, threads),
+                      K.recover_finish_plain(*ins))
+
+
 def test_lanes_rule_launches_clean_instances(dev):
     """The instances lanes_for picks build with no stack frame and no
     spill."""
     ptxas = build.build()["ptxas"]
     for kernel, rule in K.LANES_RULE.items():
         name = {"strauss_tab": "k_strauss", "pow_mod_p": "k_pow_p",
-                "pow_mod_n": "k_pow_n", "point_table": "k_point_table"}[kernel]
+                "pow_mod_n": "k_pow_n", "point_table": "k_point_table",
+                "fp_mul": "k_fp_mul",
+                "recover_finish": "k_recover_finish"}[kernel]
         for _, lanes, _ in rule:
             rec = ptxas[f"{name}_t{lanes}"]
             assert rec["stack_bytes"] == rec["spill_store_bytes"] == 0, rec
@@ -503,7 +557,9 @@ def test_profile_window_sessions_back_to_back(dev):
     for _ in range(2):
         events, wall = profutil.profile_window(
             lambda: K.fp_mul_pallas(a, a), reps=3, device=dev)
-        assert [n for n, _ in events if n.startswith("k_")] == ["k_fp_mul"] * 3
+        lanes = K.lanes_for("fp_mul", 4096)[0]
+        assert [n for n, _ in events
+                if n.startswith("k_")] == [f"k_fp_mul_t{lanes}"] * 3
         assert wall > 0
     cold = profutil.cuda_event_ms(lambda: K.fp_mul_pallas(a, a), cold=True,
                                   device=dev)

@@ -340,3 +340,28 @@ def test_sass_listing_parse():
     assert build.loop_bodies(code["k_line"]) == []
     assert [build.straight_line(code[f])
             for f in ("k_loop", "k_line", "k_call")] == [False, True, False]
+
+
+_SASS_PATHS = """
+		Function : k_fork
+        /*0000*/                   IADD3 R0, R1, R2, R3 ;     /* 0x0 */
+        /*0010*/               @P0 BRA 0x40 ;                 /* 0x0 */
+        /*0020*/                   IMAD R0, R0, R0, RZ ;      /* 0x0 */
+        /*0030*/                   BRA 0x50 ;                 /* 0x0 */
+        /*0040*/                   LOP3.LUT R0, R0, 0xffff, RZ, 0xc0, !PT ; /* 0x0 */
+        /*0050*/                   STG.E [R2.64], R0 ;        /* 0x0 */
+        /*0060*/                   EXIT ;                     /* 0x0 */
+        /*0070*/                   BRA 0x70;                  /* 0x0 */
+"""
+
+
+def test_least_path_through_the_code():
+    """The fewest instructions issued from entry to an EXIT: either side
+    of a predicated branch, an unconditional branch always, a predicated
+    EXIT ends a path, a loop's body once; a call has no such count."""
+    code = build.parse_sass(_SASS + _SASS_PATHS)
+    assert build.least_path(code["k_fork"]) == 5   # via 0x40: 0, 10, 40, 50, 60
+    assert build.least_path(code["k_line"]) == 2   # IADD3, @!P0 EXIT
+    assert build.least_path(code["k_loop"]) == 6   # the loop once, EXIT
+    with pytest.raises(ValueError):
+        build.least_path(code["k_call"])

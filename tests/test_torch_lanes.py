@@ -1,6 +1,7 @@
-"""The pow, point-table and ladder kernels' T-lane design on the CPU: the
-rule that picks the lanes a row (``lanes_for``), the CPU routing of the
-launch entries that take any instance, the point table's first entry as
+"""The T-lane design of the pow, point-table, ladder, fp_mul and finish
+kernels on the CPU: the rule that picks the lanes a row (``lanes_for``),
+the CPU routing of the launch entries that take any instance (fp_mul also
+on a view off a 16-byte boundary), the point table's first entry as
 the doubling that the kernels run, and the lane split of a product, modelled
 in numpy as ``csrc/field.cuh`` computes it (``grp_pick``, ``grp_shift``,
 ``grp_cols``, ``grp_fold_cols``, ``fold32``, ``grp_sum``), held against the reference's
@@ -45,7 +46,7 @@ def test_lanes_for_rejects_what_it_cannot_launch(kernel):
     with pytest.raises(ValueError):
         K.lanes_for(kernel, 0)
     with pytest.raises(KeyError):
-        K.lanes_for("fp_mul", 8)
+        K.lanes_for("fp_canon", 8)
 
 
 def _rows(seed, n, bound=1 << 256):
@@ -126,6 +127,82 @@ def test_point_table_first_entry_is_the_doubling():
     table = K.point_table_plain(K.from_reference(px), K.from_reference(py))
     for got, want in zip(field.jac_double(PX, PY, one), table):
         assert torch.equal(got.to(torch.int32), want[0])
+
+
+def test_fp_mul_lane_entry_on_cpu_is_the_plain_version():
+    """Any fp_mul instance given CPU tensors runs the plain version, which
+    equals the reference's ``_k_mul``, and counts no launch."""
+    a, b = _rows(40, 9), _rows(41, 9)
+    a[0] = 0xFFFF
+    want = np.stack(pk._k_mul([a[:, k] for k in range(16)],
+                              [b[:, k] for k in range(16)], np), axis=-1)
+    ta, tb = K.from_reference(a), K.from_reference(b)
+    K.reset_launches()
+    for lanes, threads in ((1, 128), (2, 64), (8, 256)):
+        np.testing.assert_array_equal(
+            K.to_reference(K.fp_mul_lanes(ta, tb, lanes, threads)), want)
+    np.testing.assert_array_equal(K.to_reference(K.fp_mul_pallas(ta, tb)),
+                                  want)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_fp_mul_takes_a_view_off_alignment(off):
+    """A contiguous ``[M, 16]`` view 4, 8 or 12 bytes into its buffer (the
+    kernel's word path on the card) gives the reference's ``_k_mul``, as
+    either operand."""
+    a, b = _rows(42, 7), _rows(43, 7)
+    buf = torch.zeros(16 * 7 + off, dtype=torch.int32)
+    view = buf[off:].view(7, 16)
+    view.copy_(K.from_reference(a))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * off % 16
+    want = np.stack(pk._k_mul([a[:, k] for k in range(16)],
+                              [b[:, k] for k in range(16)], np), axis=-1)
+    np.testing.assert_array_equal(
+        K.to_reference(K.fp_mul_pallas(view, K.from_reference(b))), want)
+    np.testing.assert_array_equal(
+        K.to_reference(K.fp_mul_pallas(K.from_reference(b), view)), want)
+
+
+def test_finish_lane_entry_on_cpu_is_the_plain_version():
+    """Any finish instance given CPU tensors runs the plain version, which
+    equals the reference's ``_k_recover_finish`` (a point at infinity
+    and a dropped ok among the rows; the padded columns carry the
+    padding block of a zero message), and counts no launch."""
+    n = 6
+    X, Y, Z, zi = (_rows(44 + i, n) for i in range(4))
+    Z[1] = 0
+    ok = np.array([1, 1, 0, 1, 1, 1], np.uint32)
+    ins = [K.from_reference(t) for t in (X, Y, Z, zi, ok)]
+    want = pk._k_recover_finish(*([t[:, k] for k in range(16)]
+                                  for t in (X, Y, Z, zi)), ok, np)
+    K.reset_launches()
+    for lanes, threads in ((1, 64), (4, 128), (8, 256)):
+        qx, qy, got_ok, words = K.recover_finish_lanes(*ins, lanes, threads)
+        np.testing.assert_array_equal(K.to_reference(qx),
+                                      np.stack(want[0], axis=-1))
+        np.testing.assert_array_equal(K.to_reference(qy),
+                                      np.stack(want[1], axis=-1))
+        np.testing.assert_array_equal(K.to_reference(got_ok), want[2])
+        np.testing.assert_array_equal(K.to_reference(words)[:, :n],
+                                      np.stack(want[3]))
+        pad = np.zeros((34, 1), np.uint32)
+        pad[16], pad[33] = 1, 0x80000000
+        np.testing.assert_array_equal(
+            K.to_reference(words)[:, n:],
+            np.broadcast_to(pad, (34, K.bpad(n) - n)))
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
+                                           (1, 512)])
+def test_fp_mul_and_finish_entries_reject_other_instances(lanes, threads):
+    a = K.from_reference(_rows(45, 2))
+    ok = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        K.fp_mul_lanes(a, a, lanes, threads)
+    with pytest.raises(ValueError):
+        K.recover_finish_lanes(a, a, a, a, ok, lanes, threads)
 
 
 @pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),

@@ -5,7 +5,8 @@ the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it
 ``verify.cu`` and ``glue.cu``; every kernel of ``tiling.cu`` and
 ``profile.cu`` has exactly the counted call sites listed for it, and so
 does ``profile.cu``'s chain template; the point table of ``ladder.cu``
-makes the calls its lane count counts."""
+and the fp_mul and finish kernels of ``recover.cu`` make the calls their
+lane counts count."""
 
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ GLUE_CU = FIELD_CUH.with_name("glue.cu")
 TILING_CU = FIELD_CUH.with_name("tiling.cu")
 PROFILE_CU = FIELD_CUH.with_name("profile.cu")
 LADDER_CU = FIELD_CUH.with_name("ladder.cu")
+RECOVER_CU = FIELD_CUH.with_name("recover.cu")
 # functions of field.cuh that move values and count no operations
 # (rotl64 is counted inside keccak_words' own operations; rows8_at is
 # the address of a rows8 tile element)
@@ -124,7 +126,8 @@ def test_a_lane_issues_between_its_share_and_the_row(T):
     each lane's pow loop to); what a row needs, the bound's count, is no
     more than the one thread issues."""
     one, lane = opcount.per_lane(1), opcount.per_lane(T)
-    for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab", "point_table"):
+    for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab", "point_table",
+                   "fp_mul", "recover_finish"):
         assert one[kernel] / T <= lane[kernel] < one[kernel]
     assert opcount.ops(f"grp_fp_sqr<{T}>") >= opcount.ops("fp_sqr") // T
     assert opcount.per_row()["strauss_tab"] < one["strauss_tab"]
@@ -204,6 +207,51 @@ def test_point_table_lane_counts_its_doubling_and_13_adds():
         assert opcount.per_lane(T)["point_table"] == (
             13 * opcount.ops(f"grp_jac_add_mixed<{T}>")
             + opcount.ops(f"grp_jac_double<{T}>"))
+
+
+def _template_body(path, name) -> str:
+    """The body of the template function ``name`` of a kernel source,
+    comments removed."""
+    src = _source(path)
+    start = src.index("{", src.index(name + "("))
+    depth, i = 0, start
+    while True:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        i += 1
+        if depth == 0:
+            break
+    return src[start:i]
+
+
+@pytest.mark.parametrize("body,calls,kernel", [
+    ("fp_mul_rows", {"grp_fp_mul<T>": 1}, "fp_mul"),
+    ("finish_rows", {"grp_recover_finish<T>": 1}, "recover_finish")])
+def test_recover_lane_kernels_make_their_counted_calls(body, calls, kernel):
+    """``k_fp_mul_t<T>`` and ``k_recover_finish_t<T>`` (recover.cu) make
+    one group call a row, which ``per_lane`` counts at each T and
+    ``per_row`` at T = 1, the one-thread function's count."""
+    assert dict(_counted_calls(_template_body(RECOVER_CU, body))) == calls
+    (callee,) = calls
+    for T in (1, 2, 4, 8):
+        assert opcount.per_lane(T)[kernel] == opcount.ops(
+            callee.replace("<T", f"<{T}"))
+    assert opcount.per_row()[kernel] == opcount.per_lane(1)[kernel]
+
+
+def test_group_finish_counts_its_products_and_its_whole_steps():
+    """The finish's four products shared out, its canonicalisations,
+    selects, zero test and words whole in every lane: at T = 1 the
+    one-thread finish (4058, as before the lanes); more lanes take less of
+    the products only."""
+    whole = (2 + opcount.ops("is_zero_mod") + 3 * opcount.ops("cond_sub_p")
+             + 4 * opcount.ops("select16")
+             + 2 * opcount.ops("limbs_to_words_be"))
+    for T in (1, 2, 4, 8):
+        assert opcount.ops(f"grp_recover_finish<{T}>") == whole + (
+            opcount.ops(f"grp_fp_sqr<{T}>") + 3 * opcount.ops(
+                f"grp_fp_mul<{T}>"))
+    assert opcount.per_row()["recover_finish"] == (
+        whole + opcount.ops("fp_sqr") + 3 * opcount.ops("fp_mul")) == 4058
 
 
 def test_the_sum_runs_only_where_the_points_differ():

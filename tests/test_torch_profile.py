@@ -253,3 +253,17 @@ def test_launch_census_sorts_kernels_by_kind():
                                 "Memset (Device)"}
     assert out["kernel_us"] == 712.5 and out["copy_us"] == 3.0
     assert out["us"]["k_fp_mul"] == 11.0
+
+
+def test_launch_census_keeps_each_hand_written_launch():
+    """The device us of every hand-written launch, by name in the order
+    they ran (the fp_mul and finish launches of a recovery, one by one);
+    ATen kernels and copies are summed only."""
+    events = [("k_fp_mul_t1", 5.0), ("k_recover_finish_t8", 9.0),
+              ("k_fp_mul_t1", 6.0), ("Memset (Device)", 1.0),
+              ("void at::native::reduce_kernel<512, 1>", 2.0),
+              ("k_fp_mul_t1", 4.5)]
+    out = hlo_census.census(events)
+    assert out["launch_us"] == {"k_fp_mul_t1": [5.0, 6.0, 4.5],
+                                "k_recover_finish_t8": [9.0]}
+    assert out["us"]["k_fp_mul_t1"] == 15.5

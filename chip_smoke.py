@@ -11,13 +11,13 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    nvcc for each source, ``ladder.cu`` one for each lane count, all
    started together); seconds, and registers, stack frame and spills
    per kernel, which must be 0 and 0 for every pow, table and ladder
-   instance ``lanes_for`` can pick and for every fp_mul and finish
-   instance.  Then sass: the built code (``cuobjdump``)
+   instance ``lanes_for`` can pick and for every GLV, fp_mul, fp_canon
+   and finish instance.  Then sass: the built code (``cuobjdump``)
    issues at least the operations ``ops/opcount.py`` counts, in every
    kernel without a branch or a call and in every loop of the product
    chain and of the pow (a T-lane pow's loops against a lane's share,
-   the count over T, and so on the shortest path through each fp_mul and
-   finish instance), so no operation
+   the count over T, and so on the shortest path through each GLV,
+   fp_mul, fp_canon and finish instance), so no operation
    bound counts more than the card does; with the instruction mix of the
    chain's loop.
 2. kernel: each of the twenty-one kernels at its path's shapes on
@@ -30,28 +30,32 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    B = 4000 (a config-4 block's transaction hashes); the six glue
    kernels of the un-fused path at its shapes for a [4, 1024] window
    (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
-   checked at a ragged 4097 rows (fp_mul also on views 4, 8 and 12
-   bytes off a 16-byte boundary).  fp_mul and the finish also timed one
-   call at a time on cold L2 (``cold_ms``), with the share of the bound
-   that time reaches.
+   checked at a ragged 4097 rows (fp_mul and fp_canon also on views 4,
+   8 and 12 bytes off a 16-byte boundary; the GLV split on the edge
+   scalars, fp_canon on values at and past P).  Every kernel of the
+   recovery path also timed one call at a time on cold L2 (``cold_ms``),
+   with the share of the bound that time reaches, fp_mul and fp_canon
+   beside a cold stream of the same bytes (``stream_cold_ms``).
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
    every row held against the host model, with the launch counts of
    that run (18 per batch).
 3b. lanes: every (T, block) instance of the pow, the point table, the
-   ladder, fp_mul and the finish (T = 1, 2, 4, 8 lanes a row; 64, 128,
-   256 threads) at 256, 1024, 4096 and 8192 rows (mod P and mod N for
-   the pow, and the table's 16384 and 131072 rows mod P, fp_mul also at
-   16384 and 131072, and on a ragged view 4 bytes off; the ladder also
-   on a recovery's
-   own inputs at 1024 and 8192; the point table on seeded points and
-   on the R of phase 3's block padded to its bucket, invalid rows and
-   zero-byte pad rows among them), bit for bit against the plain
-   version, timed by events and cold beside the bound, with registers,
-   stack and spills and the instance ``lanes_for`` picks, which must
-   beat T = 1 (fp_mul and the finish by cold times, within 3%; fp_mul
-   may pick T = 1).
+   ladder, the GLV split, fp_mul and the finish (T = 1, 2, 4, 8 lanes a
+   row; 64, 128, 256 threads), and every block size of fp_canon (one
+   lane a row), at 256, 1024, 4096 and 8192 rows (mod P and mod N for
+   the pow, and the table's 16384 and 131072 rows mod P, fp_mul and
+   fp_canon also at 16384 and 131072, fp_mul on a ragged view 4 bytes
+   off, fp_canon on a view 4 bytes off at 131072; the ladder also on a
+   recovery's own inputs at 1024 and 8192; the point table on seeded
+   points and on the R of phase 3's block padded to its bucket, invalid
+   rows and zero-byte pad rows among them), bit for bit against the
+   plain version, timed by events and cold beside the bound, with
+   registers, stack and spills and the instance ``lanes_for`` picks,
+   which must beat T = 1 (the GLV split, fp_mul, fp_canon and the finish
+   by cold times; fp_mul and the finish within 3%, and fp_mul may pick
+   T = 1; fp_canon's block within 3% of the fastest).
 4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
@@ -115,7 +119,7 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    at 1024 and the launch census ``hlo_census`` at 1024 and 8192 (its
    hand-written kernels by name must equal the fused path's 18 launches,
    a short window traced again as in phase 4; the device time of each
-   fp_mul and finish launch and the card's idle share of the window).  Then the
+   launch, by kernel, and the card's idle share of the window).  Then the
    harness's four kernels (``profile.cu``), one ``profile_kernel`` line
    for each kernel and shape: the 64-multiply chain on ``[16, B]``
    columns at lane blocks of 256 and 1024 (#20a, also at a ragged 4096 +
@@ -200,12 +204,18 @@ LANE_SHAPES = (("strauss_tab", 256), ("strauss_tab", 1024),
                ("pow_mod_p", 16384), ("pow_mod_p", 131072),
                *(("fp_mul", r) for r in (256, 1024, 4096, 8192, 16384,
                                          131072)),
-               *(("recover_finish", r) for r in (256, 1024, 4096, 8192)))
+               *(("recover_finish", r) for r in (256, 1024, 4096, 8192)),
+               *(("glv_digits", r) for r in (256, 1024, 4096, 8192)),
+               *(("fp_canon", r) for r in (256, 1024, 4096, 8192, 16384,
+                                           131072)))
 # the lane kernels whose launch takes less than the wrapper's host time:
 # timed cold beside events (phases kernel and lanes, which picks and
 # checks them by cold times); every instance must build clean, and phase
 # sass holds each on its shortest path
-SHORT_LANE_KERNELS = ("fp_mul", "recover_finish")
+SHORT_LANE_KERNELS = ("glv_digits", "fp_mul", "fp_canon", "recover_finish")
+# the lanes a row a kernel's instances take where not all of K.LANES
+# (fp_canon: one lane a row, its block size swept)
+KERNEL_LANES = {"fp_canon": (1,)}
 CENSUS_BATCHES = (1024, 8192)       # hlo_census's recoveries
 PROFILE_TRIES = 3                   # traced windows a profiled check takes
 # the ladder also on a recovery's own inputs: its digits' zeros are not
@@ -230,8 +240,16 @@ MUL_SMALL_K = {2: 1418, 3: 278, 4: 146, 8: 278}
 LANE_GLOBALS = {"pow_mod_p": "k_pow_p_t{}", "pow_mod_n": "k_pow_n_t{}",
                 "strauss_tab": "k_strauss_t{}",
                 "point_table": "k_point_table_t{}",
-                "fp_mul": "k_fp_mul_t{}",
+                "glv_digits": "k_glv_digits_t{}",
+                "fp_mul": "k_fp_mul_t{}", "fp_canon": "k_fp_canon",
                 "recover_finish": "k_recover_finish_t{}"}
+
+
+def lanes_of(kernel: str) -> tuple[int, ...]:
+    """The lanes a row of a lane kernel's instances."""
+    from eges_tpu_torch.ops import kernels as K
+
+    return KERNEL_LANES.get(kernel, K.LANES)
 
 
 def launched_instances(kernel: str) -> tuple[str, ...]:
@@ -356,7 +374,8 @@ def phase_build():
     launched = {g: info["ptxas"].get(g) for kernel in LANE_GLOBALS
                 for g in launched_instances(kernel)}
     launched.update({g: info["ptxas"].get(g) for k in SHORT_LANE_KERNELS
-                     for g in (LANE_GLOBALS[k].format(t) for t in K.LANES)})
+                     for g in (LANE_GLOBALS[k].format(t)
+                               for t in lanes_of(k))})
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
           "compiled": info["built"], "library": os.path.basename(
               info["path"]), "ptxas": info["ptxas"],
@@ -366,9 +385,9 @@ def phase_build():
              or r["spill_load_bytes"]}
     if dirty:
         raise AssertionError(f"the lane instances the wrappers launch "
-                             f"(and every fp_mul and finish instance) "
-                             f"must have no stack frame and no spill: "
-                             f"{dirty}")
+                             f"(and every GLV, fp_mul, fp_canon and finish "
+                             f"instance) must have no stack frame and no "
+                             f"spill: {dirty}")
     return info
 
 
@@ -404,7 +423,7 @@ def phase_sass(path):
              for fn, helper, t in held}
     paths = {fn: [round(OPS[k]) // t, round(opcount.per_lane(t)[k]),
                   build.least_path(code[fn])]
-             for k in SHORT_LANE_KERNELS for t in K.LANES
+             for k in SHORT_LANE_KERNELS for t in lanes_of(k)
              for fn in [LANE_GLOBALS[k].format(t)]}
     bad = [n for n, (counted, issued) in straight.items() if counted > issued]
     bad += [fn for fn, (_, share, sizes) in loops.items()
@@ -482,6 +501,12 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     # the random R tables meet the accumulator (the doubling path) with
     # odds of 2^-256 an add, so this run's data takes no ladder doubling
     OPS = opcount.per_row(**ladder_args(dig, neg, B)[0])
+    # the GLV split's edge scalars and fp_canon's values at and past P,
+    # from a generator of their own (the others' inputs stay as they were)
+    rng_e = np.random.default_rng(SEED + 11)
+    g1 = K.from_reference(tt.limb_rows(tt.glv_scalars(rng_e, B)), dev)
+    g2 = g1.flip(0).contiguous()
+    c_m = K.from_reference(tt.limb_rows(tt.canon_values(rng_e, M)), dev)
 
     # (name, [(kernel call, plain call, bytes, ops)] one entry per launch
     # of one batch on the main path)
@@ -506,9 +531,9 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
                    lambda: K.u1u2_plain(c_b, n1, n2),
                    nbytes(c_b, n1, n2) + 2 * 64 * B,
                    B * OPS["u1u2"])]),
-        ("glv_digits", [(lambda: K.glv_digits_pallas(n1, n2),
-                         lambda: K.glv_digits_plain(n1, n2),
-                         nbytes(n1, n2) + 4 * (33 * 8 + 8) * wide,
+        ("glv_digits", [(lambda: K.glv_digits_pallas(g1, g2),
+                         lambda: K.glv_digits_plain(g1, g2),
+                         nbytes(g1, g2) + 4 * (33 * 8 + 8) * wide,
                          wide * OPS["glv_digits"])]),
         ("point_table", [(lambda: K.point_table_pallas(px, py),
                           lambda: K.point_table_plain(px, py),
@@ -517,9 +542,9 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
         ("fp_mul", [(lambda: K.fp_mul_pallas(a_m, b_m),
                      lambda: K.fp_mul_plain(a_m, b_m),
                      3 * nbytes(a_m), M * OPS["fp_mul"])] * 5),
-        ("fp_canon", [(lambda: K.fp_canon_pallas(a_m),
-                       lambda: K.fp_canon_plain(a_m),
-                       2 * nbytes(a_m), M * OPS["fp_canon"])]),
+        ("fp_canon", [(lambda: K.fp_canon_pallas(c_m),
+                       lambda: K.fp_canon_plain(c_m),
+                       2 * nbytes(c_m), M * OPS["fp_canon"])]),
         ("strauss_tab", [(
             lambda: K.strauss_tab(dig, neg, *tabs, B),
             lambda: K.strauss_tab_plain(dig, neg, *tabs, B),
@@ -539,15 +564,23 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     glue, ragged = _glue_kernel_cases(dev, OPS)
     cases += glue
     ragged["fp_mul"] = _fp_mul_views(dev)
+    ragged["fp_canon"] = _fp_canon_views(dev)
     records = {}
     for name, launches in cases:
-        extra = _cold(launches) if name in SHORT_LANE_KERNELS else None
+        # every kernel of the main path also one call at a time on cold
+        # L2: back to back, a short launch shows the wrapper's host pace
+        extra = _cold(launches) if name in FUSED_RECOVER_LAUNCHES else None
         if name == "fp_mul":
             # what streaming the same bytes takes, cold: ATen's a ^ b reads
             # both operands and writes one tensor of their size (not the
             # same function: a floor of the measurement, no library time)
             extra["stream_cold_ms"] = len(launches) * cuda_event_ms(
                 lambda: a_m ^ b_m, reps=10, cold=True)
+        elif name == "fp_canon":
+            # the same for one operand: ATen's ~a reads it and writes a
+            # tensor of its size
+            extra["stream_cold_ms"] = len(launches) * cuda_event_ms(
+                lambda: ~c_m, reps=10, cold=True)
         records[name] = _check_kernel(name, launches, ragged.get(name, ()),
                                       RAGGED, clock_hz, ptxas, "kernel",
                                       extra)
@@ -590,6 +623,24 @@ def _fp_mul_views(dev):
         (a, view(b, 1)), (view(a, 2), view(b, 3))]
     return [(lambda x=x, y=y: K.fp_mul_pallas(x, y),
              lambda x=x, y=y: K.fp_mul_plain(x, y)) for x, y in pairs]
+
+
+def _fp_canon_views(dev):
+    """fp_canon's ragged checks at ``RAGGED`` rows of values at and past P:
+    aligned, and views that start 4, 8 and 12 bytes past a 16-byte
+    boundary (the kernel's word path, no copy)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K
+
+    a = K.from_reference(tt.limb_rows(tt.canon_values(
+        np.random.default_rng(SEED + 12), RAGGED)), dev)
+    views = [a]
+    for off in (1, 2, 3):
+        buf = torch.empty(16 * RAGGED + off, dtype=torch.int32, device=dev)
+        views.append(buf[off:].view(RAGGED, 16))
+        views[-1].copy_(a)
+    return [(lambda v=v: K.fp_canon_pallas(v), lambda v=v: K.fp_canon_plain(v))
+            for v in views]
 
 
 def phase_lanes(dev, clock_hz, ptxas, rows4):
@@ -649,6 +700,16 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
            for _ in range(4)]
     fin[2][::97] = 0                     # Z = 0: the point at infinity
     fin.append(K.from_reference(rng.integers(0, 2, B).astype(np.uint32), dev))
+    # the GLV split on the edge scalars and seeded ones (u2: u1 reversed);
+    # fp_canon on values at and past P, and on a view 4 bytes off
+    rng_e = np.random.default_rng(SEED + 13)
+    glv = K.from_reference(tt.limb_rows(tt.glv_scalars(rng_e, B)), dev)
+    glv = (glv, glv.flip(0).contiguous())
+    canon = K.from_reference(tt.limb_rows(tt.canon_values(rng_e, M)), dev)
+    want_canon = K.fp_canon_plain(canon)
+    buf = torch.empty(16 * M + 1, dtype=torch.int32, device=dev)
+    mis_c = buf[1:].view(M, 16)
+    mis_c.copy_(canon)
     slow = []
     shapes = ([(k, r, "seeded") for k, r in LANE_SHAPES]
               + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS]
@@ -670,6 +731,28 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
             if rows == 4096:
                 also = ((lambda lanes, threads: K.fp_mul_lanes(
                     mul[0][:RAGGED], mis, lanes, threads), want_mis),)
+        elif kernel == "glv_digits":
+            ins = tuple(t[:rows] for t in glv)
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = nbytes(*ins) + 4 * (33 * 8 + 8) * K.bpad(rows)
+            want = K.glv_digits_plain(*ins)
+
+            def call(lanes, threads, ins=ins):
+                return K.glv_digits_lanes(*ins, lanes, threads)
+        elif kernel == "fp_canon":
+            a = canon[:rows]
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = 2 * nbytes(a)
+            want = want_canon[:rows]
+
+            def call(lanes, threads, a=a):
+                return K.fp_canon_lanes(a, lanes, threads)
+
+            if rows == M:
+                also = ((lambda lanes, threads: K.fp_canon_lanes(
+                    mis_c, lanes, threads), want_canon),)
         elif kernel == "recover_finish":
             ins = tuple(t[:rows] for t in fin)
             row_ops = opcount.per_row()[kernel]
@@ -737,7 +820,7 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
             raise AssertionError(f"pow_mod_rows8 at {rows} rows: {local_ms} "
                                  f"ms beats its bound of {bound_ms} ms")
         inst = []
-        for lanes in K.LANES:
+        for lanes in lanes_of(kernel):
             share = opcount.per_lane(lanes, **lane_args)[kernel]
             for threads in K.LANE_THREADS:
                 err = max([max_abs_err(call(lanes, threads), want)]
@@ -780,8 +863,17 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                                                         / local_ms, 4),
                 "instances": inst}
         emit(line)
+        if kernel == "fp_canon":
+            # one lane a row: the pick is a block size, within 3% of the
+            # fastest
+            if ms_of[chosen] > 1.03 * ms_of[best]:
+                slow.append(f"fp_canon at {rows} rows: lanes_for's {chosen} "
+                            f"takes {ms_of[chosen]} ms against the fastest "
+                            f"{best}'s {ms_of[best]}")
+            continue
         # fp_mul may keep one lane a row: its pick need only not lose
-        limit = 1.03 if rows > B or kernel in SHORT_LANE_KERNELS else 1.0
+        limit = (1.03 if rows > B or kernel in ("fp_mul", "recover_finish")
+                 else 1.0)
         if ms_of[chosen] > limit * t1 or (
                 limit == 1.0 and ms_of[chosen] == t1) or (
                 kernel == "recover_finish" and chosen[0] == 1):
@@ -1859,18 +1951,16 @@ def phase_profile(dev):
         "add_one_f32", 0)
     out["census"] = {}
     for B, census in censuses.items():
-        # the device ms of each fp_mul and finish launch, in order
-        each = {name: [us / 1e3 for g, v in census["launch_us"].items()
-                       if g.startswith(prefix) for us in v]
-                for name, prefix in (("fp_mul", "k_fp_mul_t"),
-                                     ("recover_finish",
-                                      "k_recover_finish_t"))}
+        # the device ms of each launch of each kernel, in the order they
+        # ran
+        each = {}
+        for g, us in census["launch_order"]:
+            each.setdefault(wrapper_of[g], []).append(us / 1e3)
         out["census"][B] = {
             **{k: census[k] for k in (
                 "hand_written", "aten", "copy", "wall_ms", "kernel_ms",
                 "busy_share", "idle_share", "copy_us")},
-            "fp_mul_launch_ms": each["fp_mul"],
-            "recover_finish_launch_ms": each["recover_finish"]}
+            "launch_ms": each}
     out["launches"] = {k: v for k, v in launches.items() if v}
     emit(out)
     return launches

@@ -46,21 +46,24 @@ def kind_of(name: str) -> str:
 def census(events) -> dict:
     """``[(kernel name, device us)]`` -> counts and device us by name and
     kind, and each hand-written kernel's launches' device us in the order
-    they ran (``launch_us``)."""
+    they ran (``launch_us``, by name; ``launch_order``, all of them as
+    ``(name, us)``)."""
     count = collections.Counter()
     us = collections.Counter()
     launch_us: dict[str, list[float]] = {}
+    launch_order: list[tuple[str, float]] = []
     for name, dur in events:
         count[name] += 1
         us[name] += dur
         if kind_of(name) == "hand_written":
             launch_us.setdefault(name, []).append(dur)
+            launch_order.append((name, dur))
     by_kind: dict[str, dict[str, int]] = {"hand_written": {}, "aten": {},
                                           "copy": {}}
     for name, n in count.items():
         by_kind[kind_of(name)][name] = n
     return {"count": dict(count), "us": dict(us), **by_kind,
-            "launch_us": launch_us,
+            "launch_us": launch_us, "launch_order": launch_order,
             "kernel_us": sum(us[n] for n in count if kind_of(n) != "copy"),
             "copy_us": sum(us[n] for n in count if kind_of(n) == "copy")}
 

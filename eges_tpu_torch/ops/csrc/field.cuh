@@ -12,10 +12,10 @@
 //
 // The one thread per batch row that runs these functions keeps a value
 // in registers (arrays indexed only by unrolled constants); the compiler
-// spills what does not fit.  The pow, ladder, point-table, fp_mul and
-// finish kernels run the T-lane forms (grp_*<T>, below the one-thread
-// ones): a group of T lanes a row.  Constants live in __constant__
-// memory and are uploaded once per translation unit from Python
+// spills what does not fit.  The pow, ladder, point-table, fp_mul,
+// finish and GLV kernels run the T-lane forms (grp_*<T>, below the
+// one-thread ones): a group of T lanes a row.  Constants live in
+// __constant__ memory and are uploaded once per translation unit from Python
 // (ops/kernels.py pack_constants), so the limb values have one source.
 #pragma once
 
@@ -237,11 +237,11 @@ EG_FD u32 is_zero_mod(const u32* a) {
 // inlines, arrays indexed only by unrolled constants: the state stays in
 // registers.
 
-// as[m] = a[T*m + rank], m < 16/T: a tree of selects on the bits of rank.
-template <int T>
+// as[m] = a[T*m + rank], m < N/T: a tree of selects on the bits of rank.
+template <int T, int N = 16>
 EG_FD void grp_pick(u32* as, const u32* a, u32 rank) {
 #pragma unroll
-  for (int m = 0; m < 16 / T; ++m) {
+  for (int m = 0; m < N / T; ++m) {
     u32 v[T];
 #pragma unroll
     for (int q = 0; q < T; ++q) v[q] = a[T * m + q];
@@ -270,19 +270,19 @@ EG_FD u32 grp_shift(const u32* b, int j, u32 rank) {
   return v[0];
 }
 
-// This lane's share of the uncarried schoolbook columns of a x b (32
-// columns): the products of a's limbs T*m + rank, each column's sums
-// below its whole sum.  T = 1: all of mul_cols<16, 16>.
-template <int T>
+// This lane's share of the uncarried schoolbook columns of a (NA limbs)
+// x b (16 limbs), NA + 16 columns: the products of a's limbs T*m + rank,
+// each column's sums below its whole sum.  T = 1: all of mul_cols<NA, 16>.
+template <int T, int NA = 16>
 EG_FD void grp_cols(const u32* a, const u32* b, u32* cols, u32 rank) {
   if constexpr (T == 1) {
-    mul_cols<16, 16>(a, b, cols);
+    mul_cols<NA, 16>(a, b, cols);
   } else {
-    constexpr int S = 16 / T, W = 16 + T - 1;
+    constexpr int S = NA / T, W = 16 + T - 1;
     u32 as[S];
-    grp_pick<T>(as, a, rank);
+    grp_pick<T, NA>(as, a, rank);
 #pragma unroll
-    for (int k = 0; k < 32; ++k) cols[k] = 0;
+    for (int k = 0; k < NA + 16; ++k) cols[k] = 0;
 #pragma unroll
     for (int j = 0; j < W; ++j) {
       const u32 bj = grp_shift<T>(b, j, rank);
@@ -733,46 +733,55 @@ EG_FD u32 glv_sign_split(u32* mag, const u32* v) {
   return n;
 }
 
-EG_FD void glv_digits33(u32* d, const u32* v) {
+// Limbs 24..31 of 32 carried columns (the lower limbs are not kept).
+EG_FD void carry_top8(const u32* cols, u32* top) {
+  u32 c = 0;
 #pragma unroll
-  for (int w = 0; w < GLV_WINDOWS; ++w) {
-    const int j = GLV_WINDOWS - 1 - w;  // LSD window index
-    d[w] = (v[j / 4] >> (4 * (j % 4))) & 0xFu;
+  for (int k = 0; k < 32; ++k) {
+    const u32 t = cols[k] + c;
+    if (k >= 24) top[k - 24] = t & MASK;
+    c = t >> 16;
   }
 }
 
-// One scalar's GLV split: canonical mod-N u -> MSD-first digits of |k1|
-// and |k2| with their signs, u = +-k1 + lambda * (+-k2) (mod N).
-EG_FD void glv_track(u32* d1, u32* n1, u32* d2, u32* n2, const u32* u) {
-  u32 cols[32], lim[32], c1[16], c2[16];
+// One scalar's GLV split on a group of T lanes: canonical mod-N u -> the
+// magnitudes |k1|, |k2| with their signs, u = +-k1 + lambda * (+-k2)
+// (mod N).  The six products are shared out (grp_cols) and summed before
+// their carries and reductions (as grp_fn_mul), which, with the
+// subtractions and the sign splits, run whole in every lane.  c1 and c2
+// have 8 limbs, so their four products have 24 columns: fn_red_cols<24>
+// gives the bits that the reference's 32 columns, the top 8 zero, give.
+// T = 1 is the one-thread split; the kernel takes the digits from the
+// magnitudes as it stores them (#5's kernels).
+template <int T>
+EG_FD void grp_glv_track(u32* k1, u32* n1, u32* k2, u32* n2, const u32* u,
+                         u32 rank, u32 mask) {
+  u32 cols[32], c1[8], c2[8], t[16];
   // c_i = (u * g_i) >> 384: limbs 24..31 of the product
-  mul_cols<16, 16>(u, K.glv[0], cols);
-  carry<32, 32>(cols, lim);
-#pragma unroll
-  for (int k = 0; k < 16; ++k) c1[k] = k < 8 ? lim[24 + k] : 0u;
-  mul_cols<16, 16>(u, K.glv[1], cols);
-  carry<32, 32>(cols, lim);
-#pragma unroll
-  for (int k = 0; k < 16; ++k) c2[k] = k < 8 ? lim[24 + k] : 0u;
-
-  u32 t[16], k1[16], k2[16];
+  grp_cols<T>(u, K.glv[0], cols, rank);
+  grp_sum<T, 32>(cols, mask);
+  carry_top8(cols, c1);
+  grp_cols<T>(u, K.glv[1], cols, rank);
+  grp_sum<T, 32>(cols, mask);
+  carry_top8(cols, c2);
   // k1 = u - c1*a1 - c2*a2;  k2 = c1*(-b1) - c2*b2  (mod N)
-  mul_cols<16, 16>(c1, K.glv[2], cols);
-  fn_red_cols<32>(cols, t);
+  grp_cols<T, 8>(c1, K.glv[2], cols, rank);
+  grp_sum<T, 24>(cols, mask);
+  fn_red_cols<24>(cols, t);
   fn_sub(k1, u, t);
-  mul_cols<16, 16>(c2, K.glv[3], cols);
-  fn_red_cols<32>(cols, t);
+  grp_cols<T, 8>(c2, K.glv[3], cols, rank);
+  grp_sum<T, 24>(cols, mask);
+  fn_red_cols<24>(cols, t);
   fn_sub(k1, k1, t);
-  mul_cols<16, 16>(c1, K.glv[4], cols);
-  fn_red_cols<32>(cols, k2);
-  mul_cols<16, 16>(c2, K.glv[5], cols);
-  fn_red_cols<32>(cols, t);
+  grp_cols<T, 8>(c1, K.glv[4], cols, rank);
+  grp_sum<T, 24>(cols, mask);
+  fn_red_cols<24>(cols, k2);
+  grp_cols<T, 8>(c2, K.glv[5], cols, rank);
+  grp_sum<T, 24>(cols, mask);
+  fn_red_cols<24>(cols, t);
   fn_sub(k2, k2, t);
-
   *n1 = glv_sign_split(k1, k1);
   *n2 = glv_sign_split(k2, k2);
-  glv_digits33(d1, k1);
-  glv_digits33(d2, k2);
 }
 
 // 16 limbs -> 8 little-endian words of the big-endian byte string.

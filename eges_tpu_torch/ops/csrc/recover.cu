@@ -5,10 +5,10 @@
 // eges_tpu/ops/pallas_kernels.py (named beside it) over the field
 // library of field.cuh, so its results are bit-identical to the
 // reference's numpy twins.  Most run one thread per batch row; the pow,
-// fp_mul and the finish (and the point table and the ladder in
-// ladder.cu) run a group of T lanes a row instead (one instance each for
-// T = 1, 2, 4 and 8; ops/kernels.py lanes_for picks T and the block size
-// from the row count).  The TPU kernels walked
+// the GLV split, fp_mul and the finish (and the point table and the
+// ladder in ladder.cu) run a group of T lanes a row instead (one instance
+// each for T = 1, 2, 4 and 8; ops/kernels.py lanes_for picks T and the
+// block size from the row count).  The TPU kernels walked
 // windows, table entries and pow digits on a sequential grid axis with
 // the running state in VMEM; blocks on Hopper run in no order, so each
 // of those walks is a loop inside the thread (or group) here.
@@ -24,10 +24,10 @@
 // recover_prelude, y_fix and recover_finish issue fewer than that per
 // byte and are bound by bytes; the other five by integer operations.  All of
 // them read each input once, write each output once and keep every
-// intermediate in registers (the pow table and fp_mul's row tiles in
-// shared memory).  fp_mul reads and writes 16-byte vectors through
-// its tiles; against the latency of a row's one dependent chain, the
-// lane groups put more warps on more SMs.
+// intermediate in registers (the pow table and the row tiles of fp_mul
+// and fp_canon in shared memory).  fp_mul and fp_canon read and write
+// 16-byte vectors through their tiles; against the latency of a row's
+// dependent chains, the lane groups put more warps on more SMs.
 //
 // Each launcher has a plain C interface for ctypes: device pointers and
 // the stream arrive as void*, the kernel is queued on that stream, and
@@ -76,7 +76,8 @@ struct PowDigits {
 
 constexpr int POW_TAB_WORDS = 14 * 8;  // a row's table, entries 2..15
 
-// 16-byte aligned: fp_mul's row tiles are read and written as uint4
+// 16-byte aligned: the row tiles of fp_mul and fp_canon are read and
+// written as uint4
 extern __shared__ __align__(16) u32 eg_smem[];
 
 static __device__ __forceinline__ u32 pow_digit(const PowDigits& e, int i) {
@@ -182,32 +183,125 @@ k_u1u2(const u32* z, const u32* s, const u32* r_inv, int B, u32* u1,
 }
 
 // #5 glv_digits_pallas: dig [33, 8, Bpad] (rows 0-3: k1, k2 of u1, k1,
-// k2 of u2; rows 4-7 zero), neg [8, Bpad].  Threads cover Bpad; the
-// rows past B split a zero scalar, as the reference's padded lanes do.
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_glv_digits(const u32* u1, const u32* u2, int B, int Bpad, u32* dig,
-             u32* neg) {
-  EG_ROW(Bpad)
-#pragma unroll 1
-  for (int half = 0; half < 2; ++half) {
-    const u32* src = half ? u2 : u1;
-    u32 U[16], d1[GLV_WINDOWS], d2[GLV_WINDOWS], n1, n2;
-    if (b < B)
-      load16(U, src + (size_t)16 * b);
-    else
-      zero16(U);
-    glv_track(d1, &n1, d2, &n2, U);
-    for (int w = 0; w < GLV_WINDOWS; ++w) {
-      dig[((size_t)w * 8 + 2 * half) * Bpad + b] = d1[w];
-      dig[((size_t)w * 8 + 2 * half + 1) * Bpad + b] = d2[w];
-    }
-    neg[(size_t)(2 * half) * Bpad + b] = n1;
-    neg[(size_t)(2 * half + 1) * Bpad + b] = n2;
-  }
-  for (int w = 0; w < GLV_WINDOWS; ++w)
-    for (int t = 4; t < 8; ++t) dig[((size_t)w * 8 + t) * Bpad + b] = 0;
-  for (int t = 4; t < 8; ++t) neg[(size_t)t * Bpad + b] = 0;
+// k2 of u2; rows 4-7 zero), neg [8, Bpad].  Groups cover Bpad; the rows
+// past B split a zero scalar, as the reference's padded lanes do.  A
+// row's two splits are independent dependent chains (six products, four
+// reductions, three subtractions and two sign splits each, bound by
+// operations), so on a group of T >= 2 lanes the first half of the group
+// splits u1 and the second u2, each half sharing its scalar's products
+// over its H = T / 2 lanes (field.cuh grp_glv_track<H>); at T = 1 one
+// lane splits both, one after the other.  The digits are taken from the
+// magnitudes as they are stored, not held in arrays.  The stores are
+// split across the lanes, each word's address the same function of the
+// row in every group, so they stay coalesced across groups: lane s of a
+// half stores magnitude s % 2 (both at H = 1) at the windows w = s / 2
+// (mod H / 2), the half's two signs from lanes 0 and 1, and the group's
+// lanes share the 136 zero words of rows 4-7, lane `rank` taking the
+// words z = rank (mod T).  A group past Bpad (launch.cuh eg_group) splits
+// the last row's scalars again and stores the same words there: with no
+// branch around the stores, the compiler has no branch to sink the sign
+// splits into, and every group issues the whole row.
+static __device__ __forceinline__ u32 glv_digit(const u32* v, int w) {
+  const int j = GLV_WINDOWS - 1 - w;  // LSD window index
+  return (v[j / 4] >> (4 * (j % 4))) & 0xFu;
 }
+
+// The words of half h (rows 2h, 2h + 1 and their signs) that its lane s
+// stores, row b.
+template <int H>
+static __device__ __forceinline__ void glv_store(u32* dig, u32* neg,
+                                                 int Bpad, int b, int h,
+                                                 u32 s, const u32* k1, u32 n1,
+                                                 const u32* k2, u32 n2) {
+  const size_t win = (size_t)8 * Bpad;  // from one window to the next
+  u32* d = dig + (size_t)(2 * h) * Bpad + b;
+  u32* ng = neg + (size_t)(2 * h) * Bpad + b;
+  if constexpr (H == 1) {
+#pragma unroll
+    for (int w = 0; w < GLV_WINDOWS; ++w) {
+      d[w * win] = glv_digit(k1, w);
+      d[w * win + Bpad] = glv_digit(k2, w);
+    }
+    ng[0] = n1;
+    ng[Bpad] = n2;
+  } else {
+    constexpr int R = H / 2;  // lanes a magnitude
+    const u32 i = s & 1u, r = s >> 1;
+    u32 v[9];  // |k| < 2^140: the digits are in limbs 0..8
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = i ? k2[k] : k1[k];
+    d += i * Bpad;
+#pragma unroll
+    for (int m = 0; R * m < GLV_WINDOWS; ++m) {
+      u32 x = glv_digit(v, R * m);
+#pragma unroll
+      for (int q = 1; q < R; ++q) {
+        if (R * m + q < GLV_WINDOWS)
+          x = r == (u32)q ? glv_digit(v, R * m + q) : x;
+      }
+      const int w = R * m + (int)r;
+      if (w < GLV_WINDOWS) d[w * win] = x;
+    }
+    if (r == 0) ng[i * Bpad] = i ? n2 : n1;
+  }
+}
+
+// Scalar h of the group's row (h ? u2 : u1): its split, shared over the
+// H lanes of mask `hmask`, and this lane's share of its words.
+template <int H>
+static __device__ __forceinline__ void glv_half(const u32* src, int h,
+                                                const EgGroup& g, bool live,
+                                                u32 s, u32 hmask, int Bpad,
+                                                u32* dig, u32* neg) {
+  const size_t o = (size_t)16 * (live ? g.in : 0);
+  u32 U[16], k1[16], k2[16], n1, n2;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) U[k] = live ? src[o + k] : 0u;
+  grp_glv_track<H>(k1, &n1, k2, &n2, U, s, hmask);
+  glv_store<H>(dig, neg, Bpad, g.in, h, s, k1, n1, k2, n2);
+}
+
+template <int T>
+static __device__ __forceinline__ void glv_rows(const u32* u1, const u32* u2,
+                                                int B, int Bpad, u32* dig,
+                                                u32* neg) {
+  constexpr int H = T > 1 ? T / 2 : 1;  // lanes sharing one scalar
+  const EgGroup g = eg_group<T>(Bpad);
+  const bool live = g.in < B;
+  const u32 s = g.rank % H;
+  const u32 lane = threadIdx.x & 31u;
+  const u32 hmask = ((1u << H) - 1u) << (lane & ~(u32)(H - 1));
+  if constexpr (T == 1) {
+    // one after the other, written out: a loop of two this long is not
+    // unrolled, and its shortest path would count one split
+    glv_half<1>(u1, 0, g, live, s, hmask, Bpad, dig, neg);
+    glv_half<1>(u2, 1, g, live, s, hmask, Bpad, dig, neg);
+  } else {
+    const int h = (int)(g.rank / H);
+    glv_half<H>(h ? u2 : u1, h, g, live, s, hmask, Bpad, dig, neg);
+  }
+  constexpr int Z = 4 * GLV_WINDOWS + 4;  // rows 4-7 of dig, then of neg
+#pragma unroll
+  for (int m = 0; m < (Z + T - 1) / T; ++m) {
+    const int z = T * m + (int)g.rank;
+    if (z < 4 * GLV_WINDOWS)
+      dig[((size_t)(z >> 2) * 8 + 4 + (z & 3)) * Bpad + g.in] = 0;
+    else if (z < Z)
+      neg[(size_t)(z - 4 * GLV_WINDOWS + 4) * Bpad + g.in] = 0;
+  }
+}
+
+#define EG_GLV_KERNEL(T)                                                 \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)     \
+      k_glv_digits_t##T(const u32* u1, const u32* u2, int B, int Bpad,   \
+                        u32* dig, u32* neg) {                            \
+    glv_rows<T>(u1, u2, B, Bpad, dig, neg);                              \
+  }
+
+EG_GLV_KERNEL(1)
+EG_GLV_KERNEL(2)
+EG_GLV_KERNEL(4)
+EG_GLV_KERNEL(8)
 
 // #7 fp_mul_pallas: the relaxed F_P product of [M, 16] rows, bound by
 // bytes (192 a row against 997 operations).  One thread a row reading
@@ -227,13 +321,15 @@ static __device__ __forceinline__ int tile_slot(int r, int c) {
   return 4 * r + (c ^ ((r >> 1) & 3));
 }
 
-// Rows [0, n) of `a` and `b` into the tiles ta and tb, all loads issued
-// before any is stored.  4 * rows / blockDim.x = 4 / T uint4s of each
-// operand a thread (half the threads at T = 8).
-template <int T>
+// Rows [0, n) of `a` into the tile ta and, for NOP = 2, of `b` into tb
+// (NOP = 1 reads neither b nor tb), all loads issued before any is
+// stored.  4 * rows / blockDim.x = 4 / T uint4s of each operand a thread
+// (half the threads at T = 8).
+template <int T, int NOP>
 static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
                                                const u32* a, const u32* b,
                                                int n, int vec) {
+  static_assert(NOP == 1 || NOP == 2, "one or two operands");
   if (vec) {
     constexpr int V = (4 + T - 1) / T;
     const uint4* a4 = reinterpret_cast<const uint4*>(a);
@@ -244,7 +340,7 @@ static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
       const int i = threadIdx.x + k * blockDim.x;
       if (i < 4 * n) {
         va[k] = __ldg(a4 + i);
-        vb[k] = __ldg(b4 + i);
+        if constexpr (NOP == 2) vb[k] = __ldg(b4 + i);
       }
     }
 #pragma unroll
@@ -252,7 +348,7 @@ static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
       const int i = threadIdx.x + k * blockDim.x;
       if (i < 4 * n) {
         ta[tile_slot(i >> 2, i & 3)] = va[k];
-        tb[tile_slot(i >> 2, i & 3)] = vb[k];
+        if constexpr (NOP == 2) tb[tile_slot(i >> 2, i & 3)] = vb[k];
       }
     }
   } else {
@@ -265,7 +361,7 @@ static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
       const int i = threadIdx.x + k * blockDim.x;
       if (i < 16 * n) {
         va[k] = __ldg(a + i);
-        vb[k] = __ldg(b + i);
+        if constexpr (NOP == 2) vb[k] = __ldg(b + i);
       }
     }
 #pragma unroll
@@ -274,7 +370,7 @@ static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
       if (i < 16 * n) {
         const int w = 4 * tile_slot(i >> 4, (i >> 2) & 3) + (i & 3);
         wa[w] = va[k];
-        wb[w] = vb[k];
+        if constexpr (NOP == 2) wb[w] = vb[k];
       }
     }
   }
@@ -292,6 +388,33 @@ static __device__ __forceinline__ void tile_row(u32* o, const uint4* t,
   }
 }
 
+// A row's result over its row r of the tile: lane `rank` of its group
+// writes chunks rank, rank + T, ... (every lane of the group has read the
+// row by then).
+template <int T>
+static __device__ __forceinline__ void tile_put(uint4* t, int r,
+                                                const u32* v, u32 rank) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c % T == (int)rank)
+      t[tile_slot(r, c)] =
+          make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+}
+
+// Rows [0, n) of the tile to `out` (16-byte aligned), evict-first.
+template <int T>
+static __device__ __forceinline__ void tile_out(u32* out, const uint4* t,
+                                                int n) {
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+  constexpr int V = (4 + T - 1) / T;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < 4 * n) __stcs(o4 + i, t[tile_slot(i >> 2, i & 3)]);
+  }
+}
+
 template <int T>
 static __device__ __forceinline__ void fp_mul_rows(const u32* a,
                                                    const u32* b, int M,
@@ -303,29 +426,15 @@ static __device__ __forceinline__ void fp_mul_rows(const u32* a,
   const size_t o = (size_t)16 * r0;
   uint4* ta = reinterpret_cast<uint4*>(eg_smem);
   uint4* tb = ta + 4 * rows;
-  tile_in<T>(ta, tb, a + o, b + o, n, vec);
+  tile_in<T, 2>(ta, tb, a + o, b + o, n, vec);
   __syncthreads();
   u32 A[16], Bv[16], O[16];
   tile_row(A, ta, lr);
   tile_row(Bv, tb, lr);
   grp_fp_mul<T>(O, A, Bv, g.rank, g.mask);
-  // the product over its row of ta: lane rank writes chunks rank, rank +
-  // T, ... (every lane of the group has read the row by the product's
-  // last shuffle)
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (c % T == (int)g.rank)
-      ta[tile_slot(lr, c)] =
-          make_uint4(O[4 * c], O[4 * c + 1], O[4 * c + 2], O[4 * c + 3]);
-  }
+  tile_put<T>(ta, lr, O, g.rank);
   __syncthreads();
-  uint4* o4 = reinterpret_cast<uint4*>(out + o);
-  constexpr int V = (4 + T - 1) / T;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < 4 * n) __stcs(o4 + i, ta[tile_slot(i >> 2, i & 3)]);
-  }
+  tile_out<T>(out + o, ta, n);
 }
 
 #define EG_FP_MUL_KERNEL(T)                                              \
@@ -340,14 +449,28 @@ EG_FP_MUL_KERNEL(2)
 EG_FP_MUL_KERNEL(4)
 EG_FP_MUL_KERNEL(8)
 
-// #8 fp_canon_pallas
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_fp_canon(const u32* a, int M, u32* out) {
-  EG_ROW(M)
+// #8 fp_canon_pallas: relaxed F_P [M, 16] rows -> canonical [0, P), bound
+// by bytes (128 a row against 65 operations).  One thread a row reading
+// its own 16 words at a 64-byte stride touched 32 sectors a warp load, as
+// #7 did; the rows go through #7's tile instead (16-byte ld.global.nc
+// in, evict-first out, the word path for a view off 16 bytes), one
+// thread a row in blocks of `threads`: the borrow chain is too short to
+// share.
+extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)
+k_fp_canon(const u32* a, int M, int vec, u32* out) {
+  const int rows = blockDim.x;
+  const int r0 = blockIdx.x * rows;
+  const int n = M - r0 < rows ? M - r0 : rows;
+  const size_t o = (size_t)16 * r0;
+  uint4* ta = reinterpret_cast<uint4*>(eg_smem);
+  tile_in<1, 1>(ta, nullptr, a + o, nullptr, n, vec);
+  __syncthreads();
   u32 A[16];
-  load16(A, a + (size_t)16 * b);
+  tile_row(A, ta, threadIdx.x);
   cond_sub_p(A, A);
-  store16(out + (size_t)16 * b, A);
+  tile_put<1>(ta, threadIdx.x, A, 0u);
+  __syncthreads();
+  tile_out<1>(out + o, ta, n);
 }
 
 // #10 recover_finish_pallas: qx, qy [B, 16], ok [B], and the keccak
@@ -493,10 +616,18 @@ extern "C" int eg_u1u2(const void* z, const void* s, const void* r_inv, int B,
   return (int)cudaGetLastError();
 }
 
+typedef void (*GlvKernel)(const u32*, const u32*, int, int, u32*, u32*);
+static const GlvKernel GLV[] = {k_glv_digits_t1, k_glv_digits_t2,
+                                k_glv_digits_t4, k_glv_digits_t8};
+
 extern "C" int eg_glv_digits(const void* u1, const void* u2, int B, int Bpad,
-                             void* dig, void* neg, void* stream) {
+                             void* dig, void* neg, int lanes, int threads,
+                             void* stream) {
   if (Bpad <= 0) return 0;
-  k_glv_digits<<<eg_grid(Bpad), EG_THREADS, 0, EG_STREAM(stream)>>>(
+  if (!eg_lanes_ok(lanes, threads) || B <= 0 || B > Bpad)
+    return (int)cudaErrorInvalidValue;
+  GLV[lanes_index(lanes)]<<<eg_lanes_grid(Bpad, lanes, threads), threads, 0,
+                            EG_STREAM(stream)>>>(
       (const u32*)u1, (const u32*)u2, B, Bpad, (u32*)dig, (u32*)neg);
   return (int)cudaGetLastError();
 }
@@ -520,10 +651,15 @@ extern "C" int eg_fp_mul(const void* a, const void* b, int M, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int eg_fp_canon(const void* a, int M, void* out, void* stream) {
+// vec: 1 when a is 16-byte aligned; out must be.  One lane a row.
+extern "C" int eg_fp_canon(const void* a, int M, void* out, int vec,
+                           int threads, void* stream) {
   if (M <= 0) return 0;
-  k_fp_canon<<<eg_grid(M), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const u32*)a, M, (u32*)out);
+  if (!eg_lanes_ok(1, threads) || (size_t)out % 16 || (vec && (size_t)a % 16))
+    return (int)cudaErrorInvalidValue;
+  // one tile of `threads` rows: at most 16 KB
+  k_fp_canon<<<eg_lanes_grid(M, 1, threads), threads, (size_t)threads * 64,
+               EG_STREAM(stream)>>>((const u32*)a, M, vec, (u32*)out);
   return (int)cudaGetLastError();
 }
 

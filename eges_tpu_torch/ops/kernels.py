@@ -33,14 +33,16 @@ operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.  The pow,
 the point table and the ladder, nearly all of a recovery's card time,
-and ``fp_mul`` and the finish run a group of T lanes a row
-(``csrc/field.cuh`` ``grp_*``), so that a batch puts more warps on more
-SMs; :func:`lanes_for` picks T and the block size from the row count,
-and :func:`pow_mod_lanes`, :func:`point_table_lanes`,
-:func:`strauss_tab_lanes`, :func:`fp_mul_lanes` and
-:func:`recover_finish_lanes` launch any instance (every one gives the
-same bits).  ``fp_mul`` moves its rows through shared memory, so that
-device memory sees 16-byte accesses, neighbour to neighbour.
+and the GLV split, ``fp_mul`` and the finish run a group of T lanes a
+row (``csrc/field.cuh`` ``grp_*``), so that a batch puts more warps on
+more SMs; :func:`lanes_for` picks T and the block size from the row
+count, and :func:`pow_mod_lanes`, :func:`point_table_lanes`,
+:func:`strauss_tab_lanes`, :func:`glv_digits_lanes`,
+:func:`fp_mul_lanes`, :func:`fp_canon_lanes` (one lane a row, any block
+size) and :func:`recover_finish_lanes` launch any instance (every one
+gives the same bits).  ``fp_mul`` and ``fp_canon`` move their rows
+through shared memory, so that device memory sees 16-byte accesses,
+neighbour to neighbour.
 
 The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
 sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
@@ -144,8 +146,8 @@ def bpad(b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# lanes a row of the pow, point-table, ladder, fp_mul and finish kernels
-# (csrc/recover.cu, ladder.cu)
+# lanes a row of the pow, point-table, ladder, GLV, fp_mul and finish
+# kernels, and the block size of fp_canon (csrc/recover.cu, ladder.cu)
 # ---------------------------------------------------------------------------
 
 LANES = build.LANES            # the instances of each kernel
@@ -166,6 +168,11 @@ LANE_THREADS = (64, 128, 256)   # the block sizes they take
 # rows, some 8% faster than one, and 2 beyond, within 1% of one lane
 # where bytes bound it; the finish takes 4 lanes in blocks of 128 at
 # every count (within 2% of the fastest, about 1.5x faster than one).
+# The GLV split, swept at 256-8192 rows on cold times, takes 4 lanes (two
+# a scalar) in blocks of 128 at every count: within 1% of the fastest,
+# about 3.5-4x faster than one lane; 8 lanes add shuffles to a chain
+# whose reductions every lane runs whole.  fp_canon, one lane a row,
+# takes blocks of 64 at every count (256-131072 rows).
 LANES_RULE = {
     "strauss_tab": ((256, 4, 128), (4096, 8, 64), (None, 4, 256)),
     "point_table": ((1024, 8, 128), (4096, 8, 256), (None, 4, 256)),
@@ -175,14 +182,17 @@ LANES_RULE = {
                   (8192, 2, 128), (None, 1, 128)),
     "fp_mul": ((8192, 4, 64), (16384, 2, 64), (None, 2, 128)),
     "recover_finish": ((None, 4, 128),),
+    "glv_digits": ((None, 4, 128),),
+    "fp_canon": ((None, 1, 64),),
 }
 
 
 def lanes_for(kernel: str, rows: int, device="cuda") -> tuple[int, int]:
     """``(lanes a row, threads a block)`` of ``kernel`` (a key of
     ``LANES_RULE``: ``"strauss_tab"``, ``"point_table"``, ``"pow_mod_p"``,
-    ``"pow_mod_n"``, ``"fp_mul"`` or ``"recover_finish"``) at ``rows``
-    rows: the one rule the wrappers launch by.  A CPU device takes the
+    ``"pow_mod_n"``, ``"glv_digits"``, ``"fp_mul"``, ``"fp_canon"`` (one
+    lane a row) or ``"recover_finish"``) at ``rows`` rows: the one rule
+    the wrappers launch by.  A CPU device takes the
     plain version, whose arithmetic is one thread's: ``(1, 128)``."""
     if rows <= 0:
         raise ValueError("rows must be positive")
@@ -583,9 +593,9 @@ _ARGTYPES = {
     "eg_pow_mod": [_P, _P, _I, _P, _I, _I, _I, _P],
     "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
     "eg_u1u2": [_P, _P, _P, _I, _P, _P, _P],
-    "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _P],
+    "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
     "eg_fp_mul": [_P, _P, _I, _P, _I, _I, _I, _P],
-    "eg_fp_canon": [_P, _I, _P, _P],
+    "eg_fp_canon": [_P, _I, _P, _I, _I, _P],
     **{f"eg_strauss_t{t}": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P]
        for t in build.LANES},
     **{f"eg_point_table_t{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
@@ -784,7 +794,21 @@ def u1u2_pallas(z, s, r_inv):
 def glv_digits_pallas(u1, u2):
     """``u1/u2 [B, 16]`` canonical mod-N scalars -> ``(dig [33, 8, Bpad],
     neg [8, Bpad])`` for :func:`strauss_tab`.  Replaces
-    ``glv_digits_pallas`` (pallas_kernels.py:1389)."""
+    ``glv_digits_pallas`` (pallas_kernels.py:1389), on :func:`lanes_for`'s
+    lanes a row (of the Bpad rows it covers)."""
+    lanes, threads = lanes_for("glv_digits", max(bpad(_rows(u1)), 1),
+                               u1.device)
+    return glv_digits_lanes(u1, u2, lanes, threads)
+
+
+def glv_digits_lanes(u1, u2, lanes: int, threads: int):
+    """:func:`glv_digits_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_glv_digits_t<lanes>`` (at T >= 2 half
+    the group splits u1 and half u2).  Every instance gives the same bits,
+    rows 4-7 of ``dig`` and ``neg`` written as zeros by the kernel; the
+    wrapper launches :func:`lanes_for`'s, and chip_smoke.py phase lanes
+    times them all."""
+    _check_lanes(lanes, threads)
     B = _rows(u1)
     _check(u1, "u1", (B, NLIMBS))
     _check(u2, "u2", (B, NLIMBS))
@@ -793,7 +817,8 @@ def glv_digits_pallas(u1, u2):
     wide = bpad(B)
     dig = _empty((curve.GLV_WINDOWS, 8, wide), u1)
     neg = _empty((8, wide), u1)
-    _launch("glv_digits", "eg_glv_digits", u1, u2, B, wide, dig, neg)
+    _launch("glv_digits", "eg_glv_digits", u1, u2, B, wide, dig, neg, lanes,
+            threads)
     return dig, neg
 
 
@@ -880,8 +905,33 @@ def fp_mul_lanes(a, b, lanes: int, threads: int):
 
 def fp_canon_pallas(a):
     """``[M, 16]`` relaxed F_P -> canonical [0, P).  Replaces
-    ``fp_canon_pallas`` (pallas_kernels.py:1282)."""
-    return _unary("fp_canon", a, fp_canon_plain)
+    ``fp_canon_pallas`` (pallas_kernels.py:1282), in :func:`lanes_for`'s
+    blocks.  Any contiguous ``[M, 16]`` int32 operand, views at any
+    offset included."""
+    lanes, threads = lanes_for("fp_canon", max(_rows(a), 1), a.device)
+    return fp_canon_lanes(a, lanes, threads)
+
+
+def fp_canon_lanes(a, lanes: int, threads: int):
+    """:func:`fp_canon_pallas` in blocks of ``threads``, one lane a row
+    (``lanes`` must be 1: the kernel's borrow chain is too short to
+    share): the launch of ``k_fp_canon``, whose rows go through a
+    shared-memory tile as :func:`fp_mul_lanes`' do (16-byte vectors where
+    ``a`` starts on a 16-byte boundary, single words otherwise, without a
+    copy; the output is a fresh, aligned tensor).  Every block size gives
+    the same bits; the wrapper launches :func:`lanes_for`'s, and
+    chip_smoke.py phase lanes times them all."""
+    _check_lanes(lanes, threads)
+    if lanes != 1:
+        raise ValueError(f"fp_canon runs one lane a row, got {lanes}")
+    M = _rows(a)
+    _check(a, "a", (M, NLIMBS))
+    if not _on_card(a):
+        return fp_canon_plain(a)
+    out = _empty((M, NLIMBS), a)
+    _launch("fp_canon", "eg_fp_canon", a, M, out, int(a.data_ptr() % 16 == 0),
+            threads)
+    return out
 
 
 def strauss_tab(dig, neg, trx, tlrx, try_, batch: int):

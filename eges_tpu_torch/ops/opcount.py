@@ -23,8 +23,8 @@ an operation bound counts no more than the card does.
 ``sm_90a`` code: each loop of the product chain against ``fp_mul``
 (997 counted), each loop of the pow against ``fp_sqr`` (757), each
 kernel without a branch or a call against its instruction count, and
-the shortest path through each fp_mul and finish instance against a
-lane's share of the row's count (the count over T).
+the shortest path through each GLV, fp_mul, fp_canon and finish instance
+against a lane's share of the row's count (the count over T).
 
 ``HELPERS`` gives each device function of ``field.cuh`` its own
 operations (its loops, counted by hand) and the counted functions it
@@ -96,9 +96,9 @@ def _bits(T: int) -> list[int]:
     return [1 << i for i in range(T.bit_length() - 1)]
 
 
-def grp_pick(T: int) -> int:
-    """A tree of T - 1 selects for each of the lane's 16/T limbs."""
-    return (16 // T) * (T - 1)
+def grp_pick(T: int, n: int = 16) -> int:
+    """A tree of T - 1 selects for each of the lane's n/T limbs."""
+    return (n // T) * (T - 1)
 
 
 def _shift_selects(T: int, j: int) -> int:
@@ -119,20 +119,21 @@ def grp_shift(T: int) -> int:
     return sum(_shift_selects(T, j) for j in range(16 + T - 1))
 
 
-def grp_cols(T: int) -> int:
-    """One lane's share of the product columns: its 16/T limbs of a
-    against 16 + T - 1 limbs of the shifted b (those past b are zero but
-    multiplied all the same), each product's halves added into columns
-    T*m + j and T*m + j + 1; T = 1 is mul_cols<16, 16>."""
+def grp_cols(T: int, na: int = 16) -> int:
+    """One lane's share of the product columns of a (``na`` limbs) x b
+    (16 limbs): its na/T limbs of a against 16 + T - 1 limbs of the
+    shifted b (those past b are zero but multiplied all the same), each
+    product's halves added into columns T*m + j and T*m + j + 1; T = 1 is
+    mul_cols<na, 16>."""
     if T == 1:
-        return mul_cols(16, 16)
-    S, W = 16 // T, 16 + T - 1
+        return mul_cols(na, 16)
+    S, W = na // T, 16 + T - 1
     total = 2 * S * W
-    for k in range(32):
+    for k in range(na + 16):
         lo = sum(1 for m in range(S) if 0 <= k - T * m < W)
         hi = sum(1 for m in range(S) if 0 <= k - 1 - T * m < W)
         total += hi + adds(lo)
-    return total + grp_pick(T) + grp_shift(T)
+    return total + grp_pick(T, na) + grp_shift(T)
 
 
 def grp_fold_cols(T: int) -> int:
@@ -218,11 +219,9 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
                            "select16": 1}),
     "u1u2": (0, {"fn_red_cols<17>": 1, "fn_mul": 2, "fn_neg": 1}),
     "glv_sign_split": (1 + 4 + 1, {"fn_neg": 1, "select16": 1}),
-    # a shift and a mask a digit, the mask alone for the 9 at bit 0
-    "glv_digits33": (9 + 24 * 2, {}),
-    "glv_track": (0, {"mul_cols<16,16>": 6, "carry<32,32>": 2,
-                      "fn_red_cols<32>": 4, "fn_sub": 3, "glv_sign_split": 2,
-                      "glv_digits33": 2}),
+    # the carry chain of 32 columns (31 shifts fused into the next
+    # column's add) with the masks of its top 8 limbs only
+    "carry_top8": (31 + 8, {}),
     "limbs_to_words_be": (8, {}),
 }
 
@@ -254,7 +253,19 @@ GROUP: dict[str, tuple] = {
     "grp_recover_finish": (lambda T: 2, {
         "is_zero_mod": 1, "cond_sub_p": 3, "grp_fp_sqr<T>": 1,
         "grp_fp_mul<T>": 3, "select16": 4, "limbs_to_words_be": 2}),
+    # one scalar of #5's row: the products by g1, g2 (16 limbs) and by
+    # c1, c2 (8 limbs) shared out; the carries, reductions, subtractions
+    # and sign splits run whole in every lane
+    "grp_glv_track": (lambda T: 0, {
+        "grp_cols<T>": 2, "grp_sum<T,32>": 2, "carry_top8": 2,
+        "grp_cols<T,8>": 4, "grp_sum<T,24>": 4, "fn_red_cols<24>": 4,
+        "fn_sub": 3, "glv_sign_split": 2}),
 }
+
+# the digits of one GLV magnitude as #5's kernels store them (33 windows,
+# MSD first): a shift and a mask a digit, the mask alone for the 9 at
+# bit 0
+GLV_DIGITS = 9 + 24 * 2
 
 # grp_jac_add_mixed's counted calls that run only where the points
 # differ (its else branch, the sum): where they are equal the doubling
@@ -266,7 +277,8 @@ ADD_SUM_CALLS = {"grp_fp_sqr<T>": 2, "grp_fp_mul<T>": 5, "fp_sub": 4,
 # that call others: mul_cols (and fold32) at T = 1, the pick and the
 # shift above it
 FORMULA_CALLS = {
-    "grp_cols": {"mul_cols<16,16>": 1, "grp_pick<T>": 1, "grp_shift<T>": 1},
+    "grp_cols": {"mul_cols<NA,16>": 1, "grp_pick<T,NA>": 1,
+                 "grp_shift<T>": 1},
     "grp_fold_cols": {"mul_cols<16,16>": 1, "fold32": 2, "grp_pick<T>": 1,
                       "grp_shift<T>": 2},
 }
@@ -351,15 +363,33 @@ def _at(T: int, calls: dict[str, int]) -> int:
                for callee, n in calls.items())
 
 
+def glv_lane(T: int) -> int:
+    """u32 operations one lane of #5's T-lane group issues: at T = 1 both
+    scalars' splits and digits; at T >= 2 its half's split, shared over
+    H = T / 2 lanes, and the digits it stores: both magnitudes' at H = 1;
+    at H >= 2 a select of its magnitude's 9 low limbs, its windows' digits
+    and, at H = 4, a select between two windows' digits."""
+    if T == 1:
+        return 2 * (ops("grp_glv_track<1>") + 2 * GLV_DIGITS)
+    H = T // 2
+    if H == 1:
+        return ops("grp_glv_track<1>") + 2 * GLV_DIGITS
+    R = H // 2
+    selects = sum(1 for m in range(-(-33 // R)) for q in range(1, R)
+                  if R * m + q < 33)
+    return ops(f"grp_glv_track<{H}>") + 9 + GLV_DIGITS + selects
+
+
 def per_lane(T: int, windows: int = 33, negations: float = 0.0,
              ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations one lane of a T-lane group issues for its row in
-    the pow, ladder, point-table, fp_mul and finish kernels: every
-    window's work, whatever its digit (``negations``: the mean number of
-    flagged adds a row; at T = 1, the one thread's), the table's doubling
-    and 13 adds on a row whose points differ, one product (fp_mul) and
-    the finish's four products with its canonicalisations, selects and
-    words."""
+    the pow, ladder, point-table, GLV, fp_mul, fp_canon and finish
+    kernels: every window's work, whatever its digit (``negations``: the
+    mean number of flagged adds a row; at T = 1, the one thread's), the
+    table's doubling and 13 adds on a row whose points differ, the GLV
+    split (:func:`glv_lane`), one product (fp_mul), one conditional
+    subtract (fp_canon, one lane a row at any T) and the finish's four
+    products with its canonicalisations, selects and words."""
     mul, sqr = ops(f"grp_fp_mul<{T}>"), ops(f"grp_fp_sqr<{T}>")
     fn_mul = ops(f"grp_fn_mul<{T}>")
     fn_sqr = fn_mul - (SQR_SAVED if T == 1 else 0)
@@ -376,7 +406,9 @@ def per_lane(T: int, windows: int = 33, negations: float = 0.0,
                         + negations * ops("fp_neg")
                         + ladder_doublings * (dbl - _at(T, ADD_SUM_CALLS))),
         "point_table": 13 * madd + dbl,
+        "glv_digits": glv_lane(T),
         "fp_mul": mul,
+        "fp_canon": ops("cond_sub_p"),
         "recover_finish": ops(f"grp_recover_finish<{T}>"),
     }
 
@@ -447,7 +479,7 @@ def per_row(windows: int = 33, negations: float = 0.0,
         "recover_prelude": 3 * ops("unpack_be") + ops("recover_prelude"),
         "y_fix": ops("y_fix"),
         "u1u2": ops("u1u2"),
-        "glv_digits": 2 * ops("glv_track"),
+        "glv_digits": 2 * (ops("grp_glv_track<1>") + 2 * GLV_DIGITS),
         "point_table": 14 * madd + dbl - add_sum,
         "fp_mul": mul,
         "fp_canon": ops("cond_sub_p"),

@@ -1,5 +1,6 @@
 """Seeded inputs for the tests and ``chip_smoke.py``: field values with
-the extremes, curve points, signed recovery rows and one row of each
+the extremes, GLV scalars and values to canonicalise with theirs, curve
+points, signed recovery rows and one row of each
 invalid class, and classic-verify rows of every class with the host
 model's answer.  Everything is made from a ``numpy.random.Generator``,
 so a seed fixes every byte.  Also the pinned launch counts of each path
@@ -15,6 +16,7 @@ import numpy as np
 
 from eges_tpu_torch.crypto import secp256k1 as host
 from eges_tpu_torch.ops.bigint import N, P, int_to_limbs
+from eges_tpu_torch.ops.curve import GLV_LAM
 
 # every invalid class of ecrecover, in the order invalid_rows makes them
 INVALID_CLASSES = ("r_zero", "s_ge_n", "v_ge_4", "x_ge_p", "r_not_x")
@@ -36,6 +38,27 @@ def field_values(rng: np.random.Generator, n: int, bound: int = 1 << 256):
     ext = [0, 1, P - 1, P, N - 1, N, (1 << 256) - 1, (1 << 255) + 12345]
     vals = [v for v in ext if v < bound]
     vals += [rand_int(rng, bound) for _ in range(max(0, n - len(vals)))]
+    return vals[:n]
+
+
+def glv_scalars(rng: np.random.Generator, n: int):
+    """n canonical mod-N scalars for the GLV split (#5): the edges 0, 1,
+    2, N - 2, N - 1, lambda, lambda + 1 and N - lambda first, then random
+    ones, about half of which split into a negative k1 or k2."""
+    ext = [0, 1, 2, N - 2, N - 1, GLV_LAM, GLV_LAM + 1, N - GLV_LAM]
+    vals = ext + [rand_int(rng, N) for _ in range(max(0, n - len(ext)))]
+    return vals[:n]
+
+
+def canon_values(rng: np.random.Generator, n: int):
+    """n relaxed F_P values for the canonicalisation (#8): 0, 1, P - 2,
+    P - 1, P, P + 1, 2^256 - 2 and 2^256 - 1 first, then values in
+    [P, 2^256) (the ones it subtracts P from) alternating with values
+    below 2^256."""
+    ext = [0, 1, P - 2, P - 1, P, P + 1, (1 << 256) - 2, (1 << 256) - 1]
+    vals = ext + [P + rand_int(rng, (1 << 256) - P) if i % 2 == 0
+                  else rand_int(rng, 1 << 256)
+                  for i in range(max(0, n - len(ext)))]
     return vals[:n]
 
 

@@ -46,11 +46,11 @@ def _limbs(rng, n, bound=1 << 256):
 def test_build_reports_every_kernel(dev):
     info = build.build()
     lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss",
-                                     "point_table", "fp_mul",
+                                     "point_table", "glv_digits", "fp_mul",
                                      "recover_finish") for t in K.LANES}
     assert set(info["ptxas"]) >= lanes | {
         "k_recover_prelude", "k_y_fix", "k_u1u2",
-        "k_glv_digits", "k_fp_canon", "k_keccak_rows", "k_fn_mul",
+        "k_fp_canon", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
         "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
@@ -170,6 +170,56 @@ def test_fp_mul_every_lane_instance_on_any_view(dev):
     assert K.LAUNCHES["fp_mul"] == calls
 
 
+def test_glv_digits_every_lane_instance(dev):
+    """Every (lanes, threads) instance of the GLV split against the plain
+    version, bit for bit (all Bpad columns of the digits and signs, rows
+    4-7 written as zeros by the kernel), on the edge scalars and seeded
+    ones at ragged batches, each launch right after a block of -1 words
+    went back to the allocator's cache (a word the kernel missed shows)."""
+    rng = np.random.default_rng(31)
+    B = 8192
+    u1 = K.from_reference(tt.limb_rows(tt.glv_scalars(rng, B)), dev)
+    u2 = u1.flip(0).contiguous()
+    junk = None
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, B):
+                # freed to the cache, so the outputs likely reuse it
+                del junk
+                junk = torch.full((1 << 22,), -1, dtype=torch.int32,
+                                  device=dev)
+                _same(K.glv_digits_lanes(u1[:rows], u2[:rows], lanes,
+                                         threads),
+                      K.glv_digits_plain(u1[:rows], u2[:rows]))
+
+
+def test_fp_canon_every_block_on_any_view(dev):
+    """Every block size of fp_canon against the plain version, bit for
+    bit, on values in [P, 2^256) and below, at ragged row counts up to
+    131072 and on views 4, 8 and 12 bytes off a 16-byte boundary (the
+    word path): no copy, no fallback, one launch a call."""
+    rng = np.random.default_rng(32)
+    M = 131072
+    a = K.from_reference(tt.limb_rows(tt.canon_values(rng, M)), dev)
+    want = K.fp_canon_plain(a)
+    views = []
+    for off in (1, 2, 3):
+        buf = torch.empty(16 * 4097 + off, dtype=torch.int32, device=dev)
+        views.append(buf[off:].view(4097, 16))
+        views[-1].copy_(a[:4097])
+    K.reset_launches()
+    calls = 0
+    for threads in K.LANE_THREADS:
+        for rows in _lane_rows(1, threads, M):
+            _same(K.fp_canon_lanes(a[:rows], 1, threads), want[:rows])
+            calls += 1
+        for v in views:
+            _same(K.fp_canon_lanes(v, 1, threads), want[:4097])
+            calls += 1
+    _same(K.fp_canon_pallas(views[0]), want[:4097])
+    assert K.LAUNCHES["fp_canon"] == calls + 1
+
+
 def test_finish_every_lane_instance(dev):
     """Every (lanes, threads) instance of the finish against the plain
     version, bit for bit (qx, qy, ok and all Bpad columns of the words),
@@ -192,12 +242,13 @@ def test_lanes_rule_launches_clean_instances(dev):
     spill."""
     ptxas = build.build()["ptxas"]
     for kernel, rule in K.LANES_RULE.items():
-        name = {"strauss_tab": "k_strauss", "pow_mod_p": "k_pow_p",
-                "pow_mod_n": "k_pow_n", "point_table": "k_point_table",
-                "fp_mul": "k_fp_mul",
-                "recover_finish": "k_recover_finish"}[kernel]
+        name = {"strauss_tab": "k_strauss_t", "pow_mod_p": "k_pow_p_t",
+                "pow_mod_n": "k_pow_n_t", "point_table": "k_point_table_t",
+                "glv_digits": "k_glv_digits_t", "fp_mul": "k_fp_mul_t",
+                "fp_canon": "k_fp_canon",
+                "recover_finish": "k_recover_finish_t"}[kernel]
         for _, lanes, _ in rule:
-            rec = ptxas[f"{name}_t{lanes}"]
+            rec = ptxas[name + ("" if kernel == "fp_canon" else str(lanes))]
             assert rec["stack_bytes"] == rec["spill_store_bytes"] == 0, rec
 
 

@@ -114,6 +114,49 @@ def test_glv_digits_plain():
     assert not U(dig)[:, :, 12:].any() and not U(neg)[:, 12:].any()
 
 
+def _glv_cases(n=40):
+    """u1 with the edge scalars first, u2 with them last (edges meet
+    random scalars), at a row count that is no lane-block multiple."""
+    rng = np.random.default_rng(50)
+    return (tt.limb_rows(tt.glv_scalars(rng, n)),
+            tt.limb_rows(tt.glv_scalars(rng, n)[::-1]))
+
+
+def test_glv_digits_on_cpu_edge_scalars():
+    """The plain version, the wrapper and every lane instance given CPU
+    tensors (the plain version, no launch) on the edge scalars 0, 1, N - 1,
+    lambda and N - lambda and on seeded ones, whose k2 comes out negative
+    on some rows and positive on others, against the reference's numpy
+    twin exactly; the padded columns split a zero scalar.  (k1 = a1 * e1
+    + a2 * e2, the quotients' remainders e1, e2 in (-2^-129, 1), falls
+    below 0 on hardly any scalar: its sign rows stay 0 here.)"""
+    u1, u2 = _glv_cases()
+    wd, wn = pk.glv_digits_np(u1, u2)
+    assert wn[[1, 3]].any(1).all() and not wn[[1, 3]].all(1).any()
+    K.reset_launches()
+    for got in (K.glv_digits_plain(R(u1), R(u2)),
+                K.glv_digits_pallas(R(u1), R(u2)),
+                *(K.glv_digits_lanes(R(u1), R(u2), lanes, 64)
+                  for lanes in K.LANES)):
+        dig, neg = (U(t) for t in got)
+        assert dig.shape == (33, 8, 256) and neg.shape == (8, 256)
+        np.testing.assert_array_equal(dig[:, :, :40], wd)
+        np.testing.assert_array_equal(neg[:, :40], wn)
+        assert not dig[:, :, 40:].any() and not neg[:, 40:].any()
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.slow
+def test_glv_digits_plain_matches_pallas_call():
+    """Against the real pallas_call in interpret mode on the same rows
+    (its compile takes minutes on one core)."""
+    u1, u2 = _glv_cases()
+    want = pk.glv_digits_pallas(jnp.asarray(u1), jnp.asarray(u2),
+                                interpret=True)
+    for g, w in zip(K.glv_digits_plain(R(u1), R(u2)), want):
+        np.testing.assert_array_equal(U(g), np.asarray(w))
+
+
 def test_point_table_plain():
     px, py = tt.curve_points(np.random.default_rng(10), 4)
     got = K.point_table_plain(R(px), R(py))
@@ -140,6 +183,28 @@ def test_fp_canon_plain():
     a = _vals(15, 16)
     np.testing.assert_array_equal(U(K.fp_canon_plain(R(a))),
                                   _unl(pk._k_cond_sub_p(_lst(a), np)))
+
+
+def test_fp_canon_on_cpu_values_at_and_past_p():
+    """Values in [P, 2^256), at and around P and below it, through the
+    plain version, the wrapper and every block size given CPU tensors,
+    also on a view 4 bytes off a 16-byte boundary (the kernel's word path
+    on the card), against the reference's ``_k_cond_sub_p`` and its
+    ``pallas_call`` in interpret mode, exactly."""
+    a = tt.limb_rows(tt.canon_values(np.random.default_rng(51), 40))
+    want = _unl(pk._k_cond_sub_p(_lst(a), np))
+    np.testing.assert_array_equal(
+        np.asarray(pk.fp_canon_pallas(jnp.asarray(a), interpret=True)), want)
+    buf = torch.zeros(16 * 40 + 1, dtype=torch.int32)
+    view = buf[1:].view(40, 16)
+    view.copy_(R(a))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    K.reset_launches()
+    for got in (K.fp_canon_plain(R(a)), K.fp_canon_pallas(R(a)),
+                K.fp_canon_pallas(view),
+                *(K.fp_canon_lanes(view, 1, t) for t in K.LANE_THREADS)):
+        np.testing.assert_array_equal(U(got), want)
+    assert sum(K.LAUNCHES.values()) == 0
 
 
 def test_strauss_tab_plain():

@@ -46,7 +46,18 @@ def test_lanes_for_rejects_what_it_cannot_launch(kernel):
     with pytest.raises(ValueError):
         K.lanes_for(kernel, 0)
     with pytest.raises(KeyError):
-        K.lanes_for("fp_canon", 8)
+        K.lanes_for("u1u2", 8)
+
+
+def test_fp_canon_rule_is_one_lane_a_row():
+    """fp_canon's rule sweeps only the block size: one lane a row at every
+    row count, and its lane entry refuses any other lane count."""
+    for rows in ROWS:
+        assert K.lanes_for("fp_canon", rows)[0] == 1
+    a = K.from_reference(_rows(46, 2))
+    for lanes in (2, 4, 8):
+        with pytest.raises(ValueError):
+            K.fp_canon_lanes(a, lanes, 128)
 
 
 def _rows(seed, n, bound=1 << 256):
@@ -196,6 +207,16 @@ def test_finish_lane_entry_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
                                            (1, 512)])
+def test_glv_and_canon_entries_reject_other_instances(lanes, threads):
+    a = K.from_reference(_rows(47, 2, N))
+    with pytest.raises(ValueError):
+        K.glv_digits_lanes(a, a, lanes, threads)
+    with pytest.raises(ValueError):
+        K.fp_canon_lanes(a, lanes, threads)
+
+
+@pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
+                                           (1, 512)])
 def test_fp_mul_and_finish_entries_reject_other_instances(lanes, threads):
     a = K.from_reference(_rows(45, 2))
     ok = torch.ones(2, dtype=torch.int32)
@@ -222,7 +243,7 @@ def test_lane_entries_reject_other_instances(lanes, threads):
 def _pick(a, T, rank):
     """grp_pick: as[m] = a[T*m + rank] by a tree of selects."""
     out = []
-    for m in range(16 // T):
+    for m in range(len(a) // T):
         v = [a[T * m + q] for q in range(T)]
         s = 1
         while s < T:
@@ -246,8 +267,9 @@ def _shift(b, j, T, rank):
 
 
 def _cols(a, b, T, rank):
-    """grp_cols at T > 1: the lane's products into columns T*m + j."""
-    cols = [np.zeros_like(a[0]) for _ in range(32)]
+    """grp_cols: the lane's products of a's limbs T*m + rank (len(a) of
+    them in all) into columns T*m + j, len(a) + 16 columns."""
+    cols = [np.zeros_like(a[0]) for _ in range(len(a) + 16)]
     picked = _pick(a, T, rank)
     for j in range(16 + T - 1):
         bj = _shift(b, j, T, rank)
@@ -320,3 +342,87 @@ def test_lane_split_sums_to_the_reference_product(T):
     two_pass = [sum(f[k] for f in lanes) for k in range(16)]
     np.testing.assert_array_equal(np.stack(pk._k_carry_tail(two_pass, np)),
                                   want)
+
+
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_glv_half_split_sums_to_the_reference_columns(T):
+    """#5 on T lanes: each half of the group splits one scalar over H =
+    T / 2 lanes (grp_glv_track<H>).  Its lanes' columns of u * g (16
+    limbs) and of c * a (c's 8 limbs), summed, are the reference's
+    columns; limbs 24..31 of the first, carried (carry_top8), are the
+    reference's c; the 24 columns of the second reduce
+    (fn_red_cols<24>) to the bits the reference's 32 columns, the top 8
+    zero, give."""
+    from eges_tpu_torch.ops import curve
+
+    H = T // 2
+    u = [np.asarray(v) for v in tt.limb_rows(
+        tt.glv_scalars(np.random.default_rng(48), 12)).T]
+    g1, _, a1, _, b1n, _ = (
+        [np.full_like(u[0], limb) for limb in c] for c in curve.glv_consts())
+    parts = [_cols(u, g1, H, rank) for rank in range(H)]
+    whole = [sum(p[k] for p in parts) for k in range(32)]
+    want = pk._k_mul_cols_vv(u, g1, np)
+    for k in range(32):
+        np.testing.assert_array_equal(whole[k], want[k])
+    c1 = pk._k_carry(whole, 32, np)[24:32]
+    for ai in (a1, b1n):
+        parts = [_cols(c1, ai, H, rank) for rank in range(H)]
+        cols24 = [sum(p[k] for p in parts) for k in range(24)]
+        zero = np.zeros_like(u[0])
+        want = pk._k_mul_cols_vv(c1 + [zero] * 8, ai, np)
+        for k in range(24):
+            np.testing.assert_array_equal(cols24[k], want[k])
+        for k in range(24, 32):
+            assert not want[k].any()
+        np.testing.assert_array_equal(
+            np.stack(pk._k_fn_red_cols(cols24, np)),
+            np.stack(pk._k_fn_red_cols(want, np)))
+
+
+def _glv_words(T, rank):
+    """The (row t, window w) digit words and the sign rows of one row of
+    #5's output that lane `rank` of a T-lane group stores
+    (recover.cu glv_rows, glv_store), with the half whose split it holds
+    (None for zeros)."""
+    H = T // 2 if T > 1 else 1
+    halves = [rank // H] if T > 1 else [0, 1]
+    s = rank % H
+    words = []
+    for h in halves:
+        if H == 1:
+            words += [((2 * h + i, w), h) for w in range(33) for i in (0, 1)]
+            words += [(("neg", 2 * h + i), h) for i in (0, 1)]
+        else:
+            R = H // 2
+            i, r = s & 1, s >> 1
+            words += [((2 * h + i, R * m + r), h)
+                      for m in range(-(-33 // R)) if R * m + r < 33]
+            if r == 0:
+                words.append((("neg", 2 * h + i), h))
+    for m in range(-(-136 // T)):
+        z = T * m + rank
+        if z < 132:
+            words.append(((4 + z % 4, z // 4), None))
+        elif z < 136:
+            words.append((("neg", z - 128), None))
+    return words
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+def test_glv_stores_cover_each_word_once(T):
+    """The group's lanes store each of a row's 264 digit words and 8 signs
+    exactly once, each digit and sign of rows 0-3 from a lane of the half
+    that holds its scalar's split (rows 0, 1: u1; 2, 3: u2) and rows 4-7
+    as zeros; each lane takes about its share."""
+    seen = {}
+    for rank in range(T):
+        for word, h in _glv_words(T, rank):
+            assert word not in seen
+            seen[word] = h
+    assert len(seen) == 33 * 8 + 8
+    for (first, second), h in seen.items():
+        row = second if first == "neg" else first
+        assert h == (row // 2 if row < 4 else None)
+    counts = [len(_glv_words(T, rank)) for rank in range(T)]
+    assert max(counts) <= 2 * (272 // T) + 2

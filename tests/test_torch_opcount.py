@@ -5,8 +5,8 @@ the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it
 ``verify.cu`` and ``glue.cu``; every kernel of ``tiling.cu`` and
 ``profile.cu`` has exactly the counted call sites listed for it, and so
 does ``profile.cu``'s chain template; the point table of ``ladder.cu``
-and the fp_mul and finish kernels of ``recover.cu`` make the calls their
-lane counts count."""
+and the GLV, fp_mul, fp_canon and finish kernels of ``recover.cu`` make
+the calls their lane counts count."""
 
 from __future__ import annotations
 
@@ -127,8 +127,11 @@ def test_a_lane_issues_between_its_share_and_the_row(T):
     more than the one thread issues."""
     one, lane = opcount.per_lane(1), opcount.per_lane(T)
     for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab", "point_table",
-                   "fp_mul", "recover_finish"):
+                   "glv_digits", "fp_mul", "recover_finish"):
         assert one[kernel] / T <= lane[kernel] < one[kernel]
+    # fp_canon runs one lane a row: a lane has the row's work
+    assert lane["fp_canon"] == one["fp_canon"] == opcount.per_row()[
+        "fp_canon"]
     assert opcount.ops(f"grp_fp_sqr<{T}>") >= opcount.ops("fp_sqr") // T
     assert opcount.per_row()["strauss_tab"] < one["strauss_tab"]
     assert opcount.pow_row(P - 2, "p") < one["pow_mod_p"]
@@ -223,19 +226,61 @@ def _template_body(path, name) -> str:
     return src[start:i]
 
 
-@pytest.mark.parametrize("body,calls,kernel", [
-    ("fp_mul_rows", {"grp_fp_mul<T>": 1}, "fp_mul"),
-    ("finish_rows", {"grp_recover_finish<T>": 1}, "recover_finish")])
-def test_recover_lane_kernels_make_their_counted_calls(body, calls, kernel):
-    """``k_fp_mul_t<T>`` and ``k_recover_finish_t<T>`` (recover.cu) make
-    one group call a row, which ``per_lane`` counts at each T and
-    ``per_row`` at T = 1, the one-thread function's count."""
-    assert dict(_counted_calls(_template_body(RECOVER_CU, body))) == calls
-    (callee,) = calls
+def _glv_lane_calls(T):
+    """The group calls one lane of ``k_glv_digits_t<T>`` makes: both
+    scalars' splits at T = 1, its half's over T / 2 lanes beyond."""
+    return (2 if T == 1 else 1) * opcount.ops(
+        f"grp_glv_track<{max(T // 2, 1)}>")
+
+
+@pytest.mark.parametrize("body,calls,kernel,lane_calls", [
+    ("fp_mul_rows", {"grp_fp_mul<T>": 1}, "fp_mul",
+     lambda T: opcount.ops(f"grp_fp_mul<{T}>")),
+    ("finish_rows", {"grp_recover_finish<T>": 1}, "recover_finish",
+     lambda T: opcount.ops(f"grp_recover_finish<{T}>")),
+    ("glv_half", {"grp_glv_track<H>": 1}, "glv_digits", _glv_lane_calls),
+    ("k_fp_canon", {"cond_sub_p": 1}, "fp_canon",
+     lambda T: opcount.ops("cond_sub_p"))])
+def test_recover_lane_kernels_make_their_counted_calls(body, calls, kernel,
+                                                      lane_calls):
+    """``k_fp_mul_t<T>``, ``k_recover_finish_t<T>``, ``k_glv_digits_t<T>``
+    and the tiled ``k_fp_canon`` (recover.cu) make one counted call a row
+    (the GLV kernel one split a half-group, two written out at T = 1), which
+    ``per_lane`` counts at each T, beside the digits the GLV lanes take
+    from the magnitudes, and ``per_row`` at T = 1, the one-thread count."""
+    src = _template_body(RECOVER_CU, body)
+    assert dict(_counted_calls(src)) == calls
     for T in (1, 2, 4, 8):
-        assert opcount.per_lane(T)[kernel] == opcount.ops(
-            callee.replace("<T", f"<{T}"))
+        digits = (opcount.per_lane(T)[kernel] - lane_calls(T)
+                  if kernel == "glv_digits" else 0)
+        assert opcount.per_lane(T)[kernel] == lane_calls(T) + digits
+        assert 0 <= digits <= 2 * 2 * opcount.GLV_DIGITS
     assert opcount.per_row()[kernel] == opcount.per_lane(1)[kernel]
+    if kernel == "glv_digits":
+        rows = _template_body(RECOVER_CU, "glv_rows")
+        assert re.search(r"constexpr int H = T > 1 \? T / 2 : 1;", rows)
+        assert len(re.findall(r"glv_half<1>\(u[12], ", rows)) == 2
+        assert len(re.findall(r"glv_half<H>\(", rows)) == 1
+        assert opcount.per_row()[kernel] == 2 * (
+            opcount.ops("grp_glv_track<1>") + 2 * opcount.GLV_DIGITS)
+
+
+def test_group_glv_split_counts_its_products_and_its_whole_steps():
+    """grp_glv_track<T>: two products by 16-limb constants and four by the
+    8-limb quotients shared out and summed, their carries, 24-column
+    reductions, subtractions and sign splits whole in every lane; at T = 1
+    the products are mul_cols<16, 16> and mul_cols<8, 16> and the carry
+    keeps the top 8 limbs of 32 columns (39 operations)."""
+    whole = (2 * opcount.ops("carry_top8") + 4 * opcount.fn_red_cols(24)
+             + 3 * opcount.ops("fn_sub") + 2 * opcount.ops("glv_sign_split"))
+    assert opcount.ops("carry_top8") == 39
+    assert opcount.grp_cols(1, 8) == opcount.mul_cols(8, 16)
+    assert opcount.ops("grp_glv_track<1>") == whole + (
+        2 * opcount.mul_cols(16, 16) + 4 * opcount.mul_cols(8, 16))
+    for T in (2, 4):
+        assert opcount.ops(f"grp_glv_track<{T}>") == whole + (
+            2 * opcount.grp_cols(T) + 4 * opcount.grp_cols(T, 8)
+            + 2 * opcount.grp_sum(T, 32) + 4 * opcount.grp_sum(T, 24))
 
 
 def test_group_finish_counts_its_products_and_its_whole_steps():

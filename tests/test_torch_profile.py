@@ -266,4 +266,8 @@ def test_launch_census_keeps_each_hand_written_launch():
     out = hlo_census.census(events)
     assert out["launch_us"] == {"k_fp_mul_t1": [5.0, 6.0, 4.5],
                                 "k_recover_finish_t8": [9.0]}
+    assert out["launch_order"] == [("k_fp_mul_t1", 5.0),
+                                   ("k_recover_finish_t8", 9.0),
+                                   ("k_fp_mul_t1", 6.0),
+                                   ("k_fp_mul_t1", 4.5)]
     assert out["us"]["k_fp_mul_t1"] == 15.5

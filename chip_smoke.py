@@ -11,15 +11,15 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    nvcc for each source, ``ladder.cu`` one for each lane count, all
    started together); seconds, and registers, stack frame and spills
    per kernel, which must be 0 and 0 for every pow, table and ladder
-   instance ``lanes_for`` can pick and for every GLV, fp_mul, fp_canon
-   and finish instance.  Then sass: the built code (``cuobjdump``)
-   issues at least the operations ``ops/opcount.py`` counts, in every
-   kernel without a branch or a call and in every loop of the product
-   chain and of the pow (a T-lane pow's loops against a lane's share,
-   the count over T, and so on the shortest path through each GLV,
-   fp_mul, fp_canon and finish instance), so no operation
-   bound counts more than the card does; with the instruction mix of the
-   chain's loop.
+   instance ``lanes_for`` can pick and for every prelude, u1u2, GLV,
+   fp_mul, fp_canon and finish instance.  Then sass: the built code
+   (``cuobjdump``) issues at least the operations ``ops/opcount.py``
+   counts, in every kernel without a branch or a call and in every loop
+   of the product chain and of the pow (a T-lane pow's loops against a
+   lane's share, the count over T, and so on the shortest path through
+   each prelude, u1u2, GLV, fp_mul, fp_canon and finish instance), so no
+   operation bound counts more than the card does; with the instruction
+   mix of the chain's loop.
 2. kernel: each of the twenty-one kernels at its path's shapes on
    seeded random and extreme inputs, held bit for bit against its plain
    PyTorch version on the same CUDA tensors (tolerance 0: the arithmetic
@@ -30,37 +30,47 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    B = 4000 (a config-4 block's transaction hashes); the six glue
    kernels of the un-fused path at its shapes for a [4, 1024] window
    (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
-   checked at a ragged 4097 rows (fp_mul and fp_canon also on views 4,
-   8 and 12 bytes off a 16-byte boundary; the GLV split on the edge
+   checked at a ragged 4097 rows (fp_mul, fp_canon and u1u2 also on
+   views 4, 8 and 12 bytes off a 16-byte boundary, the prelude at
+   pitches 66 and 70 and 1, 4 and 8 bytes off; the GLV split on the edge
    scalars, fp_canon on values at and past P).  Every kernel of the
    recovery path also timed one call at a time on cold L2 (``cold_ms``),
-   with the share of the bound that time reaches, fp_mul and fp_canon
-   beside a cold stream of the same bytes (``stream_cold_ms``).
+   with the share of the bound that time reaches, fp_mul, fp_canon and
+   the prelude beside a cold stream of the same bytes
+   (``stream_cold_ms``).
 3. slice: one block of BASELINE config 4 (1024 validators / 32-member
    committee, 4000 transactions: 4000 sender recoveries plus 1024 vote
    signatures, 5024 rows) through ``BatchVerifier().recover_addresses``,
    every row held against the host model, with the launch counts of
-   that run (18 per batch).
+   that run (18 per batch); then ``ecrecover_batch`` on the same rows as
+   ``[N, 66]`` uint8 and ``[N, 65]`` int32, byte-equal to ``[N, 65]``
+   uint8.
 3b. lanes: every (T, block) instance of the pow, the point table, the
-   ladder, the GLV split, fp_mul and the finish (T = 1, 2, 4, 8 lanes a
-   row; 64, 128, 256 threads), and every block size of fp_canon (one
-   lane a row), at 256, 1024, 4096 and 8192 rows (mod P and mod N for
-   the pow, and the table's 16384 and 131072 rows mod P, fp_mul and
-   fp_canon also at 16384 and 131072, fp_mul on a ragged view 4 bytes
-   off, fp_canon on a view 4 bytes off at 131072; the ladder also on a
+   ladder, the GLV split, fp_mul, the finish, the prelude and u1u2 (T =
+   1, 2, 4, 8 lanes a row; 64, 128, 256 threads), and every block size
+   of fp_canon (one lane a row), at 256, 1024, 4096 and 8192 rows (mod P
+   and mod N for the pow, and the table's 16384 and 131072 rows mod P,
+   fp_mul and fp_canon also at 16384 and 131072, fp_mul on a ragged view
+   4 bytes off, fp_canon on a view 4 bytes off at 131072, the prelude on every
+   class of its checks and at a pitch of 66 and 1 byte off, u1u2 with
+   r^-1 = 0 rows and on a view 4 bytes off; the ladder also on a
    recovery's own inputs at 1024 and 8192; the point table on seeded
    points and on the R of phase 3's block padded to its bucket, invalid
    rows and zero-byte pad rows among them), bit for bit against the
    plain version, timed by events and cold beside the bound, with
    registers, stack and spills and the instance ``lanes_for`` picks,
-   which must beat T = 1 (the GLV split, fp_mul, fp_canon and the finish
-   by cold times; fp_mul and the finish within 3%, and fp_mul may pick
-   T = 1; fp_canon's block within 3% of the fastest).
+   which must beat T = 1 (the GLV split, fp_mul, fp_canon, the finish,
+   the prelude and u1u2 by cold times; fp_mul and the finish within 3%,
+   and fp_mul may pick T = 1; fp_canon's block, the prelude's pick and
+   u1u2's within 3% of the fastest, and the prelude may pick T = 1).
 4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
-   memory; under the profiler, the device ms of each of the four pow
-   launches and of the ladder in one recovery of 8192 and of 1024 rows
+   memory; the SM clock, power draw and throttle reasons, sampled by
+   ``nvidia-smi`` every 20 ms over 1.5 s of back-to-back 8192-row
+   batches (an ``sm_clock`` line); under the profiler, the device ms of
+   each of the four pow launches and of the ladder in one recovery of
+   8192 and of 1024 rows
    (a traced window that lacks a launch is traced again, three windows
    at most: the profiler has dropped a window's first kernel).
 5. verify slice: a BASELINE config-3 vote round (256 committee
@@ -207,15 +217,23 @@ LANE_SHAPES = (("strauss_tab", 256), ("strauss_tab", 1024),
                *(("recover_finish", r) for r in (256, 1024, 4096, 8192)),
                *(("glv_digits", r) for r in (256, 1024, 4096, 8192)),
                *(("fp_canon", r) for r in (256, 1024, 4096, 8192, 16384,
-                                           131072)))
+                                           131072)),
+               *(("recover_prelude", r) for r in (256, 1024, 4096, 8192)),
+               *(("u1u2", r) for r in (256, 1024, 4096, 8192)))
 # the lane kernels whose launch takes less than the wrapper's host time:
 # timed cold beside events (phases kernel and lanes, which picks and
 # checks them by cold times); every instance must build clean, and phase
 # sass holds each on its shortest path
-SHORT_LANE_KERNELS = ("glv_digits", "fp_mul", "fp_canon", "recover_finish")
+SHORT_LANE_KERNELS = ("glv_digits", "fp_mul", "fp_canon", "recover_finish",
+                      "recover_prelude", "u1u2")
 # the lanes a row a kernel's instances take where not all of K.LANES
 # (fp_canon: one lane a row, its block size swept)
 KERNEL_LANES = {"fp_canon": (1,)}
+# the lane kernels whose pick must be within 3% of the fastest instance
+# cold, and those of them that may keep one lane a row (fp_canon has only
+# one; bytes may bound the prelude)
+NEAR_FASTEST = ("fp_canon", "recover_prelude", "u1u2")
+ONE_LANE_OK = ("fp_canon", "recover_prelude")
 CENSUS_BATCHES = (1024, 8192)       # hlo_census's recoveries
 PROFILE_TRIES = 3                   # traced windows a profiled check takes
 # the ladder also on a recovery's own inputs: its digits' zeros are not
@@ -225,6 +243,7 @@ PROFILE_TRIES = 3                   # traced windows a profiled check takes
 LANE_RECOVERY_ROWS = (1024, 8192)
 TABLE_RECOVERY_ROWS = (256, 1024, 4096, 8192)
 MEASURE_BATCHES = (1024, 8192)      # measure_recover's batches
+CLOCK_SECONDS = 1.5                 # batches the clock sampler sees, s
 MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
 # #21 and #20d against their library calls in one call: rounds in ABBA
 # order, each round events over AB_F32_REPS calls and AB_F32_COLD cold ones
@@ -242,7 +261,9 @@ LANE_GLOBALS = {"pow_mod_p": "k_pow_p_t{}", "pow_mod_n": "k_pow_n_t{}",
                 "point_table": "k_point_table_t{}",
                 "glv_digits": "k_glv_digits_t{}",
                 "fp_mul": "k_fp_mul_t{}", "fp_canon": "k_fp_canon",
-                "recover_finish": "k_recover_finish_t{}"}
+                "recover_finish": "k_recover_finish_t{}",
+                "recover_prelude": "k_recover_prelude_t{}",
+                "u1u2": "k_u1u2_t{}"}
 
 
 def lanes_of(kernel: str) -> tuple[int, ...]:
@@ -385,9 +406,9 @@ def phase_build():
              or r["spill_load_bytes"]}
     if dirty:
         raise AssertionError(f"the lane instances the wrappers launch "
-                             f"(and every GLV, fp_mul, fp_canon and finish "
-                             f"instance) must have no stack frame and no "
-                             f"spill: {dirty}")
+                             f"(and every prelude, u1u2, GLV, fp_mul, "
+                             f"fp_canon and finish instance) must have no "
+                             f"stack frame and no spill: {dirty}")
     return info
 
 
@@ -565,6 +586,14 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
     cases += glue
     ragged["fp_mul"] = _fp_mul_views(dev)
     ragged["fp_canon"] = _fp_canon_views(dev)
+    pre = tuple(torch.from_numpy(a).to(dev) for a in tt.prelude_rows(
+        np.random.default_rng(SEED + 15), RAGGED))
+    ragged["recover_prelude"] = [
+        (lambda v=v: K.recover_prelude_pallas(v, pre[1]),
+         lambda v=v: K.recover_prelude_plain(v, pre[1]))
+        for v in (tt.pitched_rows(pre[0], pitch, off) for pitch, off in (
+            (65, 0), (66, 0), (70, 0), (65, 1), (65, 4), (65, 8)))]
+    ragged["u1u2"] = _u1u2_views(dev)
     records = {}
     for name, launches in cases:
         # every kernel of the main path also one call at a time on cold
@@ -581,6 +610,14 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
             # tensor of its size
             extra["stream_cold_ms"] = len(launches) * cuda_event_ms(
                 lambda: ~c_m, reps=10, cold=True)
+        elif name == "recover_prelude":
+            # ATen's zero pad of the 97 input bytes a row to the 328 the
+            # prelude writes: the same bytes in and out
+            sh = torch.cat([sigs_t, hashes_t], 1)
+            extra["stream_cold_ms"] = cuda_event_ms(
+                lambda: torch.nn.functional.pad(
+                    sh, (0, 5 * 64 + 8 - sh.shape[1])), reps=10,
+                cold=True)
         records[name] = _check_kernel(name, launches, ragged.get(name, ()),
                                       RAGGED, clock_hz, ptxas, "kernel",
                                       extra)
@@ -623,6 +660,30 @@ def _fp_mul_views(dev):
         (a, view(b, 1)), (view(a, 2), view(b, 3))]
     return [(lambda x=x, y=y: K.fp_mul_pallas(x, y),
              lambda x=x, y=y: K.fp_mul_plain(x, y)) for x, y in pairs]
+
+
+def _u1u2_views(dev):
+    """u1u2's ragged checks at ``RAGGED`` rows (r^-1 = 0 on some): aligned
+    operands, and z, s or r^-1 as a view 4, 8 or 12 bytes past a 16-byte
+    boundary (the kernel's word path, no copy)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.bigint import N
+
+    rng = np.random.default_rng(SEED + 16)
+    n = RAGGED
+    ins = [K.from_reference(tt.limb_rows(tt.field_values(rng, n, bnd)), dev)
+           for bnd in (1 << 256, N, N)]
+    ins[2][::97] = 0
+    sets = [tuple(ins)]
+    for off in (1, 2, 3):
+        buf = torch.empty(16 * n + off, dtype=torch.int32, device=dev)
+        v = buf[off:].view(n, 16)
+        v.copy_(ins[off - 1])
+        sets.append(tuple(v if i == off - 1 else t
+                          for i, t in enumerate(ins)))
+    return [(lambda a=a: K.u1u2_pallas(*a), lambda a=a: K.u1u2_plain(*a))
+            for a in sets]
 
 
 def _fp_canon_views(dev):
@@ -710,6 +771,19 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
     buf = torch.empty(16 * M + 1, dtype=torch.int32, device=dev)
     mis_c = buf[1:].view(M, 16)
     mis_c.copy_(canon)
+    # the prelude on every class of its checks, also at a pitch of 66 and
+    # 1 byte off; u1u2 on seeded values with r^-1 = 0 rows, also 4 bytes off
+    pre = tuple(torch.from_numpy(a).to(dev)
+                for a in tt.prelude_rows(np.random.default_rng(SEED + 14), B))
+    pre_views = [(tt.pitched_rows(pre[0][:RAGGED], pitch, off),
+                  pre[1][:RAGGED]) for pitch, off in ((66, 0), (65, 1))]
+    uu = tuple(K.from_reference(tt.limb_rows(tt.field_values(rng_e, B, bnd)),
+                                dev) for bnd in (1 << 256, N, N))
+    uu[2][::97] = 0
+    buf = torch.empty(16 * RAGGED + 1, dtype=torch.int32, device=dev)
+    mis_u = buf[1:].view(RAGGED, 16)
+    mis_u.copy_(uu[0][:RAGGED])
+    want_mis_u = K.u1u2_plain(uu[0][:RAGGED], *(t[:RAGGED] for t in uu[1:]))
     slow = []
     shapes = ([(k, r, "seeded") for k, r in LANE_SHAPES]
               + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS]
@@ -753,6 +827,35 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
             if rows == M:
                 also = ((lambda lanes, threads: K.fp_canon_lanes(
                     mis_c, lanes, threads), want_canon),)
+        elif kernel == "recover_prelude":
+            ins = tuple(t[:rows] for t in pre)
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = nbytes(*ins) + 5 * 64 * rows + 8 * rows
+            want = K.recover_prelude_plain(*ins)
+
+            def call(lanes, threads, ins=ins):
+                return K.recover_prelude_lanes(*ins, lanes, threads)
+
+            if rows == 4096:
+                also = tuple(
+                    (lambda lanes, threads, v=v, h=h: K.recover_prelude_lanes(
+                        v, h, lanes, threads), K.recover_prelude_plain(v, h))
+                    for v, h in pre_views)
+        elif kernel == "u1u2":
+            ins = tuple(t[:rows] for t in uu)
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = nbytes(*ins) + 2 * 64 * rows
+            want = K.u1u2_plain(*ins)
+
+            def call(lanes, threads, ins=ins):
+                return K.u1u2_lanes(*ins, lanes, threads)
+
+            if rows == 4096:
+                also = ((lambda lanes, threads: K.u1u2_lanes(
+                    mis_u, *(t[:RAGGED] for t in uu[1:]), lanes, threads),
+                    want_mis_u),)
         elif kernel == "recover_finish":
             ins = tuple(t[:rows] for t in fin)
             row_ops = opcount.per_row()[kernel]
@@ -863,13 +966,11 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                                                         / local_ms, 4),
                 "instances": inst}
         emit(line)
-        if kernel == "fp_canon":
-            # one lane a row: the pick is a block size, within 3% of the
-            # fastest
-            if ms_of[chosen] > 1.03 * ms_of[best]:
-                slow.append(f"fp_canon at {rows} rows: lanes_for's {chosen} "
-                            f"takes {ms_of[chosen]} ms against the fastest "
-                            f"{best}'s {ms_of[best]}")
+        if kernel in NEAR_FASTEST and ms_of[chosen] > 1.03 * ms_of[best]:
+            slow.append(f"{kernel} at {rows} rows: lanes_for's {chosen} "
+                        f"takes {ms_of[chosen]} ms against the fastest "
+                        f"{best}'s {ms_of[best]}")
+        if kernel in ONE_LANE_OK:
             continue
         # fp_mul may keep one lane a row: its pick need only not lose
         limit = (1.03 if rows > B or kernel in ("fp_mul", "recover_finish")
@@ -1153,11 +1254,88 @@ def phase_slice(rng):
                 raise AssertionError(f"row {i}: address differs from the "
                                      "host model")
             n_valid += 1
+    c4 = _wide_and_int_rows(sigs, hashes)
     emit({"phase": "slice", "rows": len(sigs), "bucket": verifier._pad(
         len(sigs)), "valid_rows_matching_host": n_valid,
         "invalid_rows_rejected": n_invalid, "launches": launches,
-        "launches_total": sum(launches.values())})
+        "launches_total": sum(launches.values()), "c4": c4})
     return launches, (sigs, hashes, answers), (addrs, ok)
+
+
+def _wide_and_int_rows(sigs, hashes):
+    """``ecrecover_batch`` on the rows as ``[N, 66]`` uint8 (a 0xAB byte
+    after each) and as ``[N, 65]`` int32 rows and hashes: the same addrs,
+    pubs and ok bytes as the ``[N, 65]`` uint8 rows."""
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch
+
+    s, h = (torch.from_numpy(a).to("cuda") for a in (sigs, hashes))
+    want = ecrecover_batch(s, h)
+    pad = torch.full((len(sigs), 1), 0xAB, dtype=torch.uint8, device="cuda")
+    cases = {"uint8_66": (torch.cat([s, pad], 1), h),
+             "int32_65": (s.to(torch.int32), h.to(torch.int32))}
+    for name, args in cases.items():
+        got = ecrecover_batch(*args)
+        for g, w, what in zip(got, want, ("addrs", "pubs", "ok")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"ecrecover_batch on {name} rows: "
+                                     f"{what} differ from [N, 65] uint8")
+    return {"rows": len(sigs), "equal_to_uint8_65": sorted(cases)}
+
+
+def _sm_clock(s8, h8):
+    """The SM clock beside back-to-back 8192-row recoveries on device
+    tensors: a child ``nvidia-smi`` samples the clock, the power draw and
+    the throttle reasons every 20 ms while the card runs batches for
+    ``CLOCK_SECONDS`` (batches are queued before it starts and after it
+    stops, so every sample falls in the busy window)."""
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch
+
+    s, h = (torch.from_numpy(a).to("cuda") for a in (s8, h8))
+
+    def run(n):
+        for _ in range(n):
+            ecrecover_batch(s, h)
+
+    query = "clocks.sm,power.draw,clocks_throttle_reasons.active"
+    run(4)
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits",
+         "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    batches = 0
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < CLOCK_SECONDS:
+            run(8)
+            torch.cuda.synchronize()
+            run(4)
+            batches += 12
+        seconds = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    torch.cuda.synchronize()
+    rows = [[f.strip() for f in line.split(",")]
+            for line in out.splitlines() if line.count(",") == 2]
+    mhz, watts = ([float(r[k]) for r in rows
+                   if r[k].replace(".", "").isdigit()] for k in (0, 1))
+    if not mhz:
+        raise AssertionError(f"nvidia-smi gave no clock samples: {err!r}")
+    throttle = {}
+    for r in rows:
+        throttle[r[2]] = throttle.get(r[2], 0) + 1
+
+    def spread(v):
+        return v and {"min": min(v), "median": float(np.median(v)),
+                      "max": max(v)}
+
+    return {"query": query, "samples": len(mhz), "seconds": seconds,
+            "batches_8192": batches, "sm_mhz": spread(mhz),
+            "power_w": spread(watts), "throttle_reasons": throttle}
 
 
 def phase_e2e(rows):
@@ -1176,6 +1354,8 @@ def phase_e2e(rows):
         addrs, ok = verifier.recover_addresses(s8, h8)
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
+    clock = _sm_clock(s8, h8)
+    emit({"phase": "sm_clock", **clock})
     n_ok = int(ok.sum())
     want_ok = sum(answers[i % len(answers)] is not None
                   for i in range(B_MAIN))

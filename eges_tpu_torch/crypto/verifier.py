@@ -4,10 +4,11 @@ that the transaction pool, the block validator and the consensus vote
 checks call.
 
 The port of ``eges_tpu/crypto/verifier.py``.  On a ``[N, ...]`` batch
-the fused path runs: 18 kernel launches turn ``[N, 65]`` wire
-signatures and ``[N, 32]`` hashes into 20-byte addresses, 64-byte
-public keys and a validity mask; 26 turn signatures, hashes and known
-``[N, 64]`` public keys into a validity mask.  A single row (``[65]``)
+the fused path runs: 18 kernel launches turn ``[N, W]`` wire
+signatures (W >= 65, bytes of any integer dtype) and ``[N, 32]``
+hashes into 20-byte addresses, 64-byte public keys and a validity
+mask; 26 turn signatures, hashes and known ``[N, 64]`` public keys
+into a validity mask.  A single row (``[65]``)
 or a stacked window (``[K, N, 65]``) takes the un-fused path of
 ``ops/ec.py`` (about 8,400 launches, whatever the rows), as the
 reference does for every shape but 2-D.  Nothing leaves the device
@@ -38,7 +39,8 @@ def _limbs(rows: torch.Tensor, *offsets: int) -> list[torch.Tensor]:
 
 
 def _unpack(sigs: torch.Tensor, hashes: torch.Tensor):
-    """``sigs [..., 65]`` u8 (r || s || v), ``hashes [..., 32]`` u8 ->
+    """``sigs [..., 65 or more]`` u8 (r || s || v, then any bytes),
+    ``hashes [..., 32]`` u8 ->
     ``(z, r, s)`` limbs ``[..., 16]`` and ``v [...]``, all int32."""
     z, r, s = _limbs(torch.cat([hashes, sigs[..., :64]], -1), 0, 32, 64)
     return z, r, s, sigs[..., 64].to(torch.int32)
@@ -74,19 +76,35 @@ def addr_from_digest_rows(dig: torch.Tensor, B: int) -> torch.Tensor:
     return words_to_bytes(dig[3:8], B)
 
 
+def _bytes(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A byte tensor of any integer dtype as uint8, cast once (values
+    past 255 wrap; nothing checks them, which would wait for the card);
+    another dtype raises TypeError."""
+    if t.dtype == torch.uint8:
+        return t
+    if (t.dtype.is_floating_point or t.dtype.is_complex
+            or t.dtype == torch.bool):
+        raise TypeError(f"{what}: expected an integer dtype, got {t.dtype}")
+    return t.to(torch.uint8)
+
+
 @torch.inference_mode()
 def ecrecover_batch(sigs: torch.Tensor, hashes: torch.Tensor):
     """Batched sender recovery.
 
-    ``sigs [..., 65]`` uint8 wire signatures and ``hashes [..., 32]``
-    uint8 message hashes, on one device.  Returns ``(addrs [..., 20]
-    uint8, pubs [..., 64] uint8, ok [...] int32)``; invalid rows are zero
-    with ``ok == 0``.  A ``[N, 65]`` batch takes the fused path, whose
-    finish kernel already packed the masked keccak block (its first 16
-    words are the big-endian bytes of qx || qy); any other shape the
+    ``sigs [..., W]`` wire signatures for any ``W >= 65`` (r, s and v
+    from bytes 0..64, as the reference's ``_unpack`` reads them; bytes
+    after them are ignored) and ``hashes [..., 32]`` message hashes, byte
+    values of any integer dtype (cast to uint8 once), on one device.
+    Returns ``(addrs [..., 20] uint8, pubs [..., 64] uint8, ok [...]
+    int32)``; invalid rows are zero with ``ok == 0``.  A ``[N, W]`` batch
+    takes the fused path, whose prelude reads the rows where they lie and
+    whose finish kernel already packed the masked keccak block (its first
+    16 words are the big-endian bytes of qx || qy); any other shape the
     un-fused ``ecrecover_point``, then keccak of the key bytes.
     """
-    _check_rows(sigs, hashes)
+    sigs, hashes = _bytes(sigs, "sigs"), _bytes(hashes, "hashes")
+    _check_rows(sigs, hashes, 65, None)
     if sigs.dim() == 2:
         B = sigs.shape[0]
         _qx, _qy, ok, words = ec.ecrecover_point_fused(sigs, hashes)
@@ -186,9 +204,12 @@ class BatchVerifier:
             self._stage_bufs.setdefault(b, []).append(st)
 
     def ecrecover(self, sigs: np.ndarray, hashes: np.ndarray):
-        """``sigs [N, 65]`` u8, ``hashes [N, 32]`` u8 -> ``(addrs [N, 20]
+        """``sigs [N, W]`` u8, ``hashes [N, 32]`` u8 -> ``(addrs [N, 20]
         u8, pubs [N, 64] u8, ok [N] bool)`` as numpy, after the device
-        has finished."""
+        has finished.  A batch on its bucket in uint8-contiguous arrays
+        goes up as it is, any ``W >= 65``; the others are staged 65 bytes
+        wide, so other widths raise ValueError there, as the reference's
+        staging copy does."""
         n = sigs.shape[0]
         if n == 0:
             return (np.zeros((0, 20), np.uint8), np.zeros((0, 64), np.uint8),
@@ -200,6 +221,9 @@ class BatchVerifier:
         direct = (n == b and sigs.dtype == np.uint8
                   and hashes.dtype == np.uint8
                   and sigs.flags.c_contiguous and hashes.flags.c_contiguous)
+        if not direct and sigs.shape[1:] != (65,):
+            raise ValueError(f"sigs: staged rows are 65 bytes wide, got "
+                             f"{tuple(sigs.shape)} ({n} rows, bucket {b})")
         st = None if direct else self._stage_acquire(b)
         try:
             if direct:

@@ -12,9 +12,9 @@
 //
 // The one thread per batch row that runs these functions keeps a value
 // in registers (arrays indexed only by unrolled constants); the compiler
-// spills what does not fit.  The pow, ladder, point-table, fp_mul,
-// finish and GLV kernels run the T-lane forms (grp_*<T>, below the
-// one-thread ones): a group of T lanes a row.  Constants live in
+// spills what does not fit.  The prelude, pow, u1u2, ladder, point-table,
+// fp_mul, finish and GLV kernels run the T-lane forms (grp_*<T>, below
+// the one-thread ones): a group of T lanes a row.  Constants live in
 // __constant__ memory and are uploaded once per translation unit from Python
 // (ops/kernels.py pack_constants), so the limb values have one source.
 #pragma once
@@ -661,10 +661,14 @@ EG_FD void unpack_be(u32* o, const uint8_t* bytes) {
     o[k] = (u32)bytes[31 - 2 * k] | ((u32)bytes[30 - 2 * k] << 8);
 }
 
-// Range checks, the x candidate and y^2 = x^3 + 7 (relaxed).  v is the
-// raw recovery byte.  Returns ok.
-EG_FD u32 recover_prelude(u32* x, u32* y_sq, const u32* r, const u32* s,
-                          u32 v) {
+// Range checks, the x candidate and y^2 = x^3 + 7 (relaxed) of a row, on
+// a group of T lanes (#1's kernels): the square and the product shared
+// out (grp_fp_sqr, grp_fp_mul), the checks and x's carry chain whole in
+// every lane.  v is the raw recovery byte.  Returns ok.  T = 1 is the
+// one-thread prelude.
+template <int T>
+EG_FD u32 grp_recover_prelude(u32* x, u32* y_sq, const u32* r, const u32* s,
+                              u32 v, u32 rank, u32 mask) {
   const u32 r_ok = (1u - is_zero(r)) * lt_const(r, K.n);
   const u32 s_ok = (1u - is_zero(s)) * lt_const(s, K.n);
   const u32 v_ok = v < 4;
@@ -679,8 +683,8 @@ EG_FD u32 recover_prelude(u32* x, u32* y_sq, const u32* r, const u32* s,
   }
   const u32 x_ok = (c == 0) * lt_const(x, K.p);
   u32 t[16];
-  fp_sqr(t, x);
-  fp_mul(t, t, x);
+  grp_fp_sqr<T>(t, x, rank, mask);
+  grp_fp_mul<T>(t, t, x, rank, mask);
   t[0] += 7;
   carry_tail(t);
   copy16(y_sq, t);
@@ -705,18 +709,38 @@ EG_FD u32 y_fix(u32* y, const u32* root, const u32* y_sq, u32 v) {
   return ok;
 }
 
-// u1 = -(z mod N) * r^-1, u2 = s * r^-1 (canonical mod N).
-EG_FD void u1u2(u32* u1, u32* u2, const u32* z, const u32* s,
-                const u32* r_inv) {
+// u1 = -(z mod N) * r^-1 and u2 = s * r^-1 (canonical mod N) of a row, on
+// a group of T lanes (#4's kernels).  T = 1: one lane computes both, one
+// after the other (the selects on h = 0 fold away).  T >= 2: the lanes of
+// half h = rank / H (H = T / 2) compute u1 (h = 0) or u2 (h = 1), each
+// half sharing its product over its own H lanes (grp_fn_mul<H> with the
+// half's rank and mask); every lane returns its half's value in both u1
+// and u2.  Both halves run the same instructions: the reduction of z and
+// the negation also run in u2's lanes, whose results the selects drop, so
+// the group stays converged (halves that branched apart in one warp would
+// run one after the other).  z is read only by the reduction, so u2's
+// lanes may pass any row there.
+template <int T>
+EG_FD void grp_u1u2(u32* u1, u32* u2, const u32* z, const u32* s,
+                    const u32* r_inv, u32 rank, u32 mask) {
+  constexpr int H = T > 1 ? T / 2 : 1;  // lanes a product
+  const u32 h = rank / H;               // 0 at T = 1
+  // the half's lanes: the group's lowest H lanes, moved up h * H
+  const u32 hmask = ((mask & (0u - mask)) * ((1u << H) - 1u)) << (h * H);
   u32 z17[17];
 #pragma unroll
   for (int k = 0; k < 16; ++k) z17[k] = z[k];
   z17[16] = 0;
-  u32 zm[16], t[16];
+  u32 zm[16], a[16], t[16];
   fn_red_cols<17>(z17, zm);
-  fn_mul(t, zm, r_inv);
+  select16(a, h, s, zm);
+  grp_fn_mul<H>(t, a, r_inv, rank % H, hmask);
   fn_neg(u1, t);
-  fn_mul(u2, s, r_inv);
+  select16(u1, h, t, u1);
+  if constexpr (T == 1)
+    grp_fn_mul<H>(u2, s, r_inv, rank, mask);
+  else
+    copy16(u2, u1);
 }
 
 constexpr int GLV_WINDOWS = 33;

@@ -36,8 +36,9 @@ static inline dim3 eg_grid(int n) {
   return dim3((unsigned)((n + EG_THREADS - 1) / EG_THREADS));
 }
 
-// T lanes a row (the pow, ladder, point-table, GLV, fp_mul and finish
-// kernels): blocks of 64, 128 or 256 threads, T = 1, 2, 4 or 8.  A block is whole warps and T divides 32,
+// T lanes a row (the prelude, pow, u1u2, ladder, point-table, GLV, fp_mul
+// and finish kernels): blocks of 64, 128 or 256 threads, T = 1, 2, 4 or
+// 8.  A block is whole warps and T divides 32,
 // so a group never straddles two warps.  Every group runs, the groups
 // past the last row on a clamped row, because no lane may leave before
 // the group's shuffles; only the store is skipped.

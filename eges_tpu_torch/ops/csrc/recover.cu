@@ -4,11 +4,12 @@
 // Each __global__ replaces one Pallas kernel of
 // eges_tpu/ops/pallas_kernels.py (named beside it) over the field
 // library of field.cuh, so its results are bit-identical to the
-// reference's numpy twins.  Most run one thread per batch row; the pow,
-// the GLV split, fp_mul and the finish (and the point table and the
-// ladder in ladder.cu) run a group of T lanes a row instead (one instance
-// each for T = 1, 2, 4 and 8; ops/kernels.py lanes_for picks T and the
-// block size from the row count).  The TPU kernels walked
+// reference's numpy twins.  y_fix, fp_canon and keccak_rows run one
+// thread per batch row; the prelude, the pow, u1u2, the GLV split, fp_mul
+// and the finish (and the point table and the ladder in ladder.cu) run a
+// group of T lanes a row instead (one instance each for T = 1, 2, 4 and
+// 8; ops/kernels.py lanes_for picks T and the block size from the row
+// count).  The TPU kernels walked
 // windows, table entries and pow digits on a sequential grid axis with
 // the running state in VMEM; blocks on Hopper run in no order, so each
 // of those walks is a loop inside the thread (or group) here.
@@ -24,10 +25,10 @@
 // recover_prelude, y_fix and recover_finish issue fewer than that per
 // byte and are bound by bytes; the other five by integer operations.  All of
 // them read each input once, write each output once and keep every
-// intermediate in registers (the pow table and the row tiles of fp_mul
-// and fp_canon in shared memory).  fp_mul and fp_canon read and write
-// 16-byte vectors through their tiles; against the latency of a row's
-// dependent chains, the lane groups put more warps on more SMs.
+// intermediate in registers (the pow table and the row tiles of the
+// prelude, u1u2, fp_mul and fp_canon in shared memory).  Those four read
+// and write 16-byte vectors through their tiles; against the latency of
+// a row's dependent chains, the lane groups put more warps on more SMs.
 //
 // Each launcher has a plain C interface for ctypes: device pointers and
 // the stream arrive as void*, the kernel is queued on that stream, and
@@ -37,28 +38,256 @@
 
 using namespace eg;
 
-// #1 recover_prelude_pallas: wire bytes -> r, s, z, v, the x candidate,
-// y^2 and the range checks.
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_recover_prelude(const uint8_t* sigs, const uint8_t* hashes, int B, u32* x,
-                  u32* y_sq, u32* ok, u32* r, u32* s, u32* z, u32* v) {
-  EG_ROW(B)
-  const uint8_t* sg = sigs + (size_t)65 * b;
-  u32 R[16], S[16], Zh[16], X[16], YS[16];
-  unpack_be(R, sg);
-  unpack_be(S, sg + 32);
-  unpack_be(Zh, hashes + (size_t)32 * b);
-  const u32 V = sg[64];
-  const u32 OK = recover_prelude(X, YS, R, S, V);
-  const size_t o = (size_t)16 * b;
-  store16(x + o, X);
-  store16(y_sq + o, YS);
-  store16(r + o, R);
-  store16(s + o, S);
-  store16(z + o, Zh);
-  ok[b] = OK;
-  v[b] = V;
+// ---------------------------------------------------------------------------
+// row tiles in shared memory
+// ---------------------------------------------------------------------------
+//
+// One thread a row reading its own 16 words at a 64-byte stride made each
+// load of a warp touch 32 separate sectors.  The tiled kernels (the
+// prelude, u1u2, fp_mul, fp_canon) move a block's rows through shared
+// memory instead, so device memory is read and written as 16-byte
+// vectors, neighbouring threads on neighbouring addresses (ld.global.nc
+// in, evict-first out: each byte is touched once).  A block of `threads`
+// holds threads / T rows, each row a group of T lanes.  A tile is
+// [rows][4] uint4 with chunk c of row r at slot 4r + (c ^ ((r >> 1) & 3)):
+// the copy's 8 neighbouring uint4s (two rows) and a row's reads by 8
+// neighbouring rows each cover all 32 banks once.  An operand whose
+// address is not 16-byte aligned (a view of any contiguous [M, 16]
+// tensor; `vec` is 0) is copied a word a thread, still neighbour to
+// neighbour; outputs are allocated aligned.
+
+// 16-byte aligned: the tiles are read and written as uint4
+extern __shared__ __align__(16) u32 eg_smem[];
+
+static __device__ __forceinline__ int tile_slot(int r, int c) {
+  return 4 * r + (c ^ ((r >> 1) & 3));
 }
+
+// Rows [0, n) of `a` into the tile ta and, for NOP >= 2, of `b` into tb
+// and, for NOP = 3, of `c` into tc (the operands past NOP are not read),
+// all loads issued before any is stored.  4 * rows / blockDim.x = 4 / T
+// uint4s of each operand a thread (half the threads at T = 8).
+template <int T, int NOP>
+static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
+                                               uint4* tc, const u32* a,
+                                               const u32* b, const u32* c,
+                                               int n, int vec) {
+  static_assert(NOP >= 1 && NOP <= 3, "one to three operands");
+  if (vec) {
+    constexpr int V = (4 + T - 1) / T;
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    const uint4* b4 = reinterpret_cast<const uint4*>(b);
+    const uint4* c4 = reinterpret_cast<const uint4*>(c);
+    uint4 va[V], vb[V], vc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 4 * n) {
+        va[k] = __ldg(a4 + i);
+        if constexpr (NOP >= 2) vb[k] = __ldg(b4 + i);
+        if constexpr (NOP == 3) vc[k] = __ldg(c4 + i);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 4 * n) {
+        const int t = tile_slot(i >> 2, i & 3);
+        ta[t] = va[k];
+        if constexpr (NOP >= 2) tb[t] = vb[k];
+        if constexpr (NOP == 3) tc[t] = vc[k];
+      }
+    }
+  } else {
+    constexpr int W = 16 / T;
+    u32* wa = reinterpret_cast<u32*>(ta);
+    u32* wb = reinterpret_cast<u32*>(tb);
+    u32* wc = reinterpret_cast<u32*>(tc);
+    u32 va[W], vb[W], vc[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 16 * n) {
+        va[k] = __ldg(a + i);
+        if constexpr (NOP >= 2) vb[k] = __ldg(b + i);
+        if constexpr (NOP == 3) vc[k] = __ldg(c + i);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < 16 * n) {
+        const int w = 4 * tile_slot(i >> 4, (i >> 2) & 3) + (i & 3);
+        wa[w] = va[k];
+        if constexpr (NOP >= 2) wb[w] = vb[k];
+        if constexpr (NOP == 3) wc[w] = vc[k];
+      }
+    }
+  }
+}
+
+static __device__ __forceinline__ void tile_row(u32* o, const uint4* t,
+                                                int r) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint4 v = t[tile_slot(r, c)];
+    o[4 * c] = v.x;
+    o[4 * c + 1] = v.y;
+    o[4 * c + 2] = v.z;
+    o[4 * c + 3] = v.w;
+  }
+}
+
+// A row's result over its row r of the tile: lane `rank` of its group
+// writes chunks rank, rank + T, ... (every lane of the group has read the
+// row by then).
+template <int T>
+static __device__ __forceinline__ void tile_put(uint4* t, int r,
+                                                const u32* v, u32 rank) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c % T == (int)rank)
+      t[tile_slot(r, c)] =
+          make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+}
+
+// Rows [0, n) of the tile to `out` (16-byte aligned), evict-first.
+template <int T>
+static __device__ __forceinline__ void tile_out(u32* out, const uint4* t,
+                                                int n) {
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+  constexpr int V = (4 + T - 1) / T;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < 4 * n) __stcs(o4 + i, t[tile_slot(i >> 2, i & 3)]);
+  }
+}
+
+// Bytes [0, len) of `src` into `dst` (shared memory at the same offset
+// from a 16-byte boundary as src): the aligned middle in 16-byte
+// ld.global.nc loads, a uint4 a thread, four a thread in flight; the head
+// before the first boundary and the tail after the last (under 16 bytes
+// each) a byte a thread, threads 0-15 and 16-31.  Every byte is loaded
+// once (tests/test_torch_lanes.py models it).
+static __device__ __forceinline__ void bytes_in(uint8_t* dst,
+                                                const uint8_t* src,
+                                                int len) {
+  const int lead = (int)((16u - (unsigned)((size_t)src & 15u)) & 15u);
+  const int head = lead < len ? lead : len;
+  const int mid = (len - head) >> 4;  // whole uint4s
+  const int tail = len - head - 16 * mid;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int i0 = threadIdx.x; i0 < mid; i0 += 4 * blockDim.x) {
+    uint4 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i < mid) v[k] = __ldg(s4 + i);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i < mid) d4[i] = v[k];
+    }
+  }
+  const int t = threadIdx.x;
+  if (t < head) {
+    dst[t] = __ldg(src + t);
+  } else if (t >= 16 && t < 16 + tail) {
+    const int i = head + 16 * mid + t - 16;
+    dst[i] = __ldg(src + i);
+  }
+}
+
+// #1 recover_prelude_pallas: wire bytes -> r, s, z, v, the x candidate,
+// y^2 and the range checks, bound by bytes (425 a row against 2,070
+// operations), on a group of T lanes a row (field.cuh
+// grp_recover_prelude: y^2's square and product shared).  One thread a
+// row read its 97 bytes one at a time at a 65-byte stride and wrote five
+// rows of 16 words at a 64-byte stride.  Here the block's signature span,
+// bytes [r0 * pitch, r0 * pitch + (n - 1) * pitch + 65) (contiguous for
+// any pitch, so rows wider than 65 bytes are read in place), and its hash
+// span [32 * r0, 32 * (r0 + n)) come into shared memory (bytes_in: with
+// a pitch of 65 a block starts on a 16-byte boundary only when its first
+// row is a multiple of 16, so the byte head and tail are the normal
+// case); each lane unpacks its row from there.  The five [B, 16] outputs
+// leave through tiles laid over the spans (after every lane has unpacked):
+// r, s and z before the products, x and y^2 after.  ok and v [B] are
+// stored by the group's first lane.  A group past B reads the block's last
+// row again and stores its ok and v there, the same words, so no branch
+// skips its chain.
+constexpr int EG_PRELUDE_MAX_PITCH = 256;  // bytes from one row to the next
+
+// Where the hash span lies in shared memory: past the signature span,
+// which starts at most 15 bytes into the tile.
+static __host__ __device__ __forceinline__ int prelude_hash_at(int rows,
+                                                               int pitch) {
+  return ((rows - 1) * pitch + 65 + 15 + 15) & ~15;
+}
+
+template <int T>
+static __device__ __forceinline__ void prelude_rows(
+    const uint8_t* sigs, int pitch, const uint8_t* hashes, int B, u32* x,
+    u32* y_sq, u32* ok, u32* r, u32* s, u32* z, u32* v) {
+  const EgGroup g = eg_group<T>(B);
+  const int rows = blockDim.x / T, lr = threadIdx.x / T;
+  const int r0 = blockIdx.x * rows;
+  const int n = B - r0 < rows ? B - r0 : rows;
+  const int li = lr < n ? lr : n - 1;
+  const uint8_t* sg = sigs + (size_t)r0 * pitch;
+  const uint8_t* hs = hashes + (size_t)32 * r0;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(eg_smem);
+  uint8_t* tsig = smem + ((size_t)sg & 15u);
+  uint8_t* thash = smem + prelude_hash_at(rows, pitch) + ((size_t)hs & 15u);
+  bytes_in(tsig, sg, (n - 1) * pitch + 65);
+  bytes_in(thash, hs, 32 * n);
+  __syncthreads();
+  const uint8_t* row = tsig + li * pitch;
+  u32 R[16], S[16], Zh[16];
+  unpack_be(R, row);
+  unpack_be(S, row + 32);
+  unpack_be(Zh, thash + 32 * li);
+  const u32 V = row[64];
+  __syncthreads();  // the output tiles lie over the spans
+  uint4* t = reinterpret_cast<uint4*>(eg_smem);
+  const int tw = 4 * rows;  // uint4s a tile
+  const size_t o = (size_t)16 * r0;
+  tile_put<T>(t, lr, R, g.rank);
+  tile_put<T>(t + tw, lr, S, g.rank);
+  tile_put<T>(t + 2 * tw, lr, Zh, g.rank);
+  __syncthreads();
+  tile_out<T>(r + o, t, n);
+  tile_out<T>(s + o, t + tw, n);
+  tile_out<T>(z + o, t + 2 * tw, n);
+  u32 X[16], YS[16];
+  const u32 OK = grp_recover_prelude<T>(X, YS, R, S, V, g.rank, g.mask);
+  tile_put<T>(t + 3 * tw, lr, X, g.rank);
+  tile_put<T>(t + 4 * tw, lr, YS, g.rank);
+  if (g.rank == 0) {
+    ok[g.in] = OK;
+    v[g.in] = V;
+  }
+  __syncthreads();
+  tile_out<T>(x + o, t + 3 * tw, n);
+  tile_out<T>(y_sq + o, t + 4 * tw, n);
+}
+
+#define EG_PRELUDE_KERNEL(T)                                                \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)        \
+      k_recover_prelude_t##T(const uint8_t* sigs, int pitch,                \
+                             const uint8_t* hashes, int B, u32* x,          \
+                             u32* y_sq, u32* ok, u32* r, u32* s, u32* z,    \
+                             u32* v) {                                      \
+    prelude_rows<T>(sigs, pitch, hashes, B, x, y_sq, ok, r, s, z, v);       \
+  }
+
+EG_PRELUDE_KERNEL(1)
+EG_PRELUDE_KERNEL(2)
+EG_PRELUDE_KERNEL(4)
+EG_PRELUDE_KERNEL(8)
 
 // #2 pow_mod_pallas: a^e for a constant e (64 four-bit digits, MSD
 // first), relaxed mod P or canonical mod N, on a group of T lanes a row
@@ -75,10 +304,6 @@ struct PowDigits {
 };
 
 constexpr int POW_TAB_WORDS = 14 * 8;  // a row's table, entries 2..15
-
-// 16-byte aligned: the row tiles of fp_mul and fp_canon are read and
-// written as uint4
-extern __shared__ __align__(16) u32 eg_smem[];
 
 static __device__ __forceinline__ u32 pow_digit(const PowDigits& e, int i) {
   const int q = i >> 3;
@@ -167,20 +392,55 @@ k_y_fix(const u32* root, const u32* y_sq, const u32* v, int B, u32* y,
   store16(y + (size_t)16 * b, Y);
 }
 
-// #4 u1u2_pallas
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_u1u2(const u32* z, const u32* s, const u32* r_inv, int B, u32* u1,
-       u32* u2) {
-  EG_ROW(B)
-  const size_t o = (size_t)16 * b;
-  u32 Zv[16], S[16], RI[16], U1[16], U2[16];
-  load16(Zv, z + o);
-  load16(S, s + o);
-  load16(RI, r_inv + o);
-  u1u2(U1, U2, Zv, S, RI);
-  store16(u1 + o, U1);
-  store16(u2 + o, U2);
+// #4 u1u2_pallas: u1 = -(z mod N) * r^-1, u2 = s * r^-1 (canonical mod
+// N), bound by operations (5,369 a row against 320 bytes), on a group of
+// T lanes a row (field.cuh grp_u1u2): at T >= 2 the first half of the
+// group computes u1 and the second u2, each half sharing its product
+// over T / 2 lanes; at T = 1 one lane computes both.  One thread a row
+// left an 8192-row batch on half the SMs and a 1024-row one on 8 blocks,
+// the row's chain alone, and read its rows at a 64-byte stride.  The
+// block's rows of z, s and r^-1 come in through a tile each; u1's lanes
+// read z and write u1 over it, u2's read s and write u2 over it (no lane
+// reads a row another half writes), and both go out 16 bytes a thread.
+template <int T>
+static __device__ __forceinline__ void u1u2_rows(const u32* z, const u32* s,
+                                                 const u32* r_inv, int B,
+                                                 int vec, u32* u1, u32* u2) {
+  constexpr int H = T > 1 ? T / 2 : 1;  // lanes a product
+  const EgGroup g = eg_group<T>(B);
+  const int rows = blockDim.x / T, lr = threadIdx.x / T;
+  const int r0 = blockIdx.x * rows;
+  const int n = B - r0 < rows ? B - r0 : rows;
+  const u32 h = g.rank / H;  // the lane's half: 0 u1, 1 u2
+  const size_t o = (size_t)16 * r0;
+  uint4* tz = reinterpret_cast<uint4*>(eg_smem);
+  uint4* ts = tz + 4 * rows;
+  uint4* tr = ts + 4 * rows;
+  tile_in<T, 3>(tz, ts, tr, z + o, s + o, r_inv + o, n, vec);
+  __syncthreads();
+  u32 A[16], S[16], RI[16], U1[16], U2[16];
+  tile_row(A, h ? ts : tz, lr);  // z, or s in u2's lanes
+  tile_row(RI, tr, lr);
+  if constexpr (T == 1) tile_row(S, ts, lr);
+  grp_u1u2<T>(U1, U2, A, T == 1 ? S : A, RI, g.rank, g.mask);
+  if constexpr (T == 1) tile_put<1>(ts, lr, U2, 0u);
+  tile_put<H>(h ? ts : tz, lr, U1, g.rank % H);
+  __syncthreads();
+  tile_out<T>(u1 + o, tz, n);
+  tile_out<T>(u2 + o, ts, n);
 }
+
+#define EG_U1U2_KERNEL(T)                                                  \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)       \
+      k_u1u2_t##T(const u32* z, const u32* s, const u32* r_inv, int B,     \
+                  int vec, u32* u1, u32* u2) {                             \
+    u1u2_rows<T>(z, s, r_inv, B, vec, u1, u2);                             \
+  }
+
+EG_U1U2_KERNEL(1)
+EG_U1U2_KERNEL(2)
+EG_U1U2_KERNEL(4)
+EG_U1U2_KERNEL(8)
 
 // #5 glv_digits_pallas: dig [33, 8, Bpad] (rows 0-3: k1, k2 of u1, k1,
 // k2 of u2; rows 4-7 zero), neg [8, Bpad].  Groups cover Bpad; the rows
@@ -304,117 +564,9 @@ EG_GLV_KERNEL(4)
 EG_GLV_KERNEL(8)
 
 // #7 fp_mul_pallas: the relaxed F_P product of [M, 16] rows, bound by
-// bytes (192 a row against 997 operations).  One thread a row reading
-// its own 16 words at a 64-byte stride made each load of a warp touch
-// 32 separate sectors; here a block's rows go through shared memory, so
-// device memory is read and written as 16-byte vectors, neighbouring
-// threads on neighbouring addresses (ld.global.nc in, evict-first out:
-// each byte is touched once).  A block of `threads` holds threads / T
-// rows, each row a group of T lanes (field.cuh grp_fp_mul; T = 1 is
-// fp_mul itself).  The tile is [rows][4] uint4 with chunk c of row r at
-// slot 4r + (c ^ ((r >> 1) & 3)): the copy's 8 neighbouring uint4s (two
-// rows) and a row's reads by 8 neighbouring rows each cover all 32 banks
-// once.  An operand whose address is not 16-byte aligned (a view of any
-// contiguous [M, 16] tensor; `vec` is 0) is copied a word a thread,
-// still neighbour to neighbour; the output is allocated aligned.
-static __device__ __forceinline__ int tile_slot(int r, int c) {
-  return 4 * r + (c ^ ((r >> 1) & 3));
-}
-
-// Rows [0, n) of `a` into the tile ta and, for NOP = 2, of `b` into tb
-// (NOP = 1 reads neither b nor tb), all loads issued before any is
-// stored.  4 * rows / blockDim.x = 4 / T uint4s of each operand a thread
-// (half the threads at T = 8).
-template <int T, int NOP>
-static __device__ __forceinline__ void tile_in(uint4* ta, uint4* tb,
-                                               const u32* a, const u32* b,
-                                               int n, int vec) {
-  static_assert(NOP == 1 || NOP == 2, "one or two operands");
-  if (vec) {
-    constexpr int V = (4 + T - 1) / T;
-    const uint4* a4 = reinterpret_cast<const uint4*>(a);
-    const uint4* b4 = reinterpret_cast<const uint4*>(b);
-    uint4 va[V], vb[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i < 4 * n) {
-        va[k] = __ldg(a4 + i);
-        if constexpr (NOP == 2) vb[k] = __ldg(b4 + i);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i < 4 * n) {
-        ta[tile_slot(i >> 2, i & 3)] = va[k];
-        if constexpr (NOP == 2) tb[tile_slot(i >> 2, i & 3)] = vb[k];
-      }
-    }
-  } else {
-    constexpr int W = 16 / T;
-    u32* wa = reinterpret_cast<u32*>(ta);
-    u32* wb = reinterpret_cast<u32*>(tb);
-    u32 va[W], vb[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i < 16 * n) {
-        va[k] = __ldg(a + i);
-        if constexpr (NOP == 2) vb[k] = __ldg(b + i);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i < 16 * n) {
-        const int w = 4 * tile_slot(i >> 4, (i >> 2) & 3) + (i & 3);
-        wa[w] = va[k];
-        if constexpr (NOP == 2) wb[w] = vb[k];
-      }
-    }
-  }
-}
-
-static __device__ __forceinline__ void tile_row(u32* o, const uint4* t,
-                                                int r) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint4 v = t[tile_slot(r, c)];
-    o[4 * c] = v.x;
-    o[4 * c + 1] = v.y;
-    o[4 * c + 2] = v.z;
-    o[4 * c + 3] = v.w;
-  }
-}
-
-// A row's result over its row r of the tile: lane `rank` of its group
-// writes chunks rank, rank + T, ... (every lane of the group has read the
-// row by then).
-template <int T>
-static __device__ __forceinline__ void tile_put(uint4* t, int r,
-                                                const u32* v, u32 rank) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (c % T == (int)rank)
-      t[tile_slot(r, c)] =
-          make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
-  }
-}
-
-// Rows [0, n) of the tile to `out` (16-byte aligned), evict-first.
-template <int T>
-static __device__ __forceinline__ void tile_out(u32* out, const uint4* t,
-                                                int n) {
-  uint4* o4 = reinterpret_cast<uint4*>(out);
-  constexpr int V = (4 + T - 1) / T;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < 4 * n) __stcs(o4 + i, t[tile_slot(i >> 2, i & 3)]);
-  }
-}
-
+// bytes (192 a row against 997 operations), through two row tiles (the
+// tile section above), each row a group of T lanes (field.cuh
+// grp_fp_mul; T = 1 is fp_mul itself).
 template <int T>
 static __device__ __forceinline__ void fp_mul_rows(const u32* a,
                                                    const u32* b, int M,
@@ -426,7 +578,7 @@ static __device__ __forceinline__ void fp_mul_rows(const u32* a,
   const size_t o = (size_t)16 * r0;
   uint4* ta = reinterpret_cast<uint4*>(eg_smem);
   uint4* tb = ta + 4 * rows;
-  tile_in<T, 2>(ta, tb, a + o, b + o, n, vec);
+  tile_in<T, 2>(ta, tb, nullptr, a + o, b + o, nullptr, n, vec);
   __syncthreads();
   u32 A[16], Bv[16], O[16];
   tile_row(A, ta, lr);
@@ -463,7 +615,7 @@ k_fp_canon(const u32* a, int M, int vec, u32* out) {
   const int n = M - r0 < rows ? M - r0 : rows;
   const size_t o = (size_t)16 * r0;
   uint4* ta = reinterpret_cast<uint4*>(eg_smem);
-  tile_in<1, 1>(ta, nullptr, a + o, nullptr, n, vec);
+  tile_in<1, 1>(ta, nullptr, nullptr, a + o, nullptr, nullptr, n, vec);
   __syncthreads();
   u32 A[16];
   tile_row(A, ta, threadIdx.x);
@@ -554,29 +706,59 @@ static int lanes_index(int lanes) {
   return lanes == 1 ? 0 : lanes == 2 ? 1 : lanes == 4 ? 2 : 3;
 }
 
+typedef void (*PreludeKernel)(const uint8_t*, int, const uint8_t*, int,
+                              u32*, u32*, u32*, u32*, u32*, u32*, u32*);
+static const PreludeKernel PRELUDE[] = {
+    k_recover_prelude_t1, k_recover_prelude_t2, k_recover_prelude_t4,
+    k_recover_prelude_t8};
+
+// The prelude's shared memory: its two spans, then five output tiles over
+// them (at most 80 KB, for 256 rows).
+static size_t prelude_smem(int rows, int pitch) {
+  const size_t in = (size_t)prelude_hash_at(rows, pitch) + 32 * rows + 16;
+  const size_t out = (size_t)5 * rows * 64;
+  return in > out ? in : out;
+}
+
 extern "C" int eg_init(const u32* host_consts, int count) {
-  // the pow table of a 256-thread block at one lane a row is 112 KB,
-  // past the 48 KB a block gets without asking
+  // the pow table of a 256-thread block at one lane a row is 112 KB, and
+  // the prelude's tiles of 256 rows 80 KB, past the 48 KB a block gets
+  // without asking
   const int most = EG_LANES_MAX_THREADS * POW_TAB_WORDS * 4;
+  const int prelude_most = (int)prelude_smem(EG_LANES_MAX_THREADS,
+                                             EG_PRELUDE_MAX_PITCH);
   for (int i = 0; i < 4; ++i) {
     if (cudaFuncSetAttribute((const void*)POW_P[i],
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most) != cudaSuccess ||
         cudaFuncSetAttribute((const void*)POW_N[i],
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             most) != cudaSuccess)
+                             most) != cudaSuccess ||
+        cudaFuncSetAttribute((const void*)PRELUDE[i],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             prelude_most) != cudaSuccess)
       return (int)cudaGetLastError();
   }
   return eg_upload_consts(host_consts, count);
 }
 
-extern "C" int eg_recover_prelude(const void* sigs, const void* hashes, int B,
-                                  void* x, void* y_sq, void* ok, void* r,
-                                  void* s, void* z, void* v, void* stream) {
+// pitch: bytes from one signature row to the next, 65..256; the five
+// value outputs must be 16-byte aligned.
+extern "C" int eg_recover_prelude(const void* sigs, int pitch,
+                                  const void* hashes, int B, void* x,
+                                  void* y_sq, void* ok, void* r, void* s,
+                                  void* z, void* v, int lanes, int threads,
+                                  void* stream) {
   if (B <= 0) return 0;
-  k_recover_prelude<<<eg_grid(B), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const uint8_t*)sigs, (const uint8_t*)hashes, B, (u32*)x, (u32*)y_sq,
-      (u32*)ok, (u32*)r, (u32*)s, (u32*)z, (u32*)v);
+  if (!eg_lanes_ok(lanes, threads) || pitch < 65 ||
+      pitch > EG_PRELUDE_MAX_PITCH ||
+      ((size_t)x | (size_t)y_sq | (size_t)r | (size_t)s | (size_t)z) % 16)
+    return (int)cudaErrorInvalidValue;
+  PRELUDE[lanes_index(lanes)]<<<eg_lanes_grid(B, lanes, threads), threads,
+                                prelude_smem(threads / lanes, pitch),
+                                EG_STREAM(stream)>>>(
+      (const uint8_t*)sigs, pitch, (const uint8_t*)hashes, B, (u32*)x,
+      (u32*)y_sq, (u32*)ok, (u32*)r, (u32*)s, (u32*)z, (u32*)v);
   return (int)cudaGetLastError();
 }
 
@@ -607,11 +789,24 @@ extern "C" int eg_y_fix(const void* root, const void* y_sq, const void* v,
   return (int)cudaGetLastError();
 }
 
+typedef void (*U1u2Kernel)(const u32*, const u32*, const u32*, int, int,
+                           u32*, u32*);
+static const U1u2Kernel U1U2[] = {k_u1u2_t1, k_u1u2_t2, k_u1u2_t4,
+                                  k_u1u2_t8};
+
+// vec: 1 when z, s and r_inv are 16-byte aligned; u1 and u2 must be.
 extern "C" int eg_u1u2(const void* z, const void* s, const void* r_inv, int B,
-                       void* u1, void* u2, void* stream) {
+                       void* u1, void* u2, int vec, int lanes, int threads,
+                       void* stream) {
   if (B <= 0) return 0;
-  k_u1u2<<<eg_grid(B), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const u32*)z, (const u32*)s, (const u32*)r_inv, B, (u32*)u1,
+  if (!eg_lanes_ok(lanes, threads) || ((size_t)u1 | (size_t)u2) % 16 ||
+      (vec && ((size_t)z | (size_t)s | (size_t)r_inv) % 16))
+    return (int)cudaErrorInvalidValue;
+  // three tiles of threads / lanes rows: at most 48 KB
+  const size_t smem = (size_t)(threads / lanes) * 3 * 64;
+  U1U2[lanes_index(lanes)]<<<eg_lanes_grid(B, lanes, threads), threads, smem,
+                             EG_STREAM(stream)>>>(
+      (const u32*)z, (const u32*)s, (const u32*)r_inv, B, vec, (u32*)u1,
       (u32*)u2);
   return (int)cudaGetLastError();
 }

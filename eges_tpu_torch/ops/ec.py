@@ -305,7 +305,8 @@ def strauss_gR(u1: torch.Tensor, u2: torch.Tensor, rx: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ecrecover_point_fused(sigs: torch.Tensor, hashes: torch.Tensor):
-    """Wire bytes in (``sigs [B, 65]``, ``hashes [B, 32]`` uint8):
+    """Wire bytes in (``sigs [B, W]`` for any W >= 65, read in place by
+    the prelude, and ``hashes [B, 32]``, uint8):
     returns ``(qx, qy, ok, words)``: affine ``qx, qy [B, 16]`` (zero
     where ``ok == 0``), ``ok [B]``, and ``words [34, Bpad]``, the padded
     keccak block of ``qx || qy``."""

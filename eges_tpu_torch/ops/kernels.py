@@ -33,16 +33,17 @@ operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.  The pow,
 the point table and the ladder, nearly all of a recovery's card time,
-and the GLV split, ``fp_mul`` and the finish run a group of T lanes a
-row (``csrc/field.cuh`` ``grp_*``), so that a batch puts more warps on
-more SMs; :func:`lanes_for` picks T and the block size from the row
-count, and :func:`pow_mod_lanes`, :func:`point_table_lanes`,
+and the prelude, ``u1u2``, the GLV split, ``fp_mul`` and the finish run
+a group of T lanes a row (``csrc/field.cuh`` ``grp_*``), so that a batch
+puts more warps on more SMs; :func:`lanes_for` picks T and the block
+size from the row count, and :func:`recover_prelude_lanes`,
+:func:`pow_mod_lanes`, :func:`u1u2_lanes`, :func:`point_table_lanes`,
 :func:`strauss_tab_lanes`, :func:`glv_digits_lanes`,
 :func:`fp_mul_lanes`, :func:`fp_canon_lanes` (one lane a row, any block
 size) and :func:`recover_finish_lanes` launch any instance (every one
-gives the same bits).  ``fp_mul`` and ``fp_canon`` move their rows
-through shared memory, so that device memory sees 16-byte accesses,
-neighbour to neighbour.
+gives the same bits).  The prelude, ``u1u2``, ``fp_mul`` and
+``fp_canon`` move their rows through shared memory, so that device
+memory sees 16-byte accesses, neighbour to neighbour.
 
 The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
 sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
@@ -146,12 +147,16 @@ def bpad(b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# lanes a row of the pow, point-table, ladder, GLV, fp_mul and finish
-# kernels, and the block size of fp_canon (csrc/recover.cu, ladder.cu)
+# lanes a row of the prelude, pow, u1u2, point-table, ladder, GLV, fp_mul
+# and finish kernels, and the block size of fp_canon (csrc/recover.cu,
+# ladder.cu)
 # ---------------------------------------------------------------------------
 
 LANES = build.LANES            # the instances of each kernel
 LANE_THREADS = (64, 128, 256)   # the block sizes they take
+# the widest row pitch, in bytes, the prelude's kernel reads in place
+# (csrc/recover.cu EG_PRELUDE_MAX_PITCH)
+PRELUDE_MAX_PITCH = 256
 # kernel -> ((most rows, lanes, threads), ...): the first entry whose row
 # limit the row count does not pass (None: no limit).  From the sweep of
 # chip_smoke.py phase lanes (PERF.md has its times), the fastest instance
@@ -172,7 +177,12 @@ LANE_THREADS = (64, 128, 256)   # the block sizes they take
 # a scalar) in blocks of 128 at every count: within 1% of the fastest,
 # about 3.5-4x faster than one lane; 8 lanes add shuffles to a chain
 # whose reductions every lane runs whole.  fp_canon, one lane a row,
-# takes blocks of 64 at every count (256-131072 rows).
+# takes blocks of 64 at every count (256-131072 rows).  The prelude and
+# u1u2, swept at 256-8192 rows on cold times, take 8 lanes in blocks of
+# 128 up to 1024 rows; beyond, the prelude 4 in blocks of 64 and u1u2 8
+# in blocks of 64 up to 4096 rows and 4 in blocks of 64 past them (8 lanes
+# a row there issue twice a 4-lane group's instructions: every lane runs
+# u1u2's reductions whole).
 LANES_RULE = {
     "strauss_tab": ((256, 4, 128), (4096, 8, 64), (None, 4, 256)),
     "point_table": ((1024, 8, 128), (4096, 8, 256), (None, 4, 256)),
@@ -184,6 +194,8 @@ LANES_RULE = {
     "recover_finish": ((None, 4, 128),),
     "glv_digits": ((None, 4, 128),),
     "fp_canon": ((None, 1, 64),),
+    "recover_prelude": ((1024, 8, 128), (None, 4, 64)),
+    "u1u2": ((1024, 8, 128), (4096, 8, 64), (None, 4, 64)),
 }
 
 
@@ -191,7 +203,8 @@ def lanes_for(kernel: str, rows: int, device="cuda") -> tuple[int, int]:
     """``(lanes a row, threads a block)`` of ``kernel`` (a key of
     ``LANES_RULE``: ``"strauss_tab"``, ``"point_table"``, ``"pow_mod_p"``,
     ``"pow_mod_n"``, ``"glv_digits"``, ``"fp_mul"``, ``"fp_canon"`` (one
-    lane a row) or ``"recover_finish"``) at ``rows`` rows: the one rule
+    lane a row), ``"recover_finish"``, ``"recover_prelude"`` or
+    ``"u1u2"``) at ``rows`` rows: the one rule
     the wrappers launch by.  A CPU device takes the
     plain version, whose arithmetic is one thread's: ``(1, 128)``."""
     if rows <= 0:
@@ -304,7 +317,7 @@ def pow_digits(e: int) -> bytes:
 
 @torch.inference_mode()
 def recover_prelude_plain(sigs, hashes):
-    s = sigs.to(torch.int64)
+    s = sigs[:, :65].to(torch.int64)
     r = field.unpack_be(s, 0)
     sv = field.unpack_be(s, 32)
     v = s[:, 64]
@@ -589,10 +602,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "eg_init": [_P, _I],
-    "eg_recover_prelude": [_P] * 2 + [_I] + [_P] * 7 + [_P],
+    "eg_recover_prelude": [_P, _I, _P, _I] + [_P] * 7 + [_I, _I, _P],
     "eg_pow_mod": [_P, _P, _I, _P, _I, _I, _I, _P],
     "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
-    "eg_u1u2": [_P, _P, _P, _I, _P, _P, _P],
+    "eg_u1u2": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
     "eg_fp_mul": [_P, _P, _I, _P, _I, _I, _I, _P],
     "eg_fp_canon": [_P, _I, _P, _I, _I, _P],
@@ -712,18 +725,48 @@ def _rows(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 def recover_prelude_pallas(sigs, hashes):
-    """``sigs [B, 65]`` u8 wire signatures, ``hashes [B, 32]`` u8 ->
-    ``(x, y_sq, ok, r, s, z, v)``: limbs ``[B, 16]``, flags ``[B]``.
-    Replaces ``recover_prelude_pallas`` (pallas_kernels.py:1519)."""
+    """``sigs [B, W]`` u8 wire signatures (W >= 65: r, s and v from bytes
+    0-64), ``hashes [B, 32]`` u8 -> ``(x, y_sq, ok, r, s, z, v)``: limbs
+    ``[B, 16]``, flags ``[B]``.  Replaces ``recover_prelude_pallas``
+    (pallas_kernels.py:1519), on :func:`lanes_for`'s lanes a row."""
+    lanes, threads = lanes_for("recover_prelude", max(_rows(sigs), 1),
+                               sigs.device)
+    return recover_prelude_lanes(sigs, hashes, lanes, threads)
+
+
+def recover_prelude_lanes(sigs, hashes, lanes: int, threads: int):
+    """:func:`recover_prelude_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_recover_prelude_t<lanes>``.  The kernel
+    reads the rows where they lie: any ``[B, W]`` uint8 tensor with
+    W >= 65, unit byte stride and a row pitch of 65 to
+    ``PRELUDE_MAX_PITCH`` bytes, at any offset, without a copy (rows
+    further apart, or bytes that are not adjacent, are first copied to
+    ``[B, 65]``); hashes that are not contiguous are made so.  The outputs
+    are fresh, aligned tensors.  Every instance gives the same bits; the
+    wrapper launches :func:`lanes_for`'s, and chip_smoke.py phase lanes
+    times them all."""
+    _check_lanes(lanes, threads)
     B = _rows(sigs)
-    _check(sigs, "sigs", (B, 65), torch.uint8)
-    _check(hashes, "hashes", (B, 32), torch.uint8)
+    if sigs.dtype != torch.uint8:
+        raise TypeError(f"sigs: expected torch.uint8, got {sigs.dtype}")
+    if sigs.shape[1] < 65:
+        raise ValueError(f"sigs: expected [B, 65 or more], got "
+                         f"{tuple(sigs.shape)}")
+    if hashes.dtype != torch.uint8:
+        raise TypeError(f"hashes: expected torch.uint8, got {hashes.dtype}")
+    if tuple(hashes.shape) != (B, 32):
+        raise ValueError(f"hashes: expected shape {(B, 32)}, got "
+                         f"{tuple(hashes.shape)}")
     if not _on_card(sigs, hashes):
         return recover_prelude_plain(sigs, hashes)
+    pitch = sigs.stride(0) if B > 1 else 65
+    if sigs.stride(1) != 1 or not 65 <= pitch <= PRELUDE_MAX_PITCH:
+        sigs, pitch = sigs[:, :65].contiguous(), 65
+    hashes = hashes.contiguous()
     x, ysq, r, s, z = (_empty((B, NLIMBS), sigs) for _ in range(5))
     ok, v = _empty((B,), sigs), _empty((B,), sigs)
-    _launch("recover_prelude", "eg_recover_prelude", sigs, hashes, B, x, ysq,
-            ok, r, s, z, v)
+    _launch("recover_prelude", "eg_recover_prelude", sigs, pitch, hashes, B,
+            x, ysq, ok, r, s, z, v, lanes, threads)
     return x, ysq, ok, r, s, z, v
 
 
@@ -780,14 +823,30 @@ def y_fix_pallas(root, y_sq, v):
 
 def u1u2_pallas(z, s, r_inv):
     """``(z, s, r_inv) [B, 16]`` -> ``(u1, u2) [B, 16]`` canonical mod N.
-    Replaces ``u1u2_pallas`` (pallas_kernels.py:1610)."""
+    Replaces ``u1u2_pallas`` (pallas_kernels.py:1610), on
+    :func:`lanes_for`'s lanes a row.  Any contiguous ``[B, 16]`` int32
+    operands, views at any offset included."""
+    lanes, threads = lanes_for("u1u2", max(_rows(z), 1), z.device)
+    return u1u2_lanes(z, s, r_inv, lanes, threads)
+
+
+def u1u2_lanes(z, s, r_inv, lanes: int, threads: int):
+    """:func:`u1u2_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_u1u2_t<lanes>`` (at T >= 2 half the
+    group computes u1 and half u2).  The kernel reads 16-byte vectors
+    where all three operands start on a 16-byte boundary and single words
+    otherwise, without a copy; the outputs are fresh, aligned tensors.
+    Every instance gives the same bits; the wrapper launches
+    :func:`lanes_for`'s, and chip_smoke.py phase lanes times them all."""
+    _check_lanes(lanes, threads)
     B = _rows(z)
     for t, what in ((z, "z"), (s, "s"), (r_inv, "r_inv")):
         _check(t, what, (B, NLIMBS))
     if not _on_card(z, s, r_inv):
         return u1u2_plain(z, s, r_inv)
     u1, u2 = _empty((B, NLIMBS), z), _empty((B, NLIMBS), z)
-    _launch("u1u2", "eg_u1u2", z, s, r_inv, B, u1, u2)
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (z, s, r_inv)))
+    _launch("u1u2", "eg_u1u2", z, s, r_inv, B, u1, u2, vec, lanes, threads)
     return u1, u2
 
 

@@ -23,7 +23,8 @@ an operation bound counts no more than the card does.
 ``sm_90a`` code: each loop of the product chain against ``fp_mul``
 (997 counted), each loop of the pow against ``fp_sqr`` (757), each
 kernel without a branch or a call against its instruction count, and
-the shortest path through each GLV, fp_mul, fp_canon and finish instance
+the shortest path through each prelude, u1u2, GLV, fp_mul, fp_canon and
+finish instance
 against a lane's share of the row's count (the count over T).
 
 ``HELPERS`` gives each device function of ``field.cuh`` its own
@@ -210,14 +211,8 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
     "fn_neg": (0, {"is_zero": 1, "fn_sub": 1, "select16": 1}),
     "keccak_words": (KECCAK, {}),
     "unpack_be": (16, {}),
-    # the flags (r_ok 2, s_ok 2, v_ok, hi, x_ok 3, the product 3), x's
-    # 16-step carry chain (a product-add, a shift-add and a mask a step,
-    # no carry into the first) and t[0] + 7
-    "recover_prelude": (2 + 2 + 1 + 1 + 3 + 3 + 16 * 3 - 1 + 1, {"is_zero": 2, "lt_const": 3, "fp_sqr": 1,
-                             "fp_mul": 1, "carry_tail": 1}),
     "y_fix": (16 + 1, {"fp_sqr": 1, "cond_sub_p": 3, "fp_neg": 1,
                            "select16": 1}),
-    "u1u2": (0, {"fn_red_cols<17>": 1, "fn_mul": 2, "fn_neg": 1}),
     "glv_sign_split": (1 + 4 + 1, {"fn_neg": 1, "select16": 1}),
     # the carry chain of 32 columns (31 shifts fused into the next
     # column's add) with the masks of its top 8 limbs only
@@ -227,7 +222,8 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
 
 # the T-lane forms of field.cuh, templates on T: (a lane's own
 # operations for one call as a function of T, {counted callee as the
-# source writes it: call sites}), where "<T>" stands for the caller's T.
+# source writes it: call sites}), where "<T>" stands for the caller's T
+# and "<H>" for half of it (at least 1).
 # A lane issues its share of the row's products (grp_cols) and, whole,
 # the fold, the exchanges (grp_sum), the carries and everything that is
 # not a product; at T = 1 each is its one-thread form.  The kernels'
@@ -253,6 +249,22 @@ GROUP: dict[str, tuple] = {
     "grp_recover_finish": (lambda T: 2, {
         "is_zero_mod": 1, "cond_sub_p": 3, "grp_fp_sqr<T>": 1,
         "grp_fp_mul<T>": 3, "select16": 4, "limbs_to_words_be": 2}),
+    # #1's row: the flags (r_ok 2, s_ok 2, v_ok, hi, x_ok 3, the product
+    # 3), x's 16-step carry chain (a product-add, a shift-add and a mask a
+    # step, no carry into the first) and t[0] + 7 whole in every lane; the
+    # square and the product of y^2 shared out
+    "grp_recover_prelude": (lambda T: 2 + 2 + 1 + 1 + 3 + 3 + 16 * 3 - 1 + 1,
+                            {"is_zero": 2, "lt_const": 3,
+                             "grp_fp_sqr<T>": 1, "grp_fp_mul<T>": 1,
+                             "carry_tail": 1}),
+    # #4's row: at T = 1 one lane's reduction of z, two products and the
+    # negation (the selects on h = 0 fold away); at T >= 2 a lane's half:
+    # the reduction, the selects and the negation whole, one of the two
+    # products shared over H = T / 2 lanes ("<H" below)
+    "grp_u1u2": (lambda T: (-ops(f"grp_fn_mul<{T // 2}>") if T > 1
+                            else -2 * ops("select16")),
+                 {"fn_red_cols<17>": 1, "select16": 2, "grp_fn_mul<H>": 2,
+                  "fn_neg": 1}),
     # one scalar of #5's row: the products by g1, g2 (16 limbs) and by
     # c1, c2 (8 limbs) shared out; the carries, reductions, subtractions
     # and sign splits run whole in every lane
@@ -351,16 +363,21 @@ def ops(name: str) -> int:
             return TEMPLATES[base](*targs)
         own, calls = GROUP[base]
         T = targs[0]
-        return own(T) + sum(n * ops(callee.replace("<T", f"<{T}"))
+        return own(T) + sum(n * ops(_of(T, callee))
                             for callee, n in calls.items()
                             if (base, callee) not in DATA_DEPENDENT)
     own, calls = HELPERS[name]
     return own + sum(n * ops(callee) for callee, n in calls.items())
 
 
+def _of(T: int, callee: str) -> str:
+    """A group form's callee at the caller's T: "<T" -> T, "<H" -> T / 2
+    (at least 1)."""
+    return callee.replace("<T", f"<{T}").replace("<H", f"<{max(T // 2, 1)}")
+
+
 def _at(T: int, calls: dict[str, int]) -> int:
-    return sum(n * ops(callee.replace("<T", f"<{T}"))
-               for callee, n in calls.items())
+    return sum(n * ops(_of(T, callee)) for callee, n in calls.items())
 
 
 def glv_lane(T: int) -> int:
@@ -383,11 +400,14 @@ def glv_lane(T: int) -> int:
 def per_lane(T: int, windows: int = 33, negations: float = 0.0,
              ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations one lane of a T-lane group issues for its row in
-    the pow, ladder, point-table, GLV, fp_mul, fp_canon and finish
-    kernels: every window's work, whatever its digit (``negations``: the
+    the prelude, pow, u1u2, ladder, point-table, GLV, fp_mul, fp_canon and
+    finish kernels: every window's work, whatever its digit (``negations``: the
     mean number of flagged adds a row; at T = 1, the one thread's), the
-    table's doubling and 13 adds on a row whose points differ, the GLV
-    split (:func:`glv_lane`), one product (fp_mul), one conditional
+    table's doubling and 13 adds on a row whose points differ, the
+    prelude's unpacking and checks with its share of y^2's products, u1u2's
+    reduction and negation with its share of one of its products (both at
+    T = 1), the GLV split (:func:`glv_lane`), one product (fp_mul), one
+    conditional
     subtract (fp_canon, one lane a row at any T) and the finish's four
     products with its canonicalisations, selects and words."""
     mul, sqr = ops(f"grp_fp_mul<{T}>"), ops(f"grp_fp_sqr<{T}>")
@@ -407,6 +427,9 @@ def per_lane(T: int, windows: int = 33, negations: float = 0.0,
                         + ladder_doublings * (dbl - _at(T, ADD_SUM_CALLS))),
         "point_table": 13 * madd + dbl,
         "glv_digits": glv_lane(T),
+        "recover_prelude": (3 * ops("unpack_be")
+                            + ops(f"grp_recover_prelude<{T}>")),
+        "u1u2": ops(f"grp_u1u2<{T}>"),
         "fp_mul": mul,
         "fp_canon": ops("cond_sub_p"),
         "recover_finish": ops(f"grp_recover_finish<{T}>"),
@@ -476,9 +499,10 @@ def per_row(windows: int = 33, negations: float = 0.0,
               + negations * ops("fp_neg")
               + ladder_doublings * (dbl - add_sum))
     return {
-        "recover_prelude": 3 * ops("unpack_be") + ops("recover_prelude"),
+        "recover_prelude": (3 * ops("unpack_be")
+                            + ops("grp_recover_prelude<1>")),
         "y_fix": ops("y_fix"),
-        "u1u2": ops("u1u2"),
+        "u1u2": ops("grp_u1u2<1>"),
         "glv_digits": 2 * (ops("grp_glv_track<1>") + 2 * GLV_DIGITS),
         "point_table": 14 * madd + dbl - add_sum,
         "fp_mul": mul,

@@ -189,6 +189,66 @@ def invalid_rows(rng: np.random.Generator, sig: np.ndarray,
     return rows, np.repeat(msg[None], len(INVALID_CLASSES), axis=0)
 
 
+def prelude_rows(rng: np.random.Generator, n: int):
+    """``n`` rows (n >= 21) for the prelude (#1), no signing needed (the
+    prelude reads no key): first one of each class its checks tell apart,
+    then random bytes with recovery ids 0-5.  The classes: r an x
+    coordinate with v = 0 and 1; r + N one with v = 2 and 3; r = 0; s = N,
+    N + 1 and 2^256 - 1; v = 4, 27 and 255; r = P - N with v = 2 (x = P);
+    r + N past 2^256 (r = 2^256 - 1, and 2^256 - N: x = 2^256); an r that
+    is no x coordinate; r = N - 1 (also with v = 2), r = N, s = N - 1; a
+    row of 0xFF bytes; the hashes 0 and 2^256 - 1.  Returns ``(sigs [n,
+    65] u8, hashes [n, 32] u8)``."""
+    top = (1 << 256) - 1
+
+    def x_coordinate(lo, hi, shift=0):
+        while True:
+            r = lo + rand_int(rng, hi - lo)
+            if _is_x(r + shift):
+                return r
+
+    def no_x():
+        while True:
+            r = 1 + rand_int(rng, N - 1)
+            if not _is_x(r):
+                return r
+
+    s = 1 + rand_int(rng, N - 1)
+    classes = [(x_coordinate(1, N), s, 0), (x_coordinate(1, N), s, 1),
+               (x_coordinate(1, P - N, N), s, 2),
+               (x_coordinate(1, P - N, N), s, 3), (0, s, 0), (s, N, 0),
+               (s, N + 1, 1), (s, top, 0), (s, s, 4), (s, s, 27),
+               (s, s, 255), (P - N, s, 2), (top, s, 2), (top + 1 - N, s, 3),
+               (no_x(), s, 0), (N - 1, s, 1), (N - 1, s, 2), (N, s, 0),
+               (s, N - 1, 1), (top, top, 255), (s, s, 0)]
+    if n < len(classes):
+        raise ValueError(f"prelude_rows needs n >= {len(classes)}")
+    sigs = rng.integers(0, 256, (n, 65), dtype=np.uint8)
+    sigs[:, 64] = rng.integers(0, 6, n)
+    hashes = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    for i, (r, sv, v) in enumerate(classes):
+        sigs[i, :32] = _be(r)
+        sigs[i, 32:64] = _be(sv)
+        sigs[i, 64] = v
+    hashes[0], hashes[1] = 0, 0xFF
+    return sigs, hashes
+
+
+def pitched_rows(sigs, pitch: int, offset: int = 0):
+    """``sigs [n, 65]`` uint8 rows (a tensor) laid out as the prelude may
+    find them: each row ``pitch`` bytes after the one before, from
+    ``offset`` bytes into a fresh buffer on their device, 0xAB in the
+    bytes past 65.  Returns the ``[n, pitch]`` view."""
+    import torch
+
+    n = sigs.shape[0]
+    buf = torch.full((n * pitch + offset,), 0xAB, dtype=torch.uint8,
+                     device=sigs.device)
+    view = buf[offset:].view(n, pitch)
+    view[:, :65] = sigs
+    return view
+
+
 def host_recover(sig: np.ndarray, msg: np.ndarray):
     """The host model's answer for one row: (address, 64-byte public
     key) or None for an invalid row."""

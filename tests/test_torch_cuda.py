@@ -47,10 +47,10 @@ def test_build_reports_every_kernel(dev):
     info = build.build()
     lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss",
                                      "point_table", "glv_digits", "fp_mul",
-                                     "recover_finish") for t in K.LANES}
+                                     "recover_finish", "recover_prelude",
+                                     "u1u2") for t in K.LANES}
     assert set(info["ptxas"]) >= lanes | {
-        "k_recover_prelude", "k_y_fix", "k_u1u2",
-        "k_fp_canon", "k_keccak_rows", "k_fn_mul",
+        "k_y_fix", "k_fp_canon", "k_keccak_rows", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
         "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
@@ -237,6 +237,95 @@ def test_finish_every_lane_instance(dev):
                       K.recover_finish_plain(*ins))
 
 
+def _prelude_layouts(sigs, hashes, dev):
+    """The rows at pitches 65, 66, 70 and 256 (0xAB past byte 65) and 1,
+    4 and 8 bytes into a buffer, the hashes also 3 bytes off."""
+    out = []
+    for pitch, off, hoff in ((65, 0, 0), (66, 0, 0), (70, 0, 3), (256, 0, 0),
+                             (65, 1, 0), (65, 4, 0), (65, 8, 3)):
+        hb = torch.empty(32 * len(sigs) + hoff, dtype=torch.uint8,
+                         device=dev)
+        hv = hb[hoff:].view(len(sigs), 32)
+        hv.copy_(hashes)
+        out.append((tt.pitched_rows(sigs, pitch, off), hv))
+    return out
+
+
+def test_prelude_every_lane_instance_on_any_layout(dev):
+    """Every (lanes, threads) instance of the prelude against the plain
+    version, bit for bit, on every class of its checks
+    (``testing.prelude_rows``) at ragged batches, and at pitches 66, 70
+    and 256 and on bases 1, 4 and 8 bytes off: no copy, no fallback, one
+    launch a call."""
+    rng = np.random.default_rng(33)
+    B = 8192
+    sigs, hashes = (torch.from_numpy(a).to(dev)
+                    for a in tt.prelude_rows(rng, B))
+    want = K.recover_prelude_plain(sigs, hashes)
+    layouts = _prelude_layouts(sigs[:4097], hashes[:4097], dev)
+    K.reset_launches()
+    calls = 0
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, B):
+                _same(K.recover_prelude_lanes(sigs[:rows], hashes[:rows],
+                                              lanes, threads),
+                      tuple(w[:rows] for w in want))
+                calls += 1
+            for v, h in layouts:
+                _same(K.recover_prelude_lanes(v, h, lanes, threads),
+                      tuple(w[:4097] for w in want))
+                calls += 1
+    assert K.LAUNCHES["recover_prelude"] == calls
+
+
+def test_u1u2_every_lane_instance_on_any_view(dev):
+    """Every (lanes, threads) instance of u1u2 against the plain version,
+    bit for bit, with r^-1 = 0 rows (u1 = u2 = 0), at ragged batches, and
+    with z, s or r^-1 as a ragged view 4, 8 or 12 bytes off a 16-byte
+    boundary (the word path)."""
+    rng = np.random.default_rng(34)
+    B = 8192
+    z = K.from_reference(_limbs(rng, B), dev)
+    s, ri = (K.from_reference(_limbs(rng, B, N), dev) for _ in range(2))
+    ri[::7] = 0
+    want = K.u1u2_plain(z, s, ri)
+    views = []
+    for off, t in zip((1, 2, 3), (z, s, ri)):
+        buf = torch.empty(16 * 4097 + off, dtype=torch.int32, device=dev)
+        views.append(buf[off:].view(4097, 16))
+        views[-1].copy_(t[:4097])
+    sets = [(views[0], s[:4097], ri[:4097]), (z[:4097], views[1], ri[:4097]),
+            (z[:4097], s[:4097], views[2])]
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, B):
+                _same(K.u1u2_lanes(z[:rows], s[:rows], ri[:rows], lanes,
+                                   threads),
+                      tuple(w[:rows] for w in want))
+            for ins in sets:
+                _same(K.u1u2_lanes(*ins, lanes, threads),
+                      tuple(w[:4097] for w in want))
+
+
+def test_ecrecover_batch_wide_and_int_rows_on_card(dev):
+    """C4 on the card: the rows 66 and 70 bytes wide and as int32 and
+    int64 give the ``[N, 65]`` uint8 bytes, through the fused path."""
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch
+
+    rng = np.random.default_rng(35)
+    sigs, hashes, _ = tt.recover_class_rows(rng, 8)
+    s, h = (torch.from_numpy(a).to(dev) for a in (sigs, hashes))
+    want = ecrecover_batch(s, h)
+    assert want[2].sum() > 0
+    cases = [(torch.cat([s, torch.full((len(sigs), w - 65), 0xAB,
+                                       dtype=torch.uint8, device=dev)], 1), h)
+             for w in (66, 70)]
+    cases += [(s.to(dt), h.to(dt)) for dt in (torch.int32, torch.int64)]
+    for args in cases:
+        _same(ecrecover_batch(*args), want)
+
+
 def test_lanes_rule_launches_clean_instances(dev):
     """The instances lanes_for picks build with no stack frame and no
     spill."""
@@ -246,7 +335,9 @@ def test_lanes_rule_launches_clean_instances(dev):
                 "pow_mod_n": "k_pow_n_t", "point_table": "k_point_table_t",
                 "glv_digits": "k_glv_digits_t", "fp_mul": "k_fp_mul_t",
                 "fp_canon": "k_fp_canon",
-                "recover_finish": "k_recover_finish_t"}[kernel]
+                "recover_finish": "k_recover_finish_t",
+                "recover_prelude": "k_recover_prelude_t",
+                "u1u2": "k_u1u2_t"}[kernel]
         for _, lanes, _ in rule:
             rec = ptxas[name + ("" if kernel == "fp_canon" else str(lanes))]
             assert rec["stack_bytes"] == rec["spill_store_bytes"] == 0, rec
@@ -258,6 +349,9 @@ def test_prelude_y_fix_u1u2(dev):
     sigs[:, 64] = torch.from_numpy(rng.integers(0, 6, B).astype(np.uint8))
     hashes = torch.from_numpy(rng.integers(0, 256, (B, 32), dtype=np.uint8))
     sigs, hashes = sigs.to(dev), hashes.to(dev)
+    for lanes in K.LANES:
+        _same(K.recover_prelude_lanes(sigs, hashes, lanes, 128),
+              K.recover_prelude_plain(sigs, hashes))
     _same(K.recover_prelude_pallas(sigs, hashes),
           K.recover_prelude_plain(sigs, hashes))
     a = K.from_reference(_limbs(rng, B), dev)
@@ -266,6 +360,9 @@ def test_prelude_y_fix_u1u2(dev):
     _same(K.y_fix_pallas(a, b, v), K.y_fix_plain(a, b, v))
     n1 = K.from_reference(_limbs(rng, B, N), dev)
     n2 = K.from_reference(_limbs(rng, B, N), dev)
+    for lanes in K.LANES:
+        _same(K.u1u2_lanes(a, n1, n2, lanes, 128),
+              K.u1u2_plain(a, n1, n2))
     _same(K.u1u2_pallas(a, n1, n2), K.u1u2_plain(a, n1, n2))
     _same(K.glv_digits_pallas(n1, n2), K.glv_digits_plain(n1, n2))
 

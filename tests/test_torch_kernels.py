@@ -72,6 +72,141 @@ def test_recover_prelude_plain():
         np.testing.assert_array_equal(U(g), w)
 
 
+def _prelude_twin(sigs, hashes):
+    """The reference's ``_k_recover_prelude`` (numpy) on ``[n, 65]`` rows:
+    ``(x, y_sq, ok, r, s, z, v)`` in the wrappers' layout."""
+    srows = _lst(sigs[:, :65].astype(np.uint32))
+    r = pk._k_unpack_be(srows, 0, np)
+    s = pk._k_unpack_be(srows, 32, np)
+    z = pk._k_unpack_be(_lst(hashes.astype(np.uint32)), 0, np)
+    x, y_sq, ok = pk._k_recover_prelude(r, s, srows[64], np)
+    return (_unl(x), _unl(y_sq), np.asarray(ok, np.uint32), _unl(r),
+            _unl(s), _unl(z), srows[64])
+
+
+def _prelude_layouts(sigs):
+    """``[n, 65]`` u8 rows as the card may find them: at pitches 65, 66
+    and 70 (0xAB past byte 65), 1 byte into a buffer, and as int32 and
+    int64 byte rows cast to uint8 by the caller."""
+    out = {f"pitch{pitch}+{off}": tt.pitched_rows(torch.from_numpy(sigs),
+                                                 pitch, off)
+           for pitch, off in ((65, 0), (66, 0), (70, 0), (65, 1))}
+    for dt in (torch.int32, torch.int64):
+        out[str(dt)] = torch.from_numpy(sigs).to(dt).to(torch.uint8)
+    return out
+
+
+def test_recover_prelude_lanes_on_cpu_every_class():
+    """40 rows of every class the prelude's checks tell apart
+    (``testing.prelude_rows``: valid rows of both parities, recovery ids 2
+    and 3, r = 0, s >= N, bad v, x >= P, r + N past 2^256, no x
+    coordinate, r and s at N - 1 and N), at pitches 65, 66 and 70, 1 byte
+    off and as int32 and int64 rows, through the plain version, the
+    wrapper and every lane entry given CPU tensors: the reference's
+    ``_k_recover_prelude`` exactly, and no launch counted."""
+    sigs, hashes = tt.prelude_rows(np.random.default_rng(52), 40)
+    want = _prelude_twin(sigs, hashes)
+    h = torch.from_numpy(hashes)
+    K.reset_launches()
+    for name, rows in _prelude_layouts(sigs).items():
+        assert rows.stride(1) == 1
+        for got in (K.recover_prelude_plain(rows, h),
+                    K.recover_prelude_pallas(rows, h),
+                    *(K.recover_prelude_lanes(rows, h, t, 64)
+                      for t in K.LANES)):
+            for g, w in zip(got, want, strict=True):
+                np.testing.assert_array_equal(U(g), w, err_msg=name)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.slow
+def test_recover_prelude_pallas_call_takes_wide_rows():
+    """The reference's ``recover_prelude_pallas`` in interpret mode on the
+    same rows 66 bytes wide (its block spec takes the first 65) gives the
+    port's prelude bit for bit (its compile takes some 14 s on one
+    core)."""
+    sigs, hashes = tt.prelude_rows(np.random.default_rng(53), 40)
+    wide = np.concatenate([sigs, np.full((40, 1), 0xAB, np.uint8)], 1)
+    want = pk.recover_prelude_pallas(jnp.asarray(wide), jnp.asarray(hashes),
+                                     interpret=True)
+    got = K.recover_prelude_pallas(torch.from_numpy(wide),
+                                   torch.from_numpy(hashes))
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(U(g), np.asarray(w))
+
+
+def _u1u2_rows(seed, n):
+    """z below 2^256, s and r^-1 below N, r^-1 = 0 on every fifth row (r
+    = 0), and the extreme limbs on row 1."""
+    z, s, r_inv = _vals(seed, n), _vals(seed + 1, n, N), _vals(seed + 2, n, N)
+    r_inv[::5] = 0
+    z[1] = 0xFFFF
+    return z, s, r_inv
+
+
+def test_u1u2_lanes_on_cpu_with_zero_inverses_and_a_view():
+    """40 rows, r^-1 = 0 among them (u1 = u2 = 0), through the plain
+    version, the wrapper and every lane entry given CPU tensors, z also
+    as a view 4 bytes off a 16-byte boundary: the reference's ``_k_u1u2``
+    exactly, and no launch counted."""
+    z, s, r_inv = _u1u2_rows(54, 40)
+    want = [_unl(w) for w in pk._k_u1u2(_lst(z), _lst(s), _lst(r_inv), np)]
+    assert not want[0][::5].any() and not want[1][::5].any()
+    buf = torch.zeros(16 * 40 + 1, dtype=torch.int32)
+    view = buf[1:].view(40, 16)
+    view.copy_(R(z))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    K.reset_launches()
+    for zz in (R(z), view):
+        for got in (K.u1u2_plain(zz, R(s), R(r_inv)),
+                    K.u1u2_pallas(zz, R(s), R(r_inv)),
+                    *(K.u1u2_lanes(zz, R(s), R(r_inv), t, 128)
+                      for t in K.LANES)):
+            for g, w in zip(got, want, strict=True):
+                np.testing.assert_array_equal(U(g), w)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.slow
+def test_u1u2_plain_matches_pallas_call():
+    """Against the reference's ``u1u2_pallas`` in interpret mode on the
+    same rows (r^-1 = 0 among them; its compile takes more than 100
+    minutes on one CPU core)."""
+    z, s, r_inv = _u1u2_rows(55, 40)
+    want = pk.u1u2_pallas(jnp.asarray(z), jnp.asarray(s), jnp.asarray(r_inv),
+                          interpret=True)
+    for g, w in zip(K.u1u2_plain(R(z), R(s), R(r_inv)), want, strict=True):
+        np.testing.assert_array_equal(U(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
+                                           (1, 512)])
+def test_prelude_and_u1u2_entries_reject_other_instances(lanes, threads):
+    sigs = torch.zeros(2, 65, dtype=torch.uint8)
+    hashes = torch.zeros(2, 32, dtype=torch.uint8)
+    a = R(_vals(56, 2, N))
+    with pytest.raises(ValueError):
+        K.recover_prelude_lanes(sigs, hashes, lanes, threads)
+    with pytest.raises(ValueError):
+        K.u1u2_lanes(a, a, a, lanes, threads)
+
+
+def _zeros(*shape, dtype=torch.uint8):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("sigs,hashes,err", [
+    (_zeros(2, 64), _zeros(2, 32), ValueError),
+    (_zeros(2, 65, dtype=torch.int32), _zeros(2, 32), TypeError),
+    (_zeros(2, 65), _zeros(2, 31), ValueError),
+    (_zeros(2, 65), _zeros(3, 32), ValueError)])
+def test_prelude_wrapper_rejects_what_it_cannot_read(sigs, hashes, err):
+    """Rows narrower than 65 bytes, another dtype than uint8 (the entry
+    points cast), and hashes of another shape."""
+    with pytest.raises(err):
+        K.recover_prelude_pallas(sigs, hashes)
+
+
 POW_CASES = {"sqrt": ((P + 1) // 4, "p"), "r_inv": (N - 2, "n"),
              "table_z_inv": (P - 2, "p"), "final_z_inv": (P - 2, "p")}
 

@@ -46,7 +46,7 @@ def test_lanes_for_rejects_what_it_cannot_launch(kernel):
     with pytest.raises(ValueError):
         K.lanes_for(kernel, 0)
     with pytest.raises(KeyError):
-        K.lanes_for("u1u2", 8)
+        K.lanes_for("y_fix", 8)
 
 
 def test_fp_canon_rule_is_one_lane_a_row():
@@ -426,3 +426,89 @@ def test_glv_stores_cover_each_word_once(T):
         assert h == (row // 2 if row < 4 else None)
     counts = [len(_glv_words(T, rank)) for rank in range(T)]
     assert max(counts) <= 2 * (272 // T) + 2
+
+
+# ---------------------------------------------------------------------------
+# the prelude's byte spans (recover.cu bytes_in, prelude_rows), in numpy
+# ---------------------------------------------------------------------------
+
+def _bytes_in(addr, length, threads):
+    """The bytes of ``[addr, addr + length)`` each thread of a block loads
+    in bytes_in: uint4 i of the aligned middle by thread i % threads, the
+    head (before the first 16-byte boundary) a byte a thread from thread
+    0, the tail from thread 16.  Returns {thread: [byte offsets]}."""
+    lead = (16 - addr % 16) % 16
+    head = min(lead, length)
+    mid = (length - head) // 16
+    tail = length - head - 16 * mid
+    loads = {t: [] for t in range(threads)}
+    # the loop's rounds i0 = t, t + 4 * threads, ... each take i0 + k *
+    # threads, k < 4: thread t takes every i = t (mod threads)
+    for i in range(mid):
+        loads[i % threads].extend(range(head + 16 * i, head + 16 * i + 16))
+    for t in range(threads):
+        if t < head:
+            loads[t].append(t)
+        elif 16 <= t < 16 + tail:
+            loads[t].append(head + 16 * mid + t - 16)
+    return loads
+
+
+def _hash_at(rows, pitch):
+    """recover.cu prelude_hash_at."""
+    return ((rows - 1) * pitch + 65 + 15 + 15) & ~15
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+def test_prelude_spans_load_each_byte_once(T):
+    """Each block of every instance loads each byte of its rows'
+    signature span ([r0 * pitch, r0 * pitch + (n - 1) * pitch + 65)) and
+    hash span exactly once, and no byte outside them, at pitches 65, 66,
+    70 and 256, base offsets 0-15, every block size, for a full block and
+    a ragged last one; the aligned loads land on 16-byte boundaries of
+    shared memory and the spans fit under the output tiles' or the
+    launcher's size (recover.cu prelude_smem)."""
+    for threads in K.LANE_THREADS:
+        rows = threads // T
+        for pitch in (65, 66, 70, K.PRELUDE_MAX_PITCH):
+            for base in range(16):
+                for r0, n in ((rows, rows), (3 * rows, max(rows // 3, 1))):
+                    sig = base + r0 * pitch
+                    hsh = base + 32 * r0
+                    spans = ((sig, (n - 1) * pitch + 65, sig % 16),
+                             (hsh, 32 * n, _hash_at(rows, pitch) + hsh % 16))
+                    for addr, length, at in spans:
+                        got = sorted(b for bs in _bytes_in(
+                            addr, length, threads).values() for b in bs)
+                        assert got == list(range(length))
+                        # the tile's byte b at `at + b`: the same offset
+                        # from a 16-byte boundary as the address
+                        assert (at - addr) % 16 == 0
+                    smem = max(_hash_at(rows, pitch) + 32 * rows + 16,
+                               5 * rows * 64)
+                    assert spans[1][2] + spans[1][1] <= smem
+                    assert spans[0][2] + spans[0][1] <= _hash_at(rows, pitch)
+                    assert smem <= 5 * 64 * K.LANE_THREADS[-1]
+
+
+def test_prelude_rows_every_byte_once_in_rows():
+    """The rows a block unpacks from its spans (row lr at lr * pitch, its
+    hash at 32 * lr) are the block's rows of the batch, byte for byte: a
+    numpy copy of the spans at several pitches and offsets gives the
+    rows back."""
+    rng = np.random.default_rng(57)
+    for pitch, base, rows, B in ((65, 3, 32, 70), (70, 13, 64, 64),
+                                 (256, 0, 8, 9)):
+        mem = rng.integers(0, 256, base + B * pitch, dtype=np.uint8)
+        batch = mem[base:].reshape(B, pitch)
+        for r0 in range(0, B, rows):
+            n = min(rows, B - r0)
+            addr = base + r0 * pitch
+            tile = np.zeros(addr % 16 + (n - 1) * pitch + 65, np.uint8)
+            for bs in _bytes_in(addr, (n - 1) * pitch + 65, 256).values():
+                for b in bs:
+                    tile[addr % 16 + b] = mem[addr + b]
+            for lr in range(n):
+                at = addr % 16 + lr * pitch
+                np.testing.assert_array_equal(tile[at:at + 65],
+                                              batch[r0 + lr, :65])

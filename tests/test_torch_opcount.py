@@ -5,8 +5,8 @@ the counted calls that ``eges_tpu_torch/ops/opcount.py`` lists for it
 ``verify.cu`` and ``glue.cu``; every kernel of ``tiling.cu`` and
 ``profile.cu`` has exactly the counted call sites listed for it, and so
 does ``profile.cu``'s chain template; the point table of ``ladder.cu``
-and the GLV, fp_mul, fp_canon and finish kernels of ``recover.cu`` make
-the calls their lane counts count."""
+and the prelude, u1u2, GLV, fp_mul, fp_canon and finish kernels of
+``recover.cu`` make the calls their lane counts count."""
 
 from __future__ import annotations
 
@@ -127,7 +127,8 @@ def test_a_lane_issues_between_its_share_and_the_row(T):
     more than the one thread issues."""
     one, lane = opcount.per_lane(1), opcount.per_lane(T)
     for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab", "point_table",
-                   "glv_digits", "fp_mul", "recover_finish"):
+                   "glv_digits", "fp_mul", "recover_finish",
+                   "recover_prelude", "u1u2"):
         assert one[kernel] / T <= lane[kernel] < one[kernel]
     # fp_canon runs one lane a row: a lane has the row's work
     assert lane["fp_canon"] == one["fp_canon"] == opcount.per_row()[
@@ -240,10 +241,16 @@ def _glv_lane_calls(T):
      lambda T: opcount.ops(f"grp_recover_finish<{T}>")),
     ("glv_half", {"grp_glv_track<H>": 1}, "glv_digits", _glv_lane_calls),
     ("k_fp_canon", {"cond_sub_p": 1}, "fp_canon",
-     lambda T: opcount.ops("cond_sub_p"))])
+     lambda T: opcount.ops("cond_sub_p")),
+    ("prelude_rows", {"unpack_be": 3, "grp_recover_prelude<T>": 1},
+     "recover_prelude", lambda T: 3 * opcount.ops("unpack_be")
+     + opcount.ops(f"grp_recover_prelude<{T}>")),
+    ("u1u2_rows", {"grp_u1u2<T>": 1}, "u1u2",
+     lambda T: opcount.ops(f"grp_u1u2<{T}>"))])
 def test_recover_lane_kernels_make_their_counted_calls(body, calls, kernel,
                                                       lane_calls):
-    """``k_fp_mul_t<T>``, ``k_recover_finish_t<T>``, ``k_glv_digits_t<T>``
+    """``k_fp_mul_t<T>``, ``k_recover_finish_t<T>``, ``k_glv_digits_t<T>``,
+    ``k_recover_prelude_t<T>`` (beside its three unpackings), ``k_u1u2_t<T>``
     and the tiled ``k_fp_canon`` (recover.cu) make one counted call a row
     (the GLV kernel one split a half-group, two written out at T = 1), which
     ``per_lane`` counts at each T, beside the digits the GLV lanes take
@@ -297,6 +304,28 @@ def test_group_finish_counts_its_products_and_its_whole_steps():
                 f"grp_fp_mul<{T}>"))
     assert opcount.per_row()["recover_finish"] == (
         whole + opcount.ops("fp_sqr") + 3 * opcount.ops("fp_mul")) == 4058
+
+
+def test_group_prelude_and_u1u2_count_their_lanes():
+    """At T = 1 the prelude's and u1u2's group forms count as the
+    one-thread functions they replace: the checks, x and t[0] + 7 (60), the
+    square and the product of y^2; u1u2's reduction of z, two products
+    and the negation (5,369).  At T >= 2 a prelude lane shares both
+    products; a u1u2 lane runs the reduction, the selects and the
+    negation whole and shares one product over T / 2 lanes."""
+    whole = (60 + 2 * opcount.ops("is_zero") + 3 * opcount.ops("lt_const")
+             + opcount.CARRY_TAIL)
+    assert opcount.ops("grp_recover_prelude<1>") == (
+        whole + opcount.ops("fp_sqr") + opcount.ops("fp_mul"))
+    assert opcount.ops("grp_u1u2<1>") == (
+        opcount.fn_red_cols(17) + 2 * opcount.ops("fn_mul")
+        + opcount.ops("fn_neg")) == 5369
+    for T in (2, 4, 8):
+        assert opcount.ops(f"grp_recover_prelude<{T}>") == whole + (
+            opcount.ops(f"grp_fp_sqr<{T}>") + opcount.ops(f"grp_fp_mul<{T}>"))
+        assert opcount.ops(f"grp_u1u2<{T}>") == (
+            opcount.fn_red_cols(17) + 2 * opcount.ops("select16")
+            + opcount.ops(f"grp_fn_mul<{T // 2}>") + opcount.ops("fn_neg"))
 
 
 def test_the_sum_runs_only_where_the_points_differ():

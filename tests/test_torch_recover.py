@@ -7,7 +7,8 @@ host model.  ``addrs``, ``pubs`` and ``ok`` must agree byte for byte.
 
 Rows cover both recovery parities, recovery ids 2 and 3 (R.x = r + N),
 and every invalid class: r = 0, s >= N, v >= 4, x >= P for v >= 2, and
-an r that is no x coordinate."""
+an r that is no x coordinate; the same rows wider than 65 bytes and as
+int32 (fault C4) give the same bytes."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -162,6 +163,51 @@ def test_both_parities_and_high_recovery_ids_recover(rows, port_verifier):
     ids = {int(sigs[i, 64]) for i, k in enumerate(kinds)
            if k in ("signed", "high_x") and ok[i]}
     assert ids == {0, 1, 2, 3}
+
+
+def test_ecrecover_batch_takes_wide_int32_rows(rows, port_batch):
+    """C4: the fixture's rows 66 bytes wide (a 0xAB byte after each) as
+    int32, hashes as int32, give the ``[n, 65]`` uint8 answer byte for
+    byte, and so the host model's (the reference reads r, s and v from
+    bytes 0-64 of any integer dtype)."""
+    sigs, hashes, _ = rows
+    wide = np.concatenate([sigs, np.full((len(sigs), 1), 0xAB, np.uint8)],
+                          1).astype(np.int32)
+    got = V.ecrecover_batch(torch.from_numpy(wide),
+                            torch.from_numpy(hashes.astype(np.int32)))
+    for g, w, what in zip(got, port_batch, ("addrs", "pubs", "ok")):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=what)
+    for i in range(len(sigs)):
+        want = tt.host_recover(sigs[i], hashes[i])
+        assert bool(got[2][i]) == (want is not None)
+        if want is not None:
+            assert bytes(got[0][i].numpy()) == want[0]
+
+
+def test_facade_takes_wide_rows_on_its_bucket(rows, port_verifier):
+    """C4 through the facade: 16 rows 66 bytes wide (on their bucket: the
+    direct path) give the 65-byte answers and the host model's; 15 such
+    rows, which would be staged 65 bytes wide, raise ValueError, as the
+    reference's staging copy does."""
+    sigs, hashes, _ = rows
+    idx = np.resize(np.arange(len(sigs)), 16)
+    wide = np.concatenate([sigs[idx], np.full((16, 1), 0xAB, np.uint8)], 1)
+    verifier = V.BatchVerifier(device="cpu")
+    addrs, ok = verifier.recover_addresses(wide, hashes[idx])
+    np.testing.assert_array_equal(addrs, port_verifier[0][idx])
+    np.testing.assert_array_equal(ok, port_verifier[2][idx])
+    for i, j in enumerate(idx):
+        want = tt.host_recover(sigs[j], hashes[j])
+        assert ok[i] == (want is not None)
+    with pytest.raises(ValueError):
+        verifier.recover_addresses(wide[:15], hashes[idx][:15])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bool])
+def test_ecrecover_batch_refuses_non_integer_bytes(dtype):
+    with pytest.raises(TypeError):
+        V.ecrecover_batch(torch.zeros(2, 65, dtype=dtype),
+                          torch.zeros(2, 32, dtype=torch.uint8))
 
 
 def test_verifier_facade_plumbing():

@@ -11,15 +11,17 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    nvcc for each source, ``ladder.cu`` one for each lane count, all
    started together); seconds, and registers, stack frame and spills
    per kernel, which must be 0 and 0 for every pow, table and ladder
-   instance ``lanes_for`` can pick and for every prelude, u1u2, GLV,
-   fp_mul, fp_canon and finish instance.  Then sass: the built code
-   (``cuobjdump``) issues at least the operations ``ops/opcount.py``
-   counts, in every kernel without a branch or a call and in every loop
-   of the product chain and of the pow (a T-lane pow's loops against a
-   lane's share, the count over T, and so on the shortest path through
-   each prelude, u1u2, GLV, fp_mul, fp_canon and finish instance), so no
-   operation bound counts more than the card does; with the instruction
-   mix of the chain's loop.
+   instance ``lanes_for`` can pick and for every prelude, y_fix, u1u2,
+   GLV, fp_mul, fp_canon, finish and keccak_rows instance.  Then sass:
+   the built code (``cuobjdump``) issues at least the operations
+   ``ops/opcount.py`` counts, in every kernel without a branch or a call
+   and in every loop of the product chain and of the pow (a T-lane pow's
+   loops against a lane's share, the count over T, and so on the
+   shortest path through each prelude, y_fix, u1u2, GLV, fp_mul,
+   fp_canon, finish and keccak_rows instance, keccak_rows' round loop
+   taken as many trips as its 24 rounds need and held to a lane's share
+   of a trip's rounds), so no operation bound counts more than the card
+   does; with the instruction mix of the chain's loop.
 2. kernel: each of the twenty-one kernels at its path's shapes on
    seeded random and extreme inputs, held bit for bit against its plain
    PyTorch version on the same CUDA tensors (tolerance 0: the arithmetic
@@ -30,11 +32,13 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    B = 4000 (a config-4 block's transaction hashes); the six glue
    kernels of the un-fused path at its shapes for a [4, 1024] window
    (K*N = 4096 rows, 8192 for the GLV split of both scalars), each also
-   checked at a ragged 4097 rows (fp_mul, fp_canon and u1u2 also on
-   views 4, 8 and 12 bytes off a 16-byte boundary, the prelude at
+   checked at a ragged 4097 rows (keccak_rows at 4097 columns; fp_mul,
+   fp_canon, y_fix and u1u2 also on views 4, 8 and 12 bytes off a
+   16-byte boundary, the prelude at
    pitches 66 and 70 and 1, 4 and 8 bytes off; the GLV split on the edge
    scalars, fp_canon on values at and past P).  Every kernel of the
-   recovery path also timed one call at a time on cold L2 (``cold_ms``),
+   recovery path, and the verify and keccak paths' own four, also timed
+   one call at a time on cold L2 (``cold_ms``),
    with the share of the bound that time reaches, fp_mul, fp_canon and
    the prelude beside a cold stream of the same bytes
    (``stream_cold_ms``).
@@ -44,25 +48,34 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    every row held against the host model, with the launch counts of
    that run (18 per batch); then ``ecrecover_batch`` on the same rows as
    ``[N, 66]`` uint8 and ``[N, 65]`` int32, byte-equal to ``[N, 65]``
-   uint8.
+   uint8; batches of no rows through ``ecrecover_batch`` and
+   ``verify_batch`` (empty on the card, no launch) and int32/int64 byte
+   rows through ``keccak256_fixed`` and ``pubkey_to_address`` (the uint8
+   rows' digests; faults C5 and C6).
 3b. lanes: every (T, block) instance of the pow, the point table, the
-   ladder, the GLV split, fp_mul, the finish, the prelude and u1u2 (T =
-   1, 2, 4, 8 lanes a row; 64, 128, 256 threads), and every block size
-   of fp_canon (one lane a row), at 256, 1024, 4096 and 8192 rows (mod P
-   and mod N for the pow, and the table's 16384 and 131072 rows mod P,
-   fp_mul and fp_canon also at 16384 and 131072, fp_mul on a ragged view
-   4 bytes off, fp_canon on a view 4 bytes off at 131072, the prelude on every
-   class of its checks and at a pitch of 66 and 1 byte off, u1u2 with
-   r^-1 = 0 rows and on a view 4 bytes off; the ladder also on a
-   recovery's own inputs at 1024 and 8192; the point table on seeded
+   ladder, the GLV split, fp_mul, the finish, the prelude, u1u2, y_fix
+   and keccak_rows (T = 1, 2, 4, 8 lanes a row; 64, 128, 256 threads),
+   and every block size of fp_canon (one lane a row), at 256, 1024, 4096
+   and 8192 rows (mod P and mod N for the pow, and the table's 16384 and
+   131072 rows mod P, fp_mul and fp_canon also at 16384 and 131072,
+   fp_mul on a ragged view 4 bytes off, fp_canon on a view 4 bytes off
+   at 131072, the prelude on every class of its checks and at a pitch of
+   66 and 1 byte off, u1u2 with r^-1 = 0 rows and on a view 4 bytes off,
+   y_fix on roots equal to P and squares and on a view 4 bytes off,
+   keccak_rows also at 4097 columns; the ladder also on a recovery's own
+   inputs at 1024 and 8192; the point table on seeded
    points and on the R of phase 3's block padded to its bucket, invalid
    rows and zero-byte pad rows among them), bit for bit against the
    plain version, timed by events and cold beside the bound, with
    registers, stack and spills and the instance ``lanes_for`` picks,
    which must beat T = 1 (the GLV split, fp_mul, fp_canon, the finish,
-   the prelude and u1u2 by cold times; fp_mul and the finish within 3%,
-   and fp_mul may pick T = 1; fp_canon's block, the prelude's pick and
-   u1u2's within 3% of the fastest, and the prelude may pick T = 1).
+   the prelude, u1u2, y_fix and keccak_rows by cold times; fp_mul and
+   the finish within 3%, and fp_mul may pick T = 1; fp_canon's block and
+   the prelude's, u1u2's and y_fix's picks within 3% of the fastest, and
+   the prelude and y_fix may pick T = 1; keccak_rows' pick faster than
+   every one-lane instance).  Cold times are taken every instance once
+   a round; a pick they put behind its rival is timed again against it
+   alone in fresh rounds, and fails if it is behind there too.
 4. e2e: verifies/s at 8192 rows (all rows of 20 batches over their
    summed time; p50 and p90 of the batch times beside it), p50/p99
    latency of recover_addresses at 1024 rows (1000 calls), peak device
@@ -129,7 +142,10 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    at 1024 and the launch census ``hlo_census`` at 1024 and 8192 (its
    hand-written kernels by name must equal the fused path's 18 launches,
    a short window traced again as in phase 4; the device time of each
-   launch, by kernel, and the card's idle share of the window).  Then the
+   launch, by kernel, and the card's idle share of the window), then a
+   census of one 1024-row ``verify_batch`` (its 26 launches; verify's
+   own kernels' device times, the window's idle share) and the device
+   time of the keccak_block launch of 4000 110-byte messages.  Then the
    harness's four kernels (``profile.cu``), one ``profile_kernel`` line
    for each kernel and shape: the 64-multiply chain on ``[16, B]``
    columns at lane blocks of 256 and 1024 (#20a, also at a ragged 4096 +
@@ -170,6 +186,7 @@ import contextlib
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -219,21 +236,28 @@ LANE_SHAPES = (("strauss_tab", 256), ("strauss_tab", 1024),
                *(("fp_canon", r) for r in (256, 1024, 4096, 8192, 16384,
                                            131072)),
                *(("recover_prelude", r) for r in (256, 1024, 4096, 8192)),
-               *(("u1u2", r) for r in (256, 1024, 4096, 8192)))
+               *(("u1u2", r) for r in (256, 1024, 4096, 8192)),
+               *(("y_fix", r) for r in (256, 1024, 4096, 8192)),
+               *(("keccak_rows", r) for r in (256, 1024, 4096, 8192)))
 # the lane kernels whose launch takes less than the wrapper's host time:
 # timed cold beside events (phases kernel and lanes, which picks and
 # checks them by cold times); every instance must build clean, and phase
 # sass holds each on its shortest path
 SHORT_LANE_KERNELS = ("glv_digits", "fp_mul", "fp_canon", "recover_finish",
-                      "recover_prelude", "u1u2")
+                      "recover_prelude", "u1u2", "y_fix", "keccak_rows")
 # the lanes a row a kernel's instances take where not all of K.LANES
 # (fp_canon: one lane a row, its block size swept)
 KERNEL_LANES = {"fp_canon": (1,)}
 # the lane kernels whose pick must be within 3% of the fastest instance
 # cold, and those of them that may keep one lane a row (fp_canon has only
-# one; bytes may bound the prelude)
-NEAR_FASTEST = ("fp_canon", "recover_prelude", "u1u2")
-ONE_LANE_OK = ("fp_canon", "recover_prelude")
+# one; bytes may bound the prelude and y_fix)
+NEAR_FASTEST = ("fp_canon", "recover_prelude", "u1u2", "y_fix")
+ONE_LANE_OK = ("fp_canon", "recover_prelude", "y_fix")
+# keccak_rows' round loop: the 24 rounds of a column, one a trip
+KECCAK_ROUNDS = 24
+# phase lanes: rounds of the fresh head-to-head that a pick whose first
+# times put it behind its rival is held to
+CONFIRM_ROUNDS = 25
 CENSUS_BATCHES = (1024, 8192)       # hlo_census's recoveries
 PROFILE_TRIES = 3                   # traced windows a profiled check takes
 # the ladder also on a recovery's own inputs: its digits' zeros are not
@@ -263,7 +287,8 @@ LANE_GLOBALS = {"pow_mod_p": "k_pow_p_t{}", "pow_mod_n": "k_pow_n_t{}",
                 "fp_mul": "k_fp_mul_t{}", "fp_canon": "k_fp_canon",
                 "recover_finish": "k_recover_finish_t{}",
                 "recover_prelude": "k_recover_prelude_t{}",
-                "u1u2": "k_u1u2_t{}"}
+                "u1u2": "k_u1u2_t{}", "y_fix": "k_y_fix_t{}",
+                "keccak_rows": "k_keccak_rows_t{}"}
 
 
 def lanes_of(kernel: str) -> tuple[int, ...]:
@@ -297,6 +322,9 @@ FUSED_RECOVER_LAUNCHES = {"recover_prelude": 1, "pow_mod": 4, "y_fix": 1,
 VERIFY_LAUNCHES = {"pow_mod": 3, "fp_mul": 10, "fp_canon": 5, "fp_add": 1,
                    "fn_red17": 2, "fn_mul": 2, "glv_digits": 1,
                    "point_table": 1, "strauss_tab": 1}
+# the kernels of the verify and keccak paths that recovery does not run
+# (#13-#16a)
+VERIFY_OWN = ("keccak_block", "fn_mul", "fn_red17", "fp_add")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 # Integer peak, derived from the Hopper SM layout (no published figure):
 # 132 SMs, each issuing at most 4 warp-instructions (128 lanes) a clock.
@@ -421,12 +449,14 @@ def phase_sass(path):
     the built library (``cuobjdump -sass``).  The pow and the table run
     T lanes a row, so each instance's loops are held to a lane's share
     of an ``fp_sqr`` or of a ``jac_add_mixed``: its count over T,
-    rounded down (at T = 1 the whole count).  The fp_mul and finish
-    instances are held the same way on their shortest path from entry to
-    exit (``build.least_path``): at least a lane's share of the row's
-    count; what ``opcount.per_lane`` counts for one lane is shown beside
-    it.  Emits the counts, and the instruction mix of
-    the chain's loop."""
+    rounded down (at T = 1 the whole count).  The instances of the short
+    lane kernels (``SHORT_LANE_KERNELS``) are held the same way on their
+    shortest path from entry to exit (``build.least_path``): at least a
+    lane's share of the row's count; keccak_rows' path with its one loop,
+    the rounds, taken as many trips as ``KECCAK_ROUNDS`` need, and that
+    loop to a lane's share of a trip's rounds.  What ``opcount.per_lane``
+    counts for one lane is shown beside each.  Emits the counts, and the
+    instruction mix of the chain's loop."""
     import collections
 
     from eges_tpu_torch.ops import build, kernels as K, opcount
@@ -442,8 +472,30 @@ def phase_sass(path):
     loops = {fn: (helper, opcount.ops(helper) // t,
                   [len(b) for b in build.loop_bodies(code[fn])])
              for fn, helper, t in held}
+    # keccak_rows' one loop is its rounds, one a trip at T = 1 and
+    # opcount.KECCAK_UNROLL beyond: each trip a lane's share of its rounds,
+    # and the shortest path takes it as many times as the rounds need
+    round_ops = opcount.KECCAK // KECCAK_ROUNDS
+    trips = {}
+    for t in lanes_of("keccak_rows"):
+        fn = LANE_GLOBALS["keccak_rows"].format(t)
+        per_trip = 1 if t == 1 else opcount.KECCAK_UNROLL
+        trips[fn] = KECCAK_ROUNDS // per_trip
+        loops[fn] = ("keccak round", per_trip * round_ops // t,
+                     [len(b) for b in build.loop_bodies(code[fn])])
+
+    def path_ops(k, fn):
+        least = build.least_path(code[fn])
+        if k != "keccak_rows":
+            return least
+        sizes = loops[fn][2]
+        if len(sizes) != 1:
+            raise AssertionError(f"{fn}: {len(sizes)} loops, want its round "
+                                 "loop alone")
+        return least + (trips[fn] - 1) * sizes[0]
+
     paths = {fn: [round(OPS[k]) // t, round(opcount.per_lane(t)[k]),
-                  build.least_path(code[fn])]
+                  path_ops(k, fn)]
              for k in SHORT_LANE_KERNELS for t in lanes_of(k)
              for fn in [LANE_GLOBALS[k].format(t)]}
     bad = [n for n, (counted, issued) in straight.items() if counted > issued]
@@ -594,11 +646,17 @@ def phase_kernels(rng, dev, clock_hz, ptxas):
         for v in (tt.pitched_rows(pre[0], pitch, off) for pitch, off in (
             (65, 0), (66, 0), (70, 0), (65, 1), (65, 4), (65, 8)))]
     ragged["u1u2"] = _u1u2_views(dev)
+    ragged["y_fix"] = _y_fix_views(dev)
+    kw = words[:, :RAGGED].contiguous()
+    ragged["keccak_rows"] = [(lambda: K.keccak_rows_pallas(kw),
+                              lambda: K.keccak_rows_plain(kw))]
     records = {}
     for name, launches in cases:
-        # every kernel of the main path also one call at a time on cold
-        # L2: back to back, a short launch shows the wrapper's host pace
-        extra = _cold(launches) if name in FUSED_RECOVER_LAUNCHES else None
+        # every kernel of the main path, and verify's and keccak's own,
+        # also one call at a time on cold L2: back to back, a short launch
+        # shows the wrapper's host pace
+        extra = (_cold(launches) if name in FUSED_RECOVER_LAUNCHES
+                 or name in VERIFY_OWN else None)
         if name == "fp_mul":
             # what streaming the same bytes takes, cold: ATen's a ^ b reads
             # both operands and writes one tensor of their size (not the
@@ -686,6 +744,32 @@ def _u1u2_views(dev):
             for a in sets]
 
 
+def _y_fix_views(dev):
+    """y_fix's ragged checks at ``RAGGED`` rows (roots that are P, y^2 the
+    root's square on half the rows): aligned operands, and root or y^2 as
+    a view 4, 8 or 12 bytes past a 16-byte boundary (the kernel's word
+    path, no copy)."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.bigint import P
+
+    rng = np.random.default_rng(SEED + 17)
+    n = RAGGED
+    root, y_sq = (K.from_reference(tt.limb_rows(tt.field_values(rng, n)),
+                                   dev) for _ in range(2))
+    root[::9] = K.from_reference(tt.limb_rows([P]), dev)
+    y_sq[::2] = K.fp_mul_plain(root, root)[::2]
+    v = K.from_reference(rng.integers(0, 6, n).astype(np.uint32), dev)
+    sets = [(root, y_sq)]
+    for off, which in ((1, 0), (2, 1), (3, 0)):
+        buf = torch.empty(16 * n + off, dtype=torch.int32, device=dev)
+        view = buf[off:].view(n, 16)
+        view.copy_((root, y_sq)[which])
+        sets.append((view, y_sq) if which == 0 else (root, view))
+    return [(lambda a=a: K.y_fix_pallas(*a, v),
+             lambda a=a: K.y_fix_plain(*a, v)) for a in sets]
+
+
 def _fp_canon_views(dev):
     """fp_canon's ragged checks at ``RAGGED`` rows of values at and past P:
     aligned, and views that start 4, 8 and 12 bytes past a 16-byte
@@ -705,27 +789,33 @@ def _fp_canon_views(dev):
 
 
 def phase_lanes(dev, clock_hz, ptxas, rows4):
-    """Every instance of the pow, the point table, the ladder, fp_mul and
-    the finish (T = 1, 2, 4, 8 lanes a row in blocks of 64, 128 and 256
-    threads) at the main
+    """Every instance of the pow, the point table, the ladder and the
+    short lane kernels (``SHORT_LANE_KERNELS``: the GLV split, fp_mul,
+    fp_canon, the finish, the prelude, u1u2, y_fix and keccak_rows; T = 1,
+    2, 4, 8 lanes a row in blocks of 64, 128 and 256 threads) at the main
     path's row counts: each held bit for bit against the plain version
-    and timed by CUDA events back to back and cold
-    (``profutil.cuda_event_ms``), beside its bound (the row's work,
+    and timed by CUDA events back to back (``profutil.cuda_event_ms``)
+    and cold, every instance once a round (``profutil.cold_event_ms``),
+    beside its bound (the row's work,
     ``ops/opcount.py``), what one lane issues, its registers, stack frame
     and spills, and the instance ``lanes_for`` picks; the ladder on
     seeded inputs that take all its branches and on a recovery's own, the
     point table on seeded points and on the R of ``rows4``, the config-4
-    block, padded as the facade pads it; fp_mul (also on a ragged view 4
-    bytes off, every instance) and the finish on seeded values, picked
-    and held by their cold times.  Fails if an instance differs, if
-    a time beats its bound, or if the picked instance is not faster than
-    every T = 1 instance at the B-row shapes (the pow's table launches
-    of 16 B rows, fp_mul and the finish: no more than 3% slower; the
-    finish must not pick T = 1).  Each pow shape also times
-    the one-thread design with its table in local memory (the rows8
+    block, padded as the facade pads it; the short kernels on seeded
+    values with their edge cases (views off 16 bytes, RAGGED rows or
+    columns at 4096), picked and held by their cold times.  Fails if an
+    instance differs, if a time beats its bound, or if the picked instance
+    is not faster than every T = 1 instance at the B-row shapes (the pow's
+    table launches of 16 B rows, fp_mul and the finish: no more than 3%
+    slower; the finish must not pick T = 1; ``NEAR_FASTEST``: within 3%
+    of the fastest, ``ONE_LANE_OK`` may keep T = 1); a pick that these
+    times put behind its rival is timed again against it alone, in
+    ``CONFIRM_ROUNDS`` fresh rounds (a ``lanes_confirm`` line), and fails
+    if it is behind there too.  Each pow shape also
+    times the one-thread design with its table in local memory (the rows8
     twin #19a, on its own tiles), the pow's design before the lanes."""
     from eges_tpu_torch import testing as tt
-    from eges_tpu_torch.harness.profutil import cuda_event_ms
+    from eges_tpu_torch.harness.profutil import cold_event_ms, cuda_event_ms
     from eges_tpu_torch.ops import kernels as K, opcount
     from eges_tpu_torch.ops.bigint import N, P
 
@@ -784,6 +874,25 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
     mis_u = buf[1:].view(RAGGED, 16)
     mis_u.copy_(uu[0][:RAGGED])
     want_mis_u = K.u1u2_plain(uu[0][:RAGGED], *(t[:RAGGED] for t in uu[1:]))
+    # y_fix on roots that are P and y^2 that are the root's square beside
+    # seeded ones, also 4 bytes off; keccak_rows on seeded blocks and blocks
+    # of all zero and all one bits, also at RAGGED columns (no block's
+    # multiple)
+    yf = [K.from_reference(tt.limb_rows(tt.field_values(rng_e, B)), dev)
+          for _ in range(2)]
+    yf[0][::9] = K.from_reference(tt.limb_rows([P]), dev)
+    yf[1][::2] = K.fp_mul_plain(yf[0], yf[0])[::2]
+    yf.append(K.from_reference(rng_e.integers(0, 6, B).astype(np.uint32),
+                               dev))
+    buf = torch.empty(16 * RAGGED + 1, dtype=torch.int32, device=dev)
+    mis_y = buf[1:].view(RAGGED, 16)
+    mis_y.copy_(yf[0][:RAGGED])
+    want_mis_y = K.y_fix_plain(yf[0][:RAGGED], yf[1][:RAGGED], yf[2][:RAGGED])
+    kw = K.from_reference(rng_e.integers(0, 1 << 32, (34, B), dtype=np.uint64)
+                          .astype(np.uint32), dev)
+    kw[:, 0], kw[:, 1] = 0, -1
+    kw_rag = kw[:, :RAGGED].contiguous()
+    want_kw_rag = K.keccak_rows_plain(kw_rag)
     slow = []
     shapes = ([(k, r, "seeded") for k, r in LANE_SHAPES]
               + [("strauss_tab", r, "recovery") for r in LANE_RECOVERY_ROWS]
@@ -856,6 +965,33 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                 also = ((lambda lanes, threads: K.u1u2_lanes(
                     mis_u, *(t[:RAGGED] for t in uu[1:]), lanes, threads),
                     want_mis_u),)
+        elif kernel == "y_fix":
+            ins = tuple(t[:rows] for t in yf)
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = nbytes(*ins) + 64 * rows + 4 * rows
+            want = K.y_fix_plain(*ins)
+
+            def call(lanes, threads, ins=ins):
+                return K.y_fix_lanes(*ins, lanes, threads)
+
+            if rows == 4096:
+                also = ((lambda lanes, threads: K.y_fix_lanes(
+                    mis_y, yf[1][:RAGGED], yf[2][:RAGGED], lanes, threads),
+                    want_mis_y),)
+        elif kernel == "keccak_rows":
+            w = kw[:, :rows].contiguous()
+            row_ops = opcount.per_row()[kernel]
+            lane_args = {}
+            nb = nbytes(w) + 8 * 4 * rows
+            want = K.keccak_rows_plain(w)
+
+            def call(lanes, threads, w=w):
+                return K.keccak_rows_lanes(w, lanes, threads)
+
+            if rows == 4096:
+                also = ((lambda lanes, threads: K.keccak_rows_lanes(
+                    kw_rag, lanes, threads), want_kw_rag),)
         elif kernel == "recover_finish":
             ins = tuple(t[:rows] for t in fin)
             row_ops = opcount.per_row()[kernel]
@@ -922,34 +1058,37 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
         if local_ms is not None and local_ms < bound_ms:
             raise AssertionError(f"pow_mod_rows8 at {rows} rows: {local_ms} "
                                  f"ms beats its bound of {bound_ms} ms")
+        shapes = [(lanes, threads) for lanes in lanes_of(kernel)
+                  for threads in K.LANE_THREADS]
+        for lanes, threads in shapes:
+            err = max([max_abs_err(call(lanes, threads), want)]
+                      + [max_abs_err(c(lanes, threads), w) for c, w in also])
+            if err:
+                raise AssertionError(
+                    f"{kernel} at {rows} rows, {lanes} lanes, {threads} "
+                    f"threads: differs from the plain version (max abs "
+                    f"err {err})")
+        warm = [cuda_event_ms(call, *shape, reps=5) for shape in shapes]
+        # cold: every instance once a round, the rounds' medians (more
+        # rounds where cold times pick), so that a slow stretch of the
+        # run moves every instance and not the one timed in it
+        colds = cold_event_ms(
+            [(call, shape) for shape in shapes],
+            reps=9 if kernel in SHORT_LANE_KERNELS else 3)
         inst = []
-        for lanes in lanes_of(kernel):
-            share = opcount.per_lane(lanes, **lane_args)[kernel]
-            for threads in K.LANE_THREADS:
-                err = max([max_abs_err(call(lanes, threads), want)]
-                          + [max_abs_err(c(lanes, threads), w)
-                             for c, w in also])
-                if err:
-                    raise AssertionError(
-                        f"{kernel} at {rows} rows, {lanes} lanes, "
-                        f"{threads} threads: differs from the plain "
-                        f"version (max abs err {err})")
-                ms = cuda_event_ms(call, lanes, threads, reps=5)
-                # the median of more cold calls where cold times pick
-                cold = cuda_event_ms(
-                    call, lanes, threads, cold=True,
-                    reps=7 if kernel in SHORT_LANE_KERNELS else 3)
-                if min(ms, cold) < bound_ms:
-                    raise AssertionError(
-                        f"{kernel} at {rows} rows: {min(ms, cold)} ms "
-                        f"beats its bound of {bound_ms} ms")
-                g = ptxas.get(LANE_GLOBALS[kernel].format(lanes)) or {}
-                inst.append({"lanes": lanes, "threads": threads,
-                             "ms": round(ms, 5), "cold_ms": round(cold, 5),
-                             "lane_ops": round(share),
-                             "regs": g.get("registers"),
-                             "stack": g.get("stack_bytes"),
-                             "spill": g.get("spill_store_bytes")})
+        for (lanes, threads), ms, cold in zip(shapes, warm, colds):
+            if min(ms, cold) < bound_ms:
+                raise AssertionError(
+                    f"{kernel} at {rows} rows: {min(ms, cold)} ms beats "
+                    f"its bound of {bound_ms} ms")
+            g = ptxas.get(LANE_GLOBALS[kernel].format(lanes)) or {}
+            inst.append({"lanes": lanes, "threads": threads,
+                         "ms": round(ms, 5), "cold_ms": round(cold, 5),
+                         "lane_ops": round(opcount.per_lane(
+                             lanes, **lane_args)[kernel]),
+                         "regs": g.get("registers"),
+                         "stack": g.get("stack_bytes"),
+                         "spill": g.get("spill_store_bytes")})
         chosen = K.lanes_for(kernel, rows)
         key = "cold_ms" if kernel in SHORT_LANE_KERNELS else "ms"
         ms_of = {(i["lanes"], i["threads"]): i[key] for i in inst}
@@ -966,23 +1105,63 @@ def phase_lanes(dev, clock_hz, ptxas, rows4):
                                                         / local_ms, 4),
                 "instances": inst}
         emit(line)
-        if kernel in NEAR_FASTEST and ms_of[chosen] > 1.03 * ms_of[best]:
-            slow.append(f"{kernel} at {rows} rows: lanes_for's {chosen} "
-                        f"takes {ms_of[chosen]} ms against the fastest "
-                        f"{best}'s {ms_of[best]}")
+
+        def behind(rival, limit, what):
+            """Fails the pick if it is behind ``rival`` (its time over
+            ``limit`` times the rival's, or equal to it at limit 1, as
+            the pick itself is): on this phase's times, and then again
+            on fresh head-to-head rounds of the two, so that the rival's
+            time, the least of many, is not a lucky draw."""
+            def lost(a, b):
+                return a > limit * b or (limit == 1.0 and a == b)
+
+            a, b = ms_of[chosen], ms_of[rival]
+            if not lost(a, b):
+                return
+            if rival != chosen:
+                a, b = _head_to_head(call, (chosen, rival),
+                                     key == "cold_ms", cold_event_ms,
+                                     cuda_event_ms)
+                emit({"phase": "lanes_confirm", "kernel": kernel,
+                      "rows": rows, "data": data, "against": what,
+                      "chosen": list(chosen), "rival": list(rival),
+                      "limit": limit,
+                      "first_ms": [ms_of[chosen], ms_of[rival]],
+                      "again_ms": [round(a, 5), round(b, 5)]})
+                if not lost(a, b):
+                    return
+            slow.append(f"{kernel} at {rows} rows ({data}): lanes_for's "
+                        f"{chosen} takes {ms_of[chosen]} ms, then {a:.5f}, "
+                        f"against {what} {rival}'s {ms_of[rival]}, then "
+                        f"{b:.5f}")
+
+        if kernel in NEAR_FASTEST:
+            behind(best, 1.03, "the fastest")
         if kernel in ONE_LANE_OK:
             continue
+        if kernel == "recover_finish" and chosen[0] == 1:
+            slow.append(f"{kernel} at {rows} rows: lanes_for picks T = 1")
         # fp_mul may keep one lane a row: its pick need only not lose
         limit = (1.03 if rows > B or kernel in ("fp_mul", "recover_finish")
                  else 1.0)
-        if ms_of[chosen] > limit * t1 or (
-                limit == 1.0 and ms_of[chosen] == t1) or (
-                kernel == "recover_finish" and chosen[0] == 1):
-            slow.append(f"{kernel} at {rows} rows ({data}): lanes_for's "
-                        f"{chosen} takes {ms_of[chosen]} ms against T = "
-                        f"1's {t1}")
+        behind(min((s for s in ms_of if s[0] == 1), key=ms_of.get), limit,
+               "T = 1")
     if slow:
         raise AssertionError("; ".join(slow))
+
+
+def _head_to_head(call, shapes, cold, cold_event_ms, cuda_event_ms):
+    """Fresh times of ``call`` at each ``(lanes, threads)`` of ``shapes``,
+    the shapes taken in turn over ``CONFIRM_ROUNDS`` rounds, the medians:
+    cold (``profutil.cold_event_ms``) or, for the long kernels that phase
+    lanes picks by their times back to back, five calls back to back a
+    round (``profutil.cuda_event_ms``)."""
+    if cold:
+        return cold_event_ms([(call, s) for s in shapes],
+                             reps=CONFIRM_ROUNDS)
+    runs = [[cuda_event_ms(call, *s, reps=5) for s in shapes]
+            for _ in range(CONFIRM_ROUNDS // 5)]
+    return [statistics.median(r[i] for r in runs) for i in range(len(shapes))]
 
 
 def _recovery_r(rows4, dev):
@@ -1258,7 +1437,8 @@ def phase_slice(rng):
     emit({"phase": "slice", "rows": len(sigs), "bucket": verifier._pad(
         len(sigs)), "valid_rows_matching_host": n_valid,
         "invalid_rows_rejected": n_invalid, "launches": launches,
-        "launches_total": sum(launches.values()), "c4": c4})
+        "launches_total": sum(launches.values()), "c4": c4,
+        "c5_c6": _empty_and_int_bytes(sigs)})
     return launches, (sigs, hashes, answers), (addrs, ok)
 
 
@@ -1280,6 +1460,61 @@ def _wide_and_int_rows(sigs, hashes):
                 raise AssertionError(f"ecrecover_batch on {name} rows: "
                                      f"{what} differ from [N, 65] uint8")
     return {"rows": len(sigs), "equal_to_uint8_65": sorted(cases)}
+
+
+def _empty_and_int_bytes(sigs):
+    """Faults C5 and C6 on the card: ``ecrecover_batch`` on ``[0, 65]``
+    rows (uint8 and int32) and ``verify_batch`` on ``[0, 64]`` and
+    ``[0, 65]`` ones give empty outputs on the card and launch nothing;
+    ``keccak256_fixed`` on int32 and int64 byte rows (one block, two
+    blocks, a stacked batch) and ``pubkey_to_address`` on int32 key
+    halves (the config-4 rows' r and s) give the uint8 rows' digests,
+    which the host model's keccak256 holds."""
+    from eges_tpu_torch.crypto.keccak import keccak256
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch, verify_batch
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.ops.keccak import keccak256_fixed, pubkey_to_address
+
+    dev = torch.device("cuda")
+    K.reset_launches()
+    shapes = {}
+    for dt in (torch.uint8, torch.int32):
+        got = ecrecover_batch(torch.zeros(0, 65, dtype=dt, device=dev),
+                              torch.zeros(0, 32, dtype=dt, device=dev))
+        shapes[f"recover_{dt}"] = [list(g.shape) for g in got]
+        if ([tuple(g.shape) for g in got] != [(0, 20), (0, 64), (0,)]
+                or any(g.device.type != "cuda" for g in got)):
+            raise AssertionError(f"C5: recovery of no rows gave {got}")
+    for w in (64, 65):
+        ok = verify_batch(*(torch.zeros(0, n, dtype=torch.uint8, device=dev)
+                            for n in (w, 32, 64)))
+        shapes[f"verify_{w}"] = list(ok.shape)
+        if ok.shape != (0,) or ok.dtype != torch.int32 or ok.is_cpu:
+            raise AssertionError(f"C5: verify of no rows gave {ok}")
+    if sum(K.LAUNCHES.values()):
+        raise AssertionError(f"C5: empty batches launched {K.LAUNCHES}")
+    rng = np.random.default_rng(SEED + 18)
+    hashed = 0
+    for shape in ((5, 40), (5, 64), (5, 137), (2, 3, 40)):
+        msgs = rng.integers(0, 256, shape)
+        want = keccak256_fixed(torch.from_numpy(msgs.astype(np.uint8)).to(
+            dev)).cpu().numpy().reshape(-1, 32)
+        for dt in (torch.int32, torch.int64):
+            got = keccak256_fixed(torch.from_numpy(msgs).to(dt).to(dev))
+            if not np.array_equal(got.cpu().numpy().reshape(-1, 32), want):
+                raise AssertionError(f"C6: {dt} rows {shape} differ")
+        for i, m in enumerate(msgs.reshape(-1, shape[-1])):
+            if bytes(want[i]) != keccak256(bytes(m.astype(np.uint8))):
+                raise AssertionError(f"C6: rows {shape} differ from the "
+                                     "host model")
+            hashed += 1
+    keys = torch.from_numpy(sigs[:64, :64]).to(dev)
+    want = pubkey_to_address(keys[:, :32], keys[:, 32:])
+    got = pubkey_to_address(keys[:, :32].int(), keys[:, 32:].int())
+    if not torch.equal(got, want):
+        raise AssertionError("C6: int32 key halves give other addresses")
+    return {"empty_shapes": shapes, "int_byte_rows_matching_host": hashed,
+            "int_key_rows": len(keys)}
 
 
 def _sm_clock(s8, h8):
@@ -2069,8 +2304,9 @@ def phase_profile(dev):
     from eges_tpu_torch.harness import (hlo_census, measure_recover,
                                         profile_floor, profile_kernels2,
                                         profile_mul8b, profile_mulchain,
-                                        profile_stages)
+                                        profile_stages, profutil)
     from eges_tpu_torch.ops import build, kernels as K
+    from eges_tpu_torch.ops.keccak import keccak256_fixed
 
     rng = np.random.default_rng(SEED + 8)
     out = {"phase": "profile"}
@@ -2126,21 +2362,54 @@ def phase_profile(dev):
                                      f"{census['launches']}, want "
                                      f"{FUSED_RECOVER_LAUNCHES}")
             censuses[B] = census
+        # verify's own kernels (#14-#16a) inside one verify batch, and the
+        # window's idle share
+        for _ in range(PROFILE_TRIES):
+            vcensus = hlo_census.main(B_VERIFY, rng, dev, path="verify")
+            kernels = by_wrapper(vcensus)
+            if kernels == vcensus["launches"] == VERIFY_LAUNCHES:
+                break
+        else:
+            raise AssertionError(f"verify census: kernels {kernels}, "
+                                 f"wrappers {vcensus['launches']}, want "
+                                 f"{VERIFY_LAUNCHES}")
+    # #13 inside keccak256_fixed of a config-4 block's transactions
+    txs = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, 256, (B_KECCAK, 110), dtype=np.uint8)).to(dev)
+    for _ in range(PROFILE_TRIES):
+        kevents, kwall = profutil.profile_window(keccak256_fixed, txs,
+                                                 device=dev)
+        kcensus = hlo_census.census(kevents)
+        if kcensus["hand_written"] == {"k_keccak_block": 1}:
+            break
+    else:
+        raise AssertionError(f"keccak window: {kcensus['hand_written']}")
     launches = dict(K.LAUNCHES)
     launches["add_one_f32"] += floor["results"]["pallasnop"]["launches"].get(
         "add_one_f32", 0)
-    out["census"] = {}
-    for B, census in censuses.items():
-        # the device ms of each launch of each kernel, in the order they
-        # ran
+
+    def launch_ms(census):
+        """The device ms of each launch of each kernel, in the order they
+        ran."""
         each = {}
         for g, us in census["launch_order"]:
             each.setdefault(wrapper_of[g], []).append(us / 1e3)
-        out["census"][B] = {
-            **{k: census[k] for k in (
-                "hand_written", "aten", "copy", "wall_ms", "kernel_ms",
-                "busy_share", "idle_share", "copy_us")},
-            "launch_ms": each}
+        return each
+
+    out["census"] = {B: {**{k: census[k] for k in (
+        "hand_written", "aten", "copy", "wall_ms", "kernel_ms",
+        "busy_share", "idle_share", "copy_us")},
+        "launch_ms": launch_ms(census)} for B, census in censuses.items()}
+    out["verify_census"] = {
+        **{k: vcensus[k] for k in ("batch", "hand_written", "wall_ms",
+                                   "kernel_ms", "busy_share",
+                                   "idle_share")},
+        "launch_ms": launch_ms(vcensus)}
+    out["keccak_census"] = {
+        "rows": B_KECCAK, "wall_ms": kwall * 1e3,
+        "kernel_ms": kcensus["kernel_us"] / 1e3,
+        "idle_share": 1.0 - kcensus["kernel_us"] / 1e3 / (kwall * 1e3),
+        "launch_ms": launch_ms(kcensus)}
     out["launches"] = {k: v for k, v in launches.items() if v}
     emit(out)
     return launches

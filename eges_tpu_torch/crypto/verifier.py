@@ -33,8 +33,9 @@ from eges_tpu_torch.ops.bigint import limbs_to_bytes_be
 
 def _limbs(rows: torch.Tensor, *offsets: int) -> list[torch.Tensor]:
     """The big-endian 32-byte values at ``offsets`` of ``[..., n]`` uint8
-    rows -> ``[..., 16]`` int32 limb tensors."""
-    wide = rows.to(torch.int32)
+    rows (any layout: the limbs come out contiguous, as the kernels take
+    them) -> ``[..., 16]`` int32 limb tensors."""
+    wide = rows.to(torch.int32).contiguous()
     return [field.unpack_be(wide, off) for off in offsets]
 
 
@@ -76,18 +77,6 @@ def addr_from_digest_rows(dig: torch.Tensor, B: int) -> torch.Tensor:
     return words_to_bytes(dig[3:8], B)
 
 
-def _bytes(t: torch.Tensor, what: str) -> torch.Tensor:
-    """A byte tensor of any integer dtype as uint8, cast once (values
-    past 255 wrap; nothing checks them, which would wait for the card);
-    another dtype raises TypeError."""
-    if t.dtype == torch.uint8:
-        return t
-    if (t.dtype.is_floating_point or t.dtype.is_complex
-            or t.dtype == torch.bool):
-        raise TypeError(f"{what}: expected an integer dtype, got {t.dtype}")
-    return t.to(torch.uint8)
-
-
 @torch.inference_mode()
 def ecrecover_batch(sigs: torch.Tensor, hashes: torch.Tensor):
     """Batched sender recovery.
@@ -101,12 +90,18 @@ def ecrecover_batch(sigs: torch.Tensor, hashes: torch.Tensor):
     takes the fused path, whose prelude reads the rows where they lie and
     whose finish kernel already packed the masked keccak block (its first
     16 words are the big-endian bytes of qx || qy); any other shape the
-    un-fused ``ecrecover_point``, then keccak of the key bytes.
+    un-fused ``ecrecover_point``, then keccak of the key bytes.  A
+    ``[0, W]`` batch gives empty outputs after the width checks and
+    launches nothing.
     """
-    sigs, hashes = _bytes(sigs, "sigs"), _bytes(hashes, "hashes")
+    sigs = keccak.as_bytes(sigs, "sigs")
+    hashes = keccak.as_bytes(hashes, "hashes")
     _check_rows(sigs, hashes, 65, None)
     if sigs.dim() == 2:
         B = sigs.shape[0]
+        if B == 0:  # the kernels take 1..Bpad rows
+            return (sigs.new_zeros(0, 20), sigs.new_zeros(0, 64),
+                    sigs.new_zeros(0, dtype=torch.int32))
         _qx, _qy, ok, words = ec.ecrecover_point_fused(sigs, hashes)
         addrs = addr_from_digest_rows(K.keccak_rows_pallas(words), B)
         pubs = words_to_bytes(words[:16], B)
@@ -131,12 +126,16 @@ def verify_batch(sigs: torch.Tensor, hashes: torch.Tensor,
     32]`` uint8, ``pubs [..., 64]`` uint8 (x || y, big-endian), on one
     device.  Returns ``ok [...]`` int32.  Narrower rows raise
     ValueError, where the reference fails to reshape them.  A ``[N,
-    ...]`` batch takes the fused path, any other shape the un-fused one.
+    ...]`` batch takes the fused path, any other shape the un-fused one;
+    a ``[0, W]`` batch gives an empty ``ok`` after the width checks and
+    launches nothing.
     """
     _check_rows(sigs, hashes, 64, None)
     if tuple(pubs.shape) != (*sigs.shape[:-1], 64):
         raise ValueError(f"pubs must be [..., 64] beside sigs, got "
                          f"{tuple(pubs.shape)}")
+    if sigs.dim() == 2 and sigs.shape[0] == 0:  # as ecrecover_batch
+        return sigs.new_zeros(0, dtype=torch.int32)
     if sigs.shape[-1] == 64:
         sigs = F.pad(sigs, (0, 1))
     z, r, s, _ = _unpack(sigs, hashes)

@@ -197,20 +197,11 @@ def cuda_event_ms(fn, *args, reps: int = 10, device=None,
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("cuda_event_ms times the card: give a CUDA device")
+    if cold:
+        return cold_event_ms([(fn, args)], reps=reps, device=dev)[0]
     fn(*args)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if cold:
-        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-        times = []
-        for _ in range(reps):
-            flush.zero_()
-            start.record()
-            fn(*args)
-            end.record()
-            torch.cuda.synchronize(dev)
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
     torch.cuda.synchronize(dev)
     start.record()
     for _ in range(reps):
@@ -218,6 +209,38 @@ def cuda_event_ms(fn, *args, reps: int = 10, device=None,
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+def cold_event_ms(calls, reps: int = 10, device=None) -> list[float]:
+    """:func:`cuda_event_ms` with ``cold`` for several ``(fn, args)``
+    calls at once: each warmed up once, then ``reps`` rounds in which
+    every call is timed alone after ``FLUSH_BYTES`` are written, one call
+    after another; the median of each call's rounds, in order.  The calls
+    share every stretch of the run, so a slow stretch of the card or the
+    host moves them all and not one alone.  Raises for a device that is
+    not a card."""
+    import torch
+
+    from eges_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("cold_event_ms times the card: give a CUDA device")
+    for fn, args in calls:
+        fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    times = [[] for _ in calls]
+    for _ in range(reps):
+        for t, (fn, args) in zip(times, calls):
+            flush.zero_()
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize(dev)
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
 
 
 def profile_window(fn, *args, reps: int = 1, device=None):

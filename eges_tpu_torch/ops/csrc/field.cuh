@@ -650,6 +650,75 @@ EG_FD void keccak_words(const u32* w, u32* out) {
   }
 }
 
+// Keccak-f[1600] of one padded block on a group of T >= 2 lanes (#11's
+// kernels; T = 1 is keccak_words).  Lane `rank` holds half h = rank & 1
+// of each 64-bit lane (h = 0 its low 32 bits): in[l] that half of block
+// lane l < 17, out[i] that half of digest lane i < 4.  Its partner, lane
+// rank ^ 1, holds the other half, and both halves of a rotated lane are
+// the same function of (mine, other), so a rotation is one shuffle and
+// one funnel shift in either lane: the pair issues a one-thread round's
+// logic once between them, each lane 119 operations a round (29 of them
+// shuffles) against the one thread's 180.  At T = 4 the lanes past the
+// first pair hold the same halves again (the 25 lanes do not split four
+// or eight ways without moving most of the state between lanes each
+// round).  Every lane of the warp must call it
+// together: the shuffles name the whole warp (with the group's own mask
+// the compiler wrapped each round in a convergence loop, which ran
+// slower on the H100), and the rounds go four to a loop trip.
+template <int T>
+EG_FD void grp_keccak_words(const u32* in, u32* out, u32 rank) {
+  static_assert(T >= 2, "T = 1 is keccak_words");
+  constexpr u32 WARP = 0xffffffffu;
+  const int ROT[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
+                       25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
+  // this lane's half of a lane rotated left by r (0 < r < 64), from its
+  // own half and the partner's
+  auto rot = [](u32 mine, u32 other, int r) {
+    return r < 32 ? __funnelshift_l(other, mine, r)
+                  : __funnelshift_l(mine, other, r - 32);
+  };
+  const u32 h = rank & 1u;
+  u32 a[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) a[l] = l < 17 ? in[l] : 0u;
+#pragma unroll 4
+  for (int rnd = 0; rnd < 24; ++rnd) {
+    u32 c[5], r1[5];
+#pragma unroll
+    for (int x = 0; x < 5; ++x)
+      c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
+#pragma unroll
+    for (int x = 0; x < 5; ++x)
+      r1[x] = rot(c[x], __shfl_xor_sync(WARP, c[x], 1), 1);
+#pragma unroll
+    for (int x = 0; x < 5; ++x) {
+#pragma unroll
+      for (int y = 0; y < 5; ++y)
+        a[x + 5 * y] ^= c[(x + 4) % 5] ^ r1[(x + 1) % 5];
+    }
+    u32 b[25];
+#pragma unroll
+    for (int x = 0; x < 5; ++x) {
+#pragma unroll
+      for (int y = 0; y < 5; ++y) {
+        const int l = x + 5 * y;
+        b[y + 5 * ((2 * x + 3 * y) % 5)] =
+            ROT[l] ? rot(a[l], __shfl_xor_sync(WARP, a[l], 1), ROT[l]) : a[l];
+      }
+    }
+#pragma unroll
+    for (int y = 0; y < 5; ++y) {
+#pragma unroll
+      for (int x = 0; x < 5; ++x)
+        a[x + 5 * y] = b[x + 5 * y] ^
+                       (~b[(x + 1) % 5 + 5 * y] & b[(x + 2) % 5 + 5 * y]);
+    }
+    a[0] ^= K.rc[rnd][h];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = a[i];
+}
+
 // ---------------------------------------------------------------------------
 // pipeline stages
 // ---------------------------------------------------------------------------
@@ -692,10 +761,15 @@ EG_FD u32 grp_recover_prelude(u32* x, u32* y_sq, const u32* r, const u32* s,
 }
 
 // After the sqrt pow: canonicalise the root, check root^2 == y^2, flip
-// y to the parity v & 1.  Returns y_ok.
-EG_FD u32 y_fix(u32* y, const u32* root, const u32* y_sq, u32 v) {
+// y to the parity v & 1.  Returns y_ok.  On a group of T lanes (#3's
+// kernels): the square shared out (grp_fp_sqr), the canonicalisations,
+// the compare, the negation and the select whole in every lane, so every
+// lane returns the row's y and y_ok.  T = 1 is the one-thread y_fix.
+template <int T>
+EG_FD u32 grp_y_fix(u32* y, const u32* root, const u32* y_sq, u32 v,
+                    u32 rank, u32 mask) {
   u32 rc[16], ac[16];
-  fp_sqr(rc, root);
+  grp_fp_sqr<T>(rc, root, rank, mask);
   cond_sub_p(rc, rc);
   cond_sub_p(ac, y_sq);
   u32 ok = 1;

@@ -4,12 +4,12 @@
 // Each __global__ replaces one Pallas kernel of
 // eges_tpu/ops/pallas_kernels.py (named beside it) over the field
 // library of field.cuh, so its results are bit-identical to the
-// reference's numpy twins.  y_fix, fp_canon and keccak_rows run one
-// thread per batch row; the prelude, the pow, u1u2, the GLV split, fp_mul
-// and the finish (and the point table and the ladder in ladder.cu) run a
-// group of T lanes a row instead (one instance each for T = 1, 2, 4 and
-// 8; ops/kernels.py lanes_for picks T and the block size from the row
-// count).  The TPU kernels walked
+// reference's numpy twins.  fp_canon runs one thread per batch row; the
+// prelude, the pow, y_fix, u1u2, the GLV split, fp_mul, the finish and
+// keccak_rows (and the point table and the ladder in ladder.cu) run a
+// group of T lanes a row (or a column) instead (one instance each for T
+// = 1, 2, 4 and 8; ops/kernels.py lanes_for picks T and the block size
+// from the row count).  The TPU kernels walked
 // windows, table entries and pow digits on a sequential grid axis with
 // the running state in VMEM; blocks on Hopper run in no order, so each
 // of those walks is a loop inside the thread (or group) here.
@@ -26,9 +26,9 @@
 // byte and are bound by bytes; the other five by integer operations.  All of
 // them read each input once, write each output once and keep every
 // intermediate in registers (the pow table and the row tiles of the
-// prelude, u1u2, fp_mul and fp_canon in shared memory).  Those four read
-// and write 16-byte vectors through their tiles; against the latency of
-// a row's dependent chains, the lane groups put more warps on more SMs.
+// prelude, y_fix, u1u2, fp_mul and fp_canon in shared memory).  Those five
+// read and write 16-byte vectors through their tiles; against the latency
+// of a row's dependent chains, the lane groups put more warps on more SMs.
 //
 // Each launcher has a plain C interface for ctypes: device pointers and
 // the stream arrive as void*, the kernel is queued on that stream, and
@@ -44,8 +44,8 @@ using namespace eg;
 //
 // One thread a row reading its own 16 words at a 64-byte stride made each
 // load of a warp touch 32 separate sectors.  The tiled kernels (the
-// prelude, u1u2, fp_mul, fp_canon) move a block's rows through shared
-// memory instead, so device memory is read and written as 16-byte
+// prelude, y_fix, u1u2, fp_mul, fp_canon) move a block's rows through
+// shared memory instead, so device memory is read and written as 16-byte
 // vectors, neighbouring threads on neighbouring addresses (ld.global.nc
 // in, evict-first out: each byte is touched once).  A block of `threads`
 // holds threads / T rows, each row a group of T lanes.  A tile is
@@ -380,17 +380,55 @@ EG_POW_KERNELS(2)
 EG_POW_KERNELS(4)
 EG_POW_KERNELS(8)
 
-// #3 y_fix_pallas
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_y_fix(const u32* root, const u32* y_sq, const u32* v, int B, u32* y,
-        u32* y_ok) {
-  EG_ROW(B)
+// #3 y_fix_pallas: after the sqrt pow, root and y^2 [B, 16] (relaxed) and
+// v [B] -> y [B, 16], the canonical root with its parity flipped to v & 1,
+// and y_ok [B], whether root^2 == y^2; bound by bytes (200 a row against
+// 1,094 operations).  One thread a row read its rows at a 64-byte stride
+// (32 sectors a warp load) and ran the square alone, on 64 blocks at 8192
+// rows.  Here the block's rows of root and y^2 come in through #7's tiles
+// and y leaves through one (16-byte accesses; the word path for views off
+// 16 bytes), and the square runs on a group of T lanes (field.cuh
+// grp_y_fix), the rest whole in every lane.  Every lane stores y_ok, the
+// same word; a group past B takes the block's last row again and stores
+// the same y_ok there, so no branch skips its chain.  The tile is written
+// only after every group has read its rows (those groups read another's).
+template <int T>
+static __device__ __forceinline__ void y_fix_rows(const u32* root,
+                                                  const u32* y_sq,
+                                                  const u32* v, int B,
+                                                  int vec, u32* y,
+                                                  u32* y_ok) {
+  const EgGroup g = eg_group<T>(B);
+  const int rows = blockDim.x / T, lr = threadIdx.x / T;
+  const int r0 = blockIdx.x * rows;
+  const int n = B - r0 < rows ? B - r0 : rows;
+  const int li = lr < n ? lr : n - 1;
+  const size_t o = (size_t)16 * r0;
+  uint4* tr = reinterpret_cast<uint4*>(eg_smem);
+  uint4* ta = tr + 4 * rows;
+  tile_in<T, 2>(tr, ta, nullptr, root + o, y_sq + o, nullptr, n, vec);
+  __syncthreads();
   u32 R[16], A[16], Y[16];
-  load16(R, root + (size_t)16 * b);
-  load16(A, y_sq + (size_t)16 * b);
-  y_ok[b] = y_fix(Y, R, A, v[b]);
-  store16(y + (size_t)16 * b, Y);
+  tile_row(R, tr, li);
+  tile_row(A, ta, li);
+  y_ok[g.in] = grp_y_fix<T>(Y, R, A, v[g.in], g.rank, g.mask);
+  __syncthreads();
+  tile_put<T>(tr, lr, Y, g.rank);
+  __syncthreads();
+  tile_out<T>(y + o, tr, n);
 }
+
+#define EG_Y_FIX_KERNEL(T)                                                 \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)       \
+      k_y_fix_t##T(const u32* root, const u32* y_sq, const u32* v, int B,  \
+                   int vec, u32* y, u32* y_ok) {                           \
+    y_fix_rows<T>(root, y_sq, v, B, vec, y, y_ok);                         \
+  }
+
+EG_Y_FIX_KERNEL(1)
+EG_Y_FIX_KERNEL(2)
+EG_Y_FIX_KERNEL(4)
+EG_Y_FIX_KERNEL(8)
 
 // #4 u1u2_pallas: u1 = -(z mod N) * r^-1, u2 = s * r^-1 (canonical mod
 // N), bound by operations (5,369 a row against 320 bytes), on a group of
@@ -679,17 +717,55 @@ EG_FINISH_KERNEL(2)
 EG_FINISH_KERNEL(4)
 EG_FINISH_KERNEL(8)
 
-// #11 keccak_rows_pallas: one Keccak-f[1600] per column of [34, wide].
-extern "C" __global__ void __launch_bounds__(EG_THREADS)
-k_keccak_rows(const u32* words, int wide, u32* out) {
-  EG_ROW(wide)
-  u32 w[34], o[8];
+// #11 keccak_rows_pallas: one Keccak-f[1600] per column of the block
+// words [34, wide] -> the digest words [8, wide], bound by operations
+// (4,320 a column against 168 bytes), on a group of T lanes a column
+// (field.cuh grp_keccak_words; T = 1: keccak_words).  One thread a
+// column ran the 24-round chain alone: an 8192-column batch had 256 warps
+// (one a scheduler on half the SMs) and a 1024-column one 32, and each
+// took about the chain's issue time.  At T >= 2 a pair of lanes shares a
+// column's rounds, each holding one half of every lane (lanes past the
+// pair repeat it); lane `rank` loads the block words of its half and
+// stores the digest words k = rank (mod T).  The words are limb-major, so
+// the accesses stay coalesced across groups.  A group past `wide` hashes
+// the last column again and stores the same words there, so no branch
+// skips its chain and every lane of a warp runs the rounds' shuffles
+// together.
+template <int T>
+static __device__ __forceinline__ void keccak_cols(const u32* words,
+                                                   int wide, u32* out) {
+  const EgGroup g = eg_group<T>(wide);
+  const u32* w = words + g.in;
+  u32* o = out + g.in;
+  if constexpr (T == 1) {
+    u32 in[34], dg[8];
 #pragma unroll
-  for (int k = 0; k < 34; ++k) w[k] = words[(size_t)k * wide + b];
-  keccak_words(w, o);
+    for (int k = 0; k < 34; ++k) in[k] = w[(size_t)k * wide];
+    keccak_words(in, dg);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) out[(size_t)k * wide + b] = o[k];
+    for (int k = 0; k < 8; ++k) o[(size_t)k * wide] = dg[k];
+  } else {
+    const u32 h = g.rank & 1u;
+    u32 in[17], dg[4];
+#pragma unroll
+    for (int l = 0; l < 17; ++l) in[l] = w[(size_t)(2 * l + h) * wide];
+    grp_keccak_words<T>(in, dg, g.rank);  // the whole warp together
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k % T == (int)g.rank) o[(size_t)k * wide] = dg[k / 2];
+  }
 }
+
+#define EG_KECCAK_ROWS_KERNEL(T)                                          \
+  extern "C" __global__ void __launch_bounds__(EG_LANES_MAX_THREADS)      \
+      k_keccak_rows_t##T(const u32* words, int wide, u32* out) {          \
+    keccak_cols<T>(words, wide, out);                                     \
+  }
+
+EG_KECCAK_ROWS_KERNEL(1)
+EG_KECCAK_ROWS_KERNEL(2)
+EG_KECCAK_ROWS_KERNEL(4)
+EG_KECCAK_ROWS_KERNEL(8)
 
 // ---------------------------------------------------------------------------
 // launchers
@@ -780,11 +856,24 @@ extern "C" int eg_pow_mod(const void* a, void* out, int M,
   return (int)cudaGetLastError();
 }
 
+typedef void (*YFixKernel)(const u32*, const u32*, const u32*, int, int,
+                           u32*, u32*);
+static const YFixKernel Y_FIX[] = {k_y_fix_t1, k_y_fix_t2, k_y_fix_t4,
+                                   k_y_fix_t8};
+
+// vec: 1 when root and y_sq are 16-byte aligned; y must be.
 extern "C" int eg_y_fix(const void* root, const void* y_sq, const void* v,
-                        int B, void* y, void* y_ok, void* stream) {
+                        int B, void* y, void* y_ok, int vec, int lanes,
+                        int threads, void* stream) {
   if (B <= 0) return 0;
-  k_y_fix<<<eg_grid(B), EG_THREADS, 0, EG_STREAM(stream)>>>(
-      (const u32*)root, (const u32*)y_sq, (const u32*)v, B, (u32*)y,
+  if (!eg_lanes_ok(lanes, threads) || (size_t)y % 16 ||
+      (vec && ((size_t)root | (size_t)y_sq) % 16))
+    return (int)cudaErrorInvalidValue;
+  // two tiles of threads / lanes rows: at most 32 KB
+  const size_t smem = (size_t)(threads / lanes) * 2 * 64;
+  Y_FIX[lanes_index(lanes)]<<<eg_lanes_grid(B, lanes, threads), threads,
+                              smem, EG_STREAM(stream)>>>(
+      (const u32*)root, (const u32*)y_sq, (const u32*)v, B, vec, (u32*)y,
       (u32*)y_ok);
   return (int)cudaGetLastError();
 }
@@ -881,10 +970,16 @@ extern "C" int eg_recover_finish(const void* X, const void* Y, const void* Z,
   return (int)cudaGetLastError();
 }
 
+typedef void (*KeccakRowsKernel)(const u32*, int, u32*);
+static const KeccakRowsKernel KECCAK_ROWS[] = {
+    k_keccak_rows_t1, k_keccak_rows_t2, k_keccak_rows_t4, k_keccak_rows_t8};
+
 extern "C" int eg_keccak_rows(const void* words, int wide, void* out,
-                              void* stream) {
+                              int lanes, int threads, void* stream) {
   if (wide <= 0) return 0;
-  k_keccak_rows<<<eg_grid(wide), EG_THREADS, 0, EG_STREAM(stream)>>>(
+  if (!eg_lanes_ok(lanes, threads)) return (int)cudaErrorInvalidValue;
+  KECCAK_ROWS[lanes_index(lanes)]<<<eg_lanes_grid(wide, lanes, threads),
+                                    threads, 0, EG_STREAM(stream)>>>(
       (const u32*)words, wide, (u32*)out);
   return (int)cudaGetLastError();
 }

@@ -93,6 +93,18 @@ def _keccak_f(lo: torch.Tensor, hi: torch.Tensor):
     return lo, hi
 
 
+def as_bytes(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A byte tensor of any integer dtype as uint8, cast once (values
+    past 255 wrap; nothing checks them, which would wait for the card);
+    a float, complex or bool tensor raises TypeError."""
+    if t.dtype == torch.uint8:
+        return t
+    if (t.dtype.is_floating_point or t.dtype.is_complex
+            or t.dtype == torch.bool):
+        raise TypeError(f"{what}: expected an integer dtype, got {t.dtype}")
+    return t.to(torch.uint8)
+
+
 def _words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     """``[..., 8]`` little-endian 32-bit digest words -> ``[..., 32]``
     uint8."""
@@ -104,10 +116,10 @@ def _words_to_bytes(words: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def keccak256_fixed(data: torch.Tensor) -> torch.Tensor:
-    """Keccak-256 of each ``[..., L]`` uint8 message (L fixed): returns
+    """Keccak-256 of each ``[..., L]`` byte message (L fixed; bytes of
+    any integer dtype, cast to uint8 once by :func:`as_bytes`): returns
     ``[..., 32]`` uint8 digests on the same device."""
-    if data.dtype != torch.uint8:
-        raise TypeError(f"data must be uint8, got {data.dtype}")
+    data = as_bytes(data, "data")
     L = data.shape[-1]
     batch = data.shape[:-1]
     nblocks = L // RATE + 1  # the last block holds the padding
@@ -136,5 +148,7 @@ def keccak256_fixed(data: torch.Tensor) -> torch.Tensor:
 def pubkey_to_address(qx_bytes: torch.Tensor,
                       qy_bytes: torch.Tensor) -> torch.Tensor:
     """Ethereum addresses ``keccak256(x || y)[12:]`` of ``[..., 32]``
-    uint8 key halves: ``[..., 20]`` uint8."""
-    return keccak256_fixed(torch.cat([qx_bytes, qy_bytes], -1))[..., 12:]
+    key halves (bytes of any integer dtype): ``[..., 20]`` uint8."""
+    return keccak256_fixed(torch.cat([as_bytes(qx_bytes, "qx_bytes"),
+                                      as_bytes(qy_bytes, "qy_bytes")],
+                                     -1))[..., 12:]

@@ -33,17 +33,19 @@ operations bound them.  Each reads its
 inputs and writes its outputs once and keeps every intermediate in
 registers.  ``PERF.md`` has each one's time beside its bound.  The pow,
 the point table and the ladder, nearly all of a recovery's card time,
-and the prelude, ``u1u2``, the GLV split, ``fp_mul`` and the finish run
-a group of T lanes a row (``csrc/field.cuh`` ``grp_*``), so that a batch
-puts more warps on more SMs; :func:`lanes_for` picks T and the block
-size from the row count, and :func:`recover_prelude_lanes`,
-:func:`pow_mod_lanes`, :func:`u1u2_lanes`, :func:`point_table_lanes`,
+and the prelude, ``y_fix``, ``u1u2``, the GLV split, ``fp_mul``, the
+finish and ``keccak_rows`` (a column) run a group of T lanes a row
+(``csrc/field.cuh`` ``grp_*``), so that a batch puts more warps on more
+SMs; :func:`lanes_for` picks T and the block size from the row count,
+and :func:`recover_prelude_lanes`, :func:`pow_mod_lanes`,
+:func:`y_fix_lanes`, :func:`u1u2_lanes`, :func:`point_table_lanes`,
 :func:`strauss_tab_lanes`, :func:`glv_digits_lanes`,
 :func:`fp_mul_lanes`, :func:`fp_canon_lanes` (one lane a row, any block
-size) and :func:`recover_finish_lanes` launch any instance (every one
-gives the same bits).  The prelude, ``u1u2``, ``fp_mul`` and
-``fp_canon`` move their rows through shared memory, so that device
-memory sees 16-byte accesses, neighbour to neighbour.
+size), :func:`recover_finish_lanes` and :func:`keccak_rows_lanes` launch
+any instance (every one gives the same bits).  The prelude, ``y_fix``,
+``u1u2``, ``fp_mul`` and ``fp_canon`` move their rows through shared
+memory, so that device memory sees 16-byte accesses, neighbour to
+neighbour.
 
 The tiling configuration is the reference's: ``EGES_TPU_LANE_BLOCK``
 sets the lane block, ``EGES_TPU_ROWS8=1`` sends ``pow_mod_pallas`` and
@@ -147,9 +149,9 @@ def bpad(b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# lanes a row of the prelude, pow, u1u2, point-table, ladder, GLV, fp_mul
-# and finish kernels, and the block size of fp_canon (csrc/recover.cu,
-# ladder.cu)
+# lanes a row of the prelude, pow, y_fix, u1u2, point-table, ladder, GLV,
+# fp_mul, finish and keccak_rows kernels, and the block size of fp_canon
+# (csrc/recover.cu, ladder.cu)
 # ---------------------------------------------------------------------------
 
 LANES = build.LANES            # the instances of each kernel
@@ -182,7 +184,12 @@ PRELUDE_MAX_PITCH = 256
 # 128 up to 1024 rows; beyond, the prelude 4 in blocks of 64 and u1u2 8
 # in blocks of 64 up to 4096 rows and 4 in blocks of 64 past them (8 lanes
 # a row there issue twice a 4-lane group's instructions: every lane runs
-# u1u2's reductions whole).
+# u1u2's reductions whole).  y_fix, swept at 256-8192 rows on cold times,
+# takes 8 lanes in blocks of 64 up to 1024 rows, 4 up to 4096 and 2
+# beyond, 7-15% faster than one lane (bytes and the tiles' round trip
+# bound it); keccak_rows takes a pair of lanes a column in blocks of 64
+# at every count, 10-14% faster than one lane: 4 and 8 lanes repeat the
+# pair's chain on more warps.
 LANES_RULE = {
     "strauss_tab": ((256, 4, 128), (4096, 8, 64), (None, 4, 256)),
     "point_table": ((1024, 8, 128), (4096, 8, 256), (None, 4, 256)),
@@ -196,6 +203,8 @@ LANES_RULE = {
     "fp_canon": ((None, 1, 64),),
     "recover_prelude": ((1024, 8, 128), (None, 4, 64)),
     "u1u2": ((1024, 8, 128), (4096, 8, 64), (None, 4, 64)),
+    "y_fix": ((1024, 8, 64), (4096, 4, 64), (None, 2, 64)),
+    "keccak_rows": ((None, 2, 64),),
 }
 
 
@@ -203,8 +212,9 @@ def lanes_for(kernel: str, rows: int, device="cuda") -> tuple[int, int]:
     """``(lanes a row, threads a block)`` of ``kernel`` (a key of
     ``LANES_RULE``: ``"strauss_tab"``, ``"point_table"``, ``"pow_mod_p"``,
     ``"pow_mod_n"``, ``"glv_digits"``, ``"fp_mul"``, ``"fp_canon"`` (one
-    lane a row), ``"recover_finish"``, ``"recover_prelude"`` or
-    ``"u1u2"``) at ``rows`` rows: the one rule
+    lane a row), ``"recover_finish"``, ``"recover_prelude"``, ``"u1u2"``,
+    ``"y_fix"`` or ``"keccak_rows"`` (columns)) at ``rows`` rows: the one
+    rule
     the wrappers launch by.  A CPU device takes the
     plain version, whose arithmetic is one thread's: ``(1, 128)``."""
     if rows <= 0:
@@ -604,7 +614,7 @@ _ARGTYPES = {
     "eg_init": [_P, _I],
     "eg_recover_prelude": [_P, _I, _P, _I] + [_P] * 7 + [_I, _I, _P],
     "eg_pow_mod": [_P, _P, _I, _P, _I, _I, _I, _P],
-    "eg_y_fix": [_P, _P, _P, _I, _P, _P, _P],
+    "eg_y_fix": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "eg_u1u2": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "eg_glv_digits": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
     "eg_fp_mul": [_P, _P, _I, _P, _I, _I, _I, _P],
@@ -614,7 +624,7 @@ _ARGTYPES = {
     **{f"eg_point_table_t{t}": [_P, _P, _I, _P, _P, _P, _I, _P]
        for t in build.LANES},
     "eg_recover_finish": [_P] * 5 + [_I] * 2 + [_P] * 4 + [_I] * 2 + [_P],
-    "eg_keccak_rows": [_P, _I, _P, _P],
+    "eg_keccak_rows": [_P, _I, _P, _I, _I, _P],
     "eg_init_verify": [_P, _I],
     "eg_fn_mul": [_P, _P, _I, _P, _P],
     "eg_fn_red17": [_P, _I, _P, _P],
@@ -809,7 +819,22 @@ def pow_mod_lanes(a, e: int, modulus: str, lanes: int, threads: int):
 
 def y_fix_pallas(root, y_sq, v):
     """``(root, y_sq) [B, 16]``, ``v [B]`` -> ``(y [B, 16], y_ok [B])``.
-    Replaces ``y_fix_pallas`` (pallas_kernels.py:1569)."""
+    Replaces ``y_fix_pallas`` (pallas_kernels.py:1569), on
+    :func:`lanes_for`'s lanes a row.  Any contiguous ``[B, 16]`` int32
+    operands, views at any offset included."""
+    lanes, threads = lanes_for("y_fix", max(_rows(root), 1), root.device)
+    return y_fix_lanes(root, y_sq, v, lanes, threads)
+
+
+def y_fix_lanes(root, y_sq, v, lanes: int, threads: int):
+    """:func:`y_fix_pallas` on ``lanes`` lanes a row in blocks of
+    ``threads``: the launch of ``k_y_fix_t<lanes>``, whose rows go through
+    shared-memory tiles as :func:`fp_mul_lanes`' do (16-byte vectors where
+    ``root`` and ``y_sq`` start on a 16-byte boundary, single words
+    otherwise, without a copy; ``y`` is a fresh, aligned tensor).  Every
+    instance gives the same bits; the wrapper launches
+    :func:`lanes_for`'s, and chip_smoke.py phase lanes times them all."""
+    _check_lanes(lanes, threads)
     B = _rows(root)
     _check(root, "root", (B, NLIMBS))
     _check(y_sq, "y_sq", (B, NLIMBS))
@@ -817,7 +842,9 @@ def y_fix_pallas(root, y_sq, v):
     if not _on_card(root, y_sq, v):
         return y_fix_plain(root, y_sq, v)
     y, ok = _empty((B, NLIMBS), root), _empty((B,), root)
-    _launch("y_fix", "eg_y_fix", root, y_sq, v, B, y, ok)
+    vec = int(root.data_ptr() % 16 == 0 and y_sq.data_ptr() % 16 == 0)
+    _launch("y_fix", "eg_y_fix", root, y_sq, v, B, y, ok, vec, lanes,
+            threads)
     return y, ok
 
 
@@ -1064,7 +1091,9 @@ def recover_finish_lanes(X, Y, Z, zi_raw, ok_in, lanes: int, threads: int):
 def keccak_rows_pallas(words):
     """``[34, wide]`` padded block words -> ``[8, wide]`` digest words,
     one Keccak-f[1600] per column.  Replaces ``keccak_rows_pallas``
-    (pallas_kernels.py:1781); the kernel uses native 64-bit lanes.  Under
+    (pallas_kernels.py:1781), on :func:`lanes_for`'s lanes a column; the
+    kernel uses native 64-bit lanes at one lane a column, 32-bit halves on
+    a pair of lanes at 2, 4 and 8.  Under
     ``keccak_grid_enabled()`` the round kernel (:func:`keccak_rows_grid`)
     computes the whole state and the digest rows are gathered from it,
     as the reference's grid branch does."""
@@ -1076,10 +1105,28 @@ def keccak_rows_pallas(words):
         # lanes 0..3 of the lo and hi halves: lo0 hi0 lo1 hi1 ...
         st = keccak_rows_grid(words).view(2, 25, wide)
         return st[:, :4].permute(1, 0, 2).reshape(8, wide)
+    lanes, threads = lanes_for("keccak_rows", max(wide, 1), words.device)
+    return keccak_rows_lanes(words, lanes, threads)
+
+
+def keccak_rows_lanes(words, lanes: int, threads: int):
+    """:func:`keccak_rows_pallas` (the default layout) on ``lanes`` lanes
+    a column in blocks of ``threads``: the launch of
+    ``k_keccak_rows_t<lanes>`` (at T >= 2 a pair of lanes holds the
+    two 32-bit halves of the state, lanes past the pair repeating it).
+    Every
+    instance gives the same bits; the wrapper launches
+    :func:`lanes_for`'s, and chip_smoke.py phase lanes times them all."""
+    _check_lanes(lanes, threads)
+    if words.dim() != 2:
+        raise ValueError("words must be [34, wide]")
+    wide = words.shape[1]
+    _check(words, "words", (34, wide))
     if not _on_card(words):
         return keccak_rows_plain(words)
     out = _empty((8, wide), words)
-    _launch("keccak_rows", "eg_keccak_rows", words, wide, out)
+    _launch("keccak_rows", "eg_keccak_rows", words, wide, out, lanes,
+            threads)
     return out
 
 

@@ -23,9 +23,11 @@ an operation bound counts no more than the card does.
 ``sm_90a`` code: each loop of the product chain against ``fp_mul``
 (997 counted), each loop of the pow against ``fp_sqr`` (757), each
 kernel without a branch or a call against its instruction count, and
-the shortest path through each prelude, u1u2, GLV, fp_mul, fp_canon and
-finish instance
-against a lane's share of the row's count (the count over T).
+the shortest path through each prelude, y_fix, u1u2, GLV, fp_mul,
+fp_canon, finish and keccak_rows instance against a lane's share of the
+row's count (the count over T; keccak_rows' path with its round loop
+taken as many trips as the 24 rounds need, and its loop against a
+lane's share of the rounds of a trip).
 
 ``HELPERS`` gives each device function of ``field.cuh`` its own
 operations (its loops, counted by hand) and the counted functions it
@@ -169,6 +171,15 @@ CARRY_TAIL = 2 * (16 + 15 + 3) + 5 + 4
 # parities (a LOP3 a half), rho's 24 rotations of 2 funnel shifts, chi (a
 # LOP3 a half a lane) and iota (one xor a half)
 KECCAK = 24 * (2 * (5 * 2 + 25 + 25 + 1) + 5 * 2 + 24 * 2)
+# grp_keccak_words, a round in one lane of a pair, on its u32 halves:
+# theta's 5 parities (2 LOP3s each), 5 rotations of a parity (a shuffle
+# for the partner's half and a funnel shift), the 25 lanes' xor with two
+# parities (a LOP3 each), rho's 24 rotations (a shuffle and a funnel
+# shift each), chi (a LOP3 a lane) and iota (one xor)
+KECCAK_PAIR = 24 * (5 * 2 + 5 * 2 + 25 + 24 * 2 + 25 + 1)
+# the rounds of a trip of grp_keccak_words' round loop (its ``#pragma
+# unroll``; keccak_words takes one a trip)
+KECCAK_UNROLL = 4
 # k_keccak_round, per column (its 25 lanes together), on u32 halves: 24
 # rounds of theta (5 lanes fold 5 parities: 2 LOP3s a half; 25 lanes each
 # a 2-funnel-shift rotation and a LOP3 a half), rho (25 rotations: a
@@ -211,8 +222,6 @@ HELPERS: dict[str, tuple[int, dict[str, int]]] = {
     "fn_neg": (0, {"is_zero": 1, "fn_sub": 1, "select16": 1}),
     "keccak_words": (KECCAK, {}),
     "unpack_be": (16, {}),
-    "y_fix": (16 + 1, {"fp_sqr": 1, "cond_sub_p": 3, "fp_neg": 1,
-                           "select16": 1}),
     "glv_sign_split": (1 + 4 + 1, {"fn_neg": 1, "select16": 1}),
     # the carry chain of 32 columns (31 shifts fused into the next
     # column's add) with the masks of its top 8 limbs only
@@ -265,6 +274,15 @@ GROUP: dict[str, tuple] = {
                             else -2 * ops("select16")),
                  {"fn_red_cols<17>": 1, "select16": 2, "grp_fn_mul<H>": 2,
                   "fn_neg": 1}),
+    # #3's row: the compare (16 ISETPs and their and) and the parity flip
+    # whole in every lane, as the canonicalisations, the negation and the
+    # select are; the square shared out
+    "grp_y_fix": (lambda T: 16 + 1, {"grp_fp_sqr<T>": 1, "cond_sub_p": 3,
+                                     "fp_neg": 1, "select16": 1}),
+    # #11's column on a pair of lanes (T >= 2; at T = 1 keccak_words):
+    # each lane half of every operation of the round and the shuffles,
+    # the lanes past the pair the same again
+    "grp_keccak_words": (lambda T: KECCAK_PAIR, {}),
     # one scalar of #5's row: the products by g1, g2 (16 limbs) and by
     # c1, c2 (8 limbs) shared out; the carries, reductions, subtractions
     # and sign splits run whole in every lane
@@ -397,19 +415,33 @@ def glv_lane(T: int) -> int:
     return ops(f"grp_glv_track<{H}>") + 9 + GLV_DIGITS + selects
 
 
+def keccak_lane(T: int) -> int:
+    """u32 operations one lane of #11's T-lane group issues for its
+    column: the whole permutation at T = 1 (keccak_words), its half's and
+    the shuffles at T >= 2 (grp_keccak_words, the lanes past the pair
+    repeating it)."""
+    if T == 1:
+        return ops("keccak_words")
+    return ops(f"grp_keccak_words<{T}>")
+
+
 def per_lane(T: int, windows: int = 33, negations: float = 0.0,
              ladder_doublings: float = 0.0) -> dict[str, float]:
     """u32 operations one lane of a T-lane group issues for its row in
-    the prelude, pow, u1u2, ladder, point-table, GLV, fp_mul, fp_canon and
-    finish kernels: every window's work, whatever its digit (``negations``: the
+    the prelude, pow, y_fix, u1u2, ladder, point-table, GLV, fp_mul,
+    fp_canon, finish and keccak_rows kernels: every window's work, whatever
+    its digit (``negations``: the
     mean number of flagged adds a row; at T = 1, the one thread's), the
     table's doubling and 13 adds on a row whose points differ, the
     prelude's unpacking and checks with its share of y^2's products, u1u2's
     reduction and negation with its share of one of its products (both at
     T = 1), the GLV split (:func:`glv_lane`), one product (fp_mul), one
     conditional
-    subtract (fp_canon, one lane a row at any T) and the finish's four
-    products with its canonicalisations, selects and words."""
+    subtract (fp_canon, one lane a row at any T), the finish's four
+    products with its canonicalisations, selects and words, y_fix's
+    square with its canonicalisations, compare and negation, and the
+    column's 24 Keccak rounds (at T >= 2 a lane's half of each and its
+    shuffles)."""
     mul, sqr = ops(f"grp_fp_mul<{T}>"), ops(f"grp_fp_sqr<{T}>")
     fn_mul = ops(f"grp_fn_mul<{T}>")
     fn_sqr = fn_mul - (SQR_SAVED if T == 1 else 0)
@@ -433,6 +465,8 @@ def per_lane(T: int, windows: int = 33, negations: float = 0.0,
         "fp_mul": mul,
         "fp_canon": ops("cond_sub_p"),
         "recover_finish": ops(f"grp_recover_finish<{T}>"),
+        "y_fix": ops(f"grp_y_fix<{T}>"),
+        "keccak_rows": keccak_lane(T),
     }
 
 
@@ -501,7 +535,7 @@ def per_row(windows: int = 33, negations: float = 0.0,
     return {
         "recover_prelude": (3 * ops("unpack_be")
                             + ops("grp_recover_prelude<1>")),
-        "y_fix": ops("y_fix"),
+        "y_fix": ops("grp_y_fix<1>"),
         "u1u2": ops("grp_u1u2<1>"),
         "glv_digits": 2 * (ops("grp_glv_track<1>") + 2 * GLV_DIGITS),
         "point_table": 14 * madd + dbl - add_sum,

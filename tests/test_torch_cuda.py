@@ -48,9 +48,10 @@ def test_build_reports_every_kernel(dev):
     lanes = {f"k_{k}_t{t}" for k in ("pow_p", "pow_n", "strauss",
                                      "point_table", "glv_digits", "fp_mul",
                                      "recover_finish", "recover_prelude",
-                                     "u1u2") for t in K.LANES}
+                                     "u1u2", "y_fix", "keccak_rows")
+             for t in K.LANES}
     assert set(info["ptxas"]) >= lanes | {
-        "k_y_fix", "k_fp_canon", "k_keccak_rows", "k_fn_mul",
+        "k_fp_canon", "k_fn_mul",
         "k_fn_red17", "k_fp_add", "k_keccak_block", "k_fp_sub", "k_fp_neg",
         "k_fp_mul_small", "k_fn_sub", "k_fn_neg", "k_mulhi8", "k_pow_rows8_p",
         "k_pow_rows8_n", "k_strauss_rows8", "k_keccak_round",
@@ -308,6 +309,75 @@ def test_u1u2_every_lane_instance_on_any_view(dev):
                       tuple(w[:4097] for w in want))
 
 
+def test_y_fix_every_lane_instance_on_any_view(dev):
+    """Every (lanes, threads) instance of y_fix against the plain version,
+    bit for bit, on roots that are P and y^2 that are the root's square
+    beside random ones, at ragged batches, and with root or y^2 as a
+    ragged view 4, 8 or 12 bytes off a 16-byte boundary (the word
+    path)."""
+    rng = np.random.default_rng(36)
+    B = 8192
+    root = K.from_reference(_limbs(rng, B), dev)
+    root[::9] = K.from_reference(tt.limb_rows([P]), dev)
+    y_sq = K.from_reference(_limbs(rng, B), dev)
+    y_sq[::2] = K.fp_mul_plain(root, root)[::2]
+    v = K.from_reference(rng.integers(0, 6, B).astype(np.uint32), dev)
+    want = K.y_fix_plain(root, y_sq, v)
+    assert 0 < int(want[1].sum()) < B
+    views = []
+    for off, t in zip((1, 2, 3), (root, y_sq, root)):
+        buf = torch.empty(16 * 4097 + off, dtype=torch.int32, device=dev)
+        views.append(buf[off:].view(4097, 16))
+        views[-1].copy_(t[:4097])
+    sets = [(views[0], y_sq[:4097]), (root[:4097], views[1]),
+            (views[2], views[1])]
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for rows in _lane_rows(lanes, threads, B):
+                _same(K.y_fix_lanes(root[:rows], y_sq[:rows], v[:rows],
+                                    lanes, threads),
+                      tuple(w[:rows] for w in want))
+            for ins in sets:
+                _same(K.y_fix_lanes(*ins, v[:4097], lanes, threads),
+                      tuple(w[:4097] for w in want))
+
+
+def test_keccak_rows_every_lane_instance(dev):
+    """Every (lanes, threads) instance of keccak_rows against the plain
+    version, bit for bit, at column counts that are no multiple of any
+    block, up to 8192, on random blocks and blocks of all zero and all
+    one bits."""
+    rng = np.random.default_rng(37)
+    wide = 8192
+    words = K.from_reference(rng.integers(
+        0, 1 << 32, (34, wide), dtype=np.uint64).astype(np.uint32), dev)
+    words[:, 0], words[:, 1] = 0, -1
+    for lanes in K.LANES:
+        for threads in K.LANE_THREADS:
+            for cols in _lane_rows(lanes, threads, wide) + [300]:
+                w = words[:, :cols].contiguous()
+                _same(K.keccak_rows_lanes(w, lanes, threads),
+                      K.keccak_rows_plain(w))
+
+
+def test_empty_batches_on_card(dev):
+    """C5 on the card: ``[0, 65]`` recovery and ``[0, 64]``/``[0, 65]``
+    verify batches give empty outputs on the card and launch nothing."""
+    from eges_tpu_torch.crypto.verifier import ecrecover_batch, verify_batch
+
+    K.reset_launches()
+    z = {w: torch.zeros(0, w, dtype=torch.uint8, device=dev)
+         for w in (32, 64, 65)}
+    got = ecrecover_batch(z[65], z[32])
+    assert [tuple(g.shape) for g in got] == [(0, 20), (0, 64), (0,)]
+    assert all(g.device.type == "cuda" for g in got)
+    for w in (64, 65):
+        ok = verify_batch(z[w], z[32], z[64])
+        assert ok.shape == (0,) and ok.dtype == torch.int32
+        assert ok.device.type == "cuda"
+    assert sum(K.LAUNCHES.values()) == 0
+
+
 def test_ecrecover_batch_wide_and_int_rows_on_card(dev):
     """C4 on the card: the rows 66 and 70 bytes wide and as int32 and
     int64 give the ``[N, 65]`` uint8 bytes, through the fused path."""
@@ -337,7 +407,8 @@ def test_lanes_rule_launches_clean_instances(dev):
                 "fp_canon": "k_fp_canon",
                 "recover_finish": "k_recover_finish_t",
                 "recover_prelude": "k_recover_prelude_t",
-                "u1u2": "k_u1u2_t"}[kernel]
+                "u1u2": "k_u1u2_t", "y_fix": "k_y_fix_t",
+                "keccak_rows": "k_keccak_rows_t"}[kernel]
         for _, lanes, _ in rule:
             rec = ptxas[name + ("" if kernel == "fp_canon" else str(lanes))]
             assert rec["stack_bytes"] == rec["spill_store_bytes"] == 0, rec

@@ -102,7 +102,8 @@ def test_entry_points_default_to_the_card():
                  profile_floor.main, profile_kernels2.main,
                  profile_stages.main, measure_recover.main, hlo_census.main,
                  lambda: profile_floor.child("nop"),
-                 lambda: profutil.timeit(lambda: None)):
+                 lambda: profutil.timeit(lambda: None),
+                 lambda: profutil.cold_event_ms([(lambda: None, ())])):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()
 

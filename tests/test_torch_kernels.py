@@ -230,6 +230,21 @@ def test_y_fix_plain():
     np.testing.assert_array_equal(U(ok), np.asarray(wok, np.uint32))
 
 
+@pytest.mark.parametrize("n", [1, 17, 300])
+def test_y_fix_plain_at_ragged_counts(n):
+    """The plain y_fix (the kernels' CPU route and their yardstick on the
+    card) at row counts that fill no block, roots that are P or a square's
+    root among them, against the reference's ``_k_y_fix``."""
+    root, y_sq = _vals(60 + n, n), _vals(61 + n, n)
+    root[::5] = np.asarray(tt.limb_rows([P]))[0]
+    y_sq[1::2] = _unl(pk._k_sqr(_lst(root), np))[1::2]
+    v = np.random.default_rng(62 + n).integers(0, 6, n).astype(np.uint32)
+    y, ok = K.y_fix_plain(R(root), R(y_sq), R(v))
+    wy, wok = pk._k_y_fix(_lst(root), _lst(y_sq), v, np)
+    np.testing.assert_array_equal(U(y), _unl(wy))
+    np.testing.assert_array_equal(U(ok), np.asarray(wok, np.uint32))
+
+
 def test_u1u2_plain():
     z, s, r_inv = _vals(5, 16), _vals(6, 16, N), _vals(7, 16, N)
     got = K.u1u2_plain(R(z), R(s), R(r_inv))
@@ -406,6 +421,20 @@ def test_keccak_rows_plain():
         assert got[:, i].astype("<u4").tobytes() == keccak256(m)
 
 
+@pytest.mark.parametrize("n", [1, 17, 300])
+def test_keccak_rows_plain_at_ragged_counts(n):
+    """The plain keccak_rows at column counts that fill no block, against
+    the reference's numpy ``_k_keccak_words`` (random blocks, one of all
+    zero and one of all one bits)."""
+    words = np.random.default_rng(63 + n).integers(
+        0, 1 << 32, (34, n), dtype=np.uint64).astype(np.uint32)
+    words[:, 0] = 0
+    words[:, -1] = 0xFFFFFFFF
+    np.testing.assert_array_equal(
+        U(K.keccak_rows_plain(R(words))),
+        _unl(pk._k_keccak_words(_lst(words.T), np)).T)
+
+
 # ---------------------------------------------------------------------------
 # shared state: limb layout and constant tables
 # ---------------------------------------------------------------------------
@@ -450,6 +479,16 @@ def test_packed_constants_match_reference_and_header():
         [tgx.reshape(-1), tgy.reshape(-1), tlx.reshape(-1)]))
     rc = c[944:].reshape(24, 2).astype(np.uint64)
     assert [int(lo) | int(hi) << 32 for lo, hi in rc] == pk._KECCAK_RC
+
+
+def test_every_header_keccak_rotation_table_matches_the_host_model():
+    """keccak_words and the lane pair's grp_keccak_words each carry the
+    rho rotations: every copy in field.cuh is the host model's."""
+    src = (build.CSRC / "field.cuh").read_text()
+    tables = re.findall(r"const int ROT\[25\] = \{([^}]*)\}", src)
+    assert len(tables) == 2
+    for t in tables:
+        assert tuple(int(v) for v in t.split(",")) == port_keccak.ROTATIONS
 
 
 def test_header_keccak_rotations_match_host_model():

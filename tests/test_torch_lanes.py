@@ -1,12 +1,16 @@
-"""The T-lane design of the pow, point-table, ladder, fp_mul and finish
-kernels on the CPU: the rule that picks the lanes a row (``lanes_for``),
-the CPU routing of the launch entries that take any instance (fp_mul also
-on a view off a 16-byte boundary), the point table's first entry as
-the doubling that the kernels run, and the lane split of a product, modelled
-in numpy as ``csrc/field.cuh`` computes it (``grp_pick``, ``grp_shift``,
-``grp_cols``, ``grp_fold_cols``, ``fold32``, ``grp_sum``), held against the reference's
-product.  The CUDA instances themselves run in ``tests/test_torch_cuda.py``
-and ``chip_smoke.py`` phase ``lanes``."""
+"""The T-lane design of the pow, point-table, ladder, fp_mul, finish,
+y_fix and keccak_rows kernels on the CPU: the rule that picks the lanes
+a row (``lanes_for``), the CPU routing of the launch entries that take
+any instance (fp_mul and y_fix also on a view off a 16-byte boundary),
+the point table's first entry as the doubling that the kernels run, the
+lane split of a product, modelled in numpy as ``csrc/field.cuh``
+computes it (``grp_pick``, ``grp_shift``, ``grp_cols``,
+``grp_fold_cols``, ``fold32``, ``grp_sum``), held against the
+reference's product, and the pair of lanes that shares a Keccak column
+(``grp_keccak_words``) in a group of T lanes, held against the
+reference's permutation.
+The CUDA instances themselves run in ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` phase ``lanes``."""
 
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ def test_lanes_for_rejects_what_it_cannot_launch(kernel):
     with pytest.raises(ValueError):
         K.lanes_for(kernel, 0)
     with pytest.raises(KeyError):
-        K.lanes_for("y_fix", 8)
+        K.lanes_for("keccak_block", 8)
 
 
 def test_fp_canon_rule_is_one_lane_a_row():
@@ -234,6 +238,62 @@ def test_lane_entries_reject_other_instances(lanes, threads):
         K.pow_mod_lanes(a, P - 2, "p", lanes, threads)
     with pytest.raises(ValueError):
         K.point_table_lanes(a, a, lanes, threads)
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_y_fix_lane_entry_on_cpu_is_the_plain_version(off):
+    """Any y_fix instance given CPU tensors, a view 4 or 12 bytes into its
+    buffer among them (the kernel's word path on the card), runs the
+    plain version, which equals the reference's ``_k_y_fix`` (roots that
+    are P, and y^2 the root's square on some rows), and counts no
+    launch."""
+    n = 9
+    root, y_sq = _rows(50, n), _rows(51, n)
+    root[1] = np.asarray(tt.limb_rows([P]))[0]
+    v = np.random.default_rng(52).integers(0, 6, n).astype(np.uint32)
+    sq = pk._k_sqr([root[:, k] for k in range(16)], np)
+    y_sq[::2] = np.stack(sq, axis=-1)[::2]
+    buf = torch.zeros(16 * n + off, dtype=torch.int32)
+    view = buf[off:].view(n, 16)
+    view.copy_(K.from_reference(root))
+    wy, wok = pk._k_y_fix([root[:, k] for k in range(16)],
+                          [y_sq[:, k] for k in range(16)], v, np)
+    K.reset_launches()
+    for lanes, threads in ((1, 64), (4, 64), (8, 256)):
+        y, ok = K.y_fix_lanes(view, K.from_reference(y_sq),
+                              K.from_reference(v), lanes, threads)
+        np.testing.assert_array_equal(K.to_reference(y),
+                                      np.stack(wy, axis=-1))
+        np.testing.assert_array_equal(K.to_reference(ok),
+                                      np.asarray(wok, np.uint32))
+    assert np.asarray(wok).sum() >= n // 2
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+def test_keccak_rows_lane_entry_on_cpu_is_the_plain_version():
+    """Any keccak_rows instance given CPU tensors runs the plain version,
+    which equals the reference's ``_k_keccak_words``, and counts no
+    launch."""
+    words = np.random.default_rng(53).integers(
+        0, 1 << 32, (34, 37), dtype=np.uint64).astype(np.uint32)
+    want = np.stack(pk._k_keccak_words([words[k] for k in range(34)], np))
+    K.reset_launches()
+    for lanes, threads in ((1, 128), (2, 64), (8, 256)):
+        np.testing.assert_array_equal(K.to_reference(K.keccak_rows_lanes(
+            K.from_reference(words), lanes, threads)), want)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("lanes,threads", [(3, 128), (4, 96), (16, 128),
+                                           (1, 512)])
+def test_y_fix_and_keccak_entries_reject_other_instances(lanes, threads):
+    a = K.from_reference(_rows(54, 2))
+    v = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        K.y_fix_lanes(a, a, v, lanes, threads)
+    with pytest.raises(ValueError):
+        K.keccak_rows_lanes(torch.zeros(34, 2, dtype=torch.int32), lanes,
+                            threads)
 
 
 # ---------------------------------------------------------------------------
@@ -512,3 +572,107 @@ def test_prelude_rows_every_byte_once_in_rows():
                 at = addr % 16 + lr * pitch
                 np.testing.assert_array_equal(tile[at:at + 65],
                                               batch[r0 + lr, :65])
+
+
+# ---------------------------------------------------------------------------
+# the pair of lanes of a Keccak column (field.cuh grp_keccak_words), in numpy
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _funnel_l(lo, hi, shift):
+    """__funnelshift_l: the top 32 bits of (hi:lo) << (shift & 31)."""
+    v = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return ((v << np.uint64(shift & 31)) >> np.uint64(32)).astype(np.uint32)
+
+
+def _pair_rot(mine, other, r):
+    """grp_keccak_words' rotation: a lane's half of a 64-bit lane rotated
+    left by r, from its own half and its partner's, the same in both."""
+    return (_funnel_l(other, mine, r) if r < 32
+            else _funnel_l(mine, other, r - 32))
+
+
+def _pair_keccak(words, rot, rc):
+    """grp_keccak_words on a pair of lanes, each a list of its halves of
+    the 25 lanes (numpy rows over the columns); a shuffle reads the other
+    lane's value.  ``[34, n]`` block words -> ``[8, n]`` digest words."""
+    zero = np.zeros_like(words[0])
+    a = [[words[2 * l + h] if l < 17 else zero for l in range(25)]
+         for h in (0, 1)]
+    for rnd in range(24):
+        c = [[a[h][x] ^ a[h][x + 5] ^ a[h][x + 10] ^ a[h][x + 15]
+              ^ a[h][x + 20] for x in range(5)] for h in (0, 1)]
+        r1 = [[_pair_rot(c[h][x], c[1 - h][x], 1) for x in range(5)]
+              for h in (0, 1)]
+        a = [[a[h][x + 5 * y] ^ c[h][(x + 4) % 5] ^ r1[h][(x + 1) % 5]
+              for y in range(5) for x in range(5)] for h in (0, 1)]
+        b = [[None] * 25 for _ in (0, 1)]
+        for h in (0, 1):
+            for x in range(5):
+                for y in range(5):
+                    l = x + 5 * y
+                    b[h][y + 5 * ((2 * x + 3 * y) % 5)] = (
+                        _pair_rot(a[h][l], a[1 - h][l], rot[l]) if rot[l]
+                        else a[h][l])
+        a = [[b[h][x + 5 * y] ^ (~b[h][(x + 1) % 5 + 5 * y]
+                                 & b[h][(x + 2) % 5 + 5 * y])
+              for y in range(5) for x in range(5)] for h in (0, 1)]
+        for h in (0, 1):
+            a[h][0] = a[h][0] ^ np.uint32((rc[rnd] >> (32 * h)) & M32)
+    return np.stack([a[k & 1][k // 2] for k in range(8)])
+
+
+def test_keccak_pair_gives_the_reference_permutation():
+    """Two lanes, each holding one 32-bit half of every 64-bit lane and
+    reading the other's by a shuffle, with the rotations, parities and
+    round constants as ``grp_keccak_words`` writes them (its ROT table
+    read from ``field.cuh``), give the reference's digests bit for bit,
+    on random blocks and on blocks of all zero and all one bits."""
+    import re
+
+    from eges_tpu_torch.ops import build, field
+
+    src = (build.CSRC / "field.cuh").read_text()
+    body = src[src.index("EG_FD void grp_keccak_words("):]
+    rot = [int(v) for v in re.search(r"const int ROT\[25\] = \{([^}]*)\}",
+                                     body).group(1).split(",")]
+    words = np.random.default_rng(55).integers(
+        0, 1 << 32, (34, 12), dtype=np.uint64).astype(np.uint32)
+    words[:, 0], words[:, 1] = 0, M32
+    want = np.stack(pk._k_keccak_words([words[k] for k in range(34)], np))
+    np.testing.assert_array_equal(
+        _pair_keccak(words, rot, field.KECCAK_RC), want)
+
+
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_keccak_group_stores_every_digest_word_once(T):
+    """``keccak_cols`` at T >= 2: lane ``rank`` of the group loads the
+    block words of its half (rank & 1), the lanes past the pair repeating
+    it, and stores the digest words k = rank (mod T) from its own half.
+    Every one of the 8 words is stored exactly once, by a lane holding
+    that word's half, and the stored column is the reference's digest."""
+    import re
+
+    from eges_tpu_torch.ops import build, field
+
+    src = (build.CSRC / "field.cuh").read_text()
+    body = src[src.index("EG_FD void grp_keccak_words("):]
+    rot = [int(v) for v in re.search(r"const int ROT\[25\] = \{([^}]*)\}",
+                                     body).group(1).split(",")]
+    words = np.random.default_rng(56 + T).integers(
+        0, 1 << 32, (34, 12), dtype=np.uint64).astype(np.uint32)
+    words[:, 2] = M32
+    pair = _pair_keccak(words, rot, field.KECCAK_RC)
+    out, stores = np.zeros_like(pair), [0] * 8
+    for rank in range(T):
+        h = rank & 1
+        for k in range(8):
+            if k % T == rank:
+                assert k & 1 == h
+                out[k] = pair[2 * (k // 2) + h]
+                stores[k] += 1
+    assert stores == [1] * 8
+    want = np.stack(pk._k_keccak_words([words[k] for k in range(34)], np))
+    np.testing.assert_array_equal(out, want)

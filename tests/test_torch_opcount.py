@@ -128,7 +128,7 @@ def test_a_lane_issues_between_its_share_and_the_row(T):
     one, lane = opcount.per_lane(1), opcount.per_lane(T)
     for kernel in ("pow_mod_p", "pow_mod_n", "strauss_tab", "point_table",
                    "glv_digits", "fp_mul", "recover_finish",
-                   "recover_prelude", "u1u2"):
+                   "recover_prelude", "u1u2", "y_fix", "keccak_rows"):
         assert one[kernel] / T <= lane[kernel] < one[kernel]
     # fp_canon runs one lane a row: a lane has the row's work
     assert lane["fp_canon"] == one["fp_canon"] == opcount.per_row()[
@@ -246,13 +246,20 @@ def _glv_lane_calls(T):
      "recover_prelude", lambda T: 3 * opcount.ops("unpack_be")
      + opcount.ops(f"grp_recover_prelude<{T}>")),
     ("u1u2_rows", {"grp_u1u2<T>": 1}, "u1u2",
-     lambda T: opcount.ops(f"grp_u1u2<{T}>"))])
+     lambda T: opcount.ops(f"grp_u1u2<{T}>")),
+    ("y_fix_rows", {"grp_y_fix<T>": 1}, "y_fix",
+     lambda T: opcount.ops(f"grp_y_fix<{T}>")),
+    ("keccak_cols", {"keccak_words": 1, "grp_keccak_words<T>": 1},
+     "keccak_rows", lambda T: opcount.ops(
+         "keccak_words" if T == 1 else f"grp_keccak_words<{T}>"))])
 def test_recover_lane_kernels_make_their_counted_calls(body, calls, kernel,
                                                       lane_calls):
     """``k_fp_mul_t<T>``, ``k_recover_finish_t<T>``, ``k_glv_digits_t<T>``,
-    ``k_recover_prelude_t<T>`` (beside its three unpackings), ``k_u1u2_t<T>``
-    and the tiled ``k_fp_canon`` (recover.cu) make one counted call a row
-    (the GLV kernel one split a half-group, two written out at T = 1), which
+    ``k_recover_prelude_t<T>`` (beside its three unpackings), ``k_u1u2_t<T>``,
+    ``k_y_fix_t<T>``, ``k_keccak_rows_t<T>`` (keccak_words at T = 1, the
+    pair's form beyond) and the tiled ``k_fp_canon`` (recover.cu) make one
+    counted call a row (the GLV kernel one split a half-group, two written
+    out at T = 1), which
     ``per_lane`` counts at each T, beside the digits the GLV lanes take
     from the magnitudes, and ``per_row`` at T = 1, the one-thread count."""
     src = _template_body(RECOVER_CU, body)
@@ -466,3 +473,38 @@ def test_profile_kernel_counts():
     assert rows["fp_mul_rows8"] == rows["fp_mul"] == 997
     assert rows["add_one_f32"] == 1
     assert rows["mul_scalar_f32"] == 1
+
+
+def test_group_y_fix_and_keccak_count_their_lanes():
+    """y_fix's group form at T = 1 counts as the one-thread y_fix it
+    replaces (1,094: the square, three canonicalisations, the compare,
+    the negation and the select); more lanes take less of the square
+    only.  A Keccak lane of a pair (T >= 2) issues half of each of a
+    round's 180 operations and 29 shuffles (119 a round), the lanes past
+    the pair (T = 4, 8) the same again; one lane a column the whole
+    4,320."""
+    whole = (17 + 3 * opcount.ops("cond_sub_p") + opcount.ops("fp_neg")
+             + opcount.ops("select16"))
+    assert opcount.per_row()["y_fix"] == whole + opcount.ops("fp_sqr") == 1094
+    for T in (1, 2, 4, 8):
+        assert opcount.ops(f"grp_y_fix<{T}>") == whole + opcount.ops(
+            f"grp_fp_sqr<{T}>")
+    round_ops = opcount.KECCAK // 24
+    assert round_ops == 180 and opcount.per_row()["keccak_rows"] == 4320
+    assert opcount.KECCAK_PAIR == 24 * (round_ops // 2 + 29) == 2856
+    for T in (2, 4, 8):
+        assert opcount.per_lane(T)["keccak_rows"] == opcount.KECCAK_PAIR
+
+
+def test_keccak_pair_loop_takes_the_counted_rounds_a_trip():
+    """Phase sass takes the round loop of grp_keccak_words 24 /
+    KECCAK_UNROLL times and keccak_words' 24: the pragmas in field.cuh are
+    those."""
+    src = _source()
+    defs = _definitions(src)
+    assert re.search(r"#pragma unroll %d\s+for \(int rnd = 0; rnd < "
+                     r"24; \+\+rnd\)" % opcount.KECCAK_UNROLL,
+                     defs["grp_keccak_words"][1])
+    assert re.search(r"#pragma unroll 1\s+for \(int rnd = 0; rnd < 24; "
+                     r"\+\+rnd\)", defs["keccak_words"][1])
+    assert 24 % opcount.KECCAK_UNROLL == 0

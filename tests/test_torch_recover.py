@@ -8,7 +8,8 @@ host model.  ``addrs``, ``pubs`` and ``ok`` must agree byte for byte.
 Rows cover both recovery parities, recovery ids 2 and 3 (R.x = r + N),
 and every invalid class: r = 0, s >= N, v >= 4, x >= P for v >= 2, and
 an r that is no x coordinate; the same rows wider than 65 bytes and as
-int32 (fault C4) give the same bytes."""
+int32 (fault C4) give the same bytes.  A batch of no rows gives the JAX
+package's empty shapes (fault C5)."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -17,11 +18,13 @@ import torch
 
 from eges_tpu.crypto import keccak as jkeccak
 from eges_tpu.crypto import secp256k1 as jhost
+from eges_tpu.crypto import verifier as RV
 from eges_tpu.ops import pallas_kernels as pk
 from eges_tpu.ops.bigint import int_to_limbs
 from eges_tpu.ops.ec import GLV_BETA
 from eges_tpu_torch import testing as tt
 from eges_tpu_torch.crypto import verifier as V
+from eges_tpu_torch.ops import kernels as K
 from eges_tpu_torch.ops.bigint import N, P
 
 # a few rows a tensor: one torch thread is as fast, and leaves the cores
@@ -208,6 +211,32 @@ def test_ecrecover_batch_refuses_non_integer_bytes(dtype):
     with pytest.raises(TypeError):
         V.ecrecover_batch(torch.zeros(2, 65, dtype=dtype),
                           torch.zeros(2, 32, dtype=torch.uint8))
+
+
+@pytest.fixture(scope="module")
+def ref_empty():
+    """The JAX package's ``ecrecover_batch`` of a batch of no rows."""
+    import jax.numpy as jnp
+
+    return RV.ecrecover_batch(jnp.zeros((0, 65), jnp.uint8),
+                              jnp.zeros((0, 32), jnp.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_ecrecover_batch_of_no_rows_is_empty(ref_empty, dtype):
+    """C5: a ``[0, 65]`` batch gives the JAX package's shapes (uint8
+    addresses and keys; ok int32, the port's kept difference) and
+    launches nothing; a ``[0, 64]`` batch still raises ValueError."""
+    K.reset_launches()
+    got = V.ecrecover_batch(torch.zeros(0, 65, dtype=dtype),
+                            torch.zeros(0, 32, dtype=dtype))
+    assert [tuple(g.shape) for g in got] == [
+        tuple(r.shape) for r in ref_empty] == [(0, 20), (0, 64), (0,)]
+    assert [g.dtype for g in got] == [torch.uint8, torch.uint8, torch.int32]
+    assert sum(K.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError):
+        V.ecrecover_batch(torch.zeros(0, 64, dtype=dtype),
+                          torch.zeros(0, 32, dtype=dtype))
 
 
 def test_verifier_facade_plumbing():

@@ -13,7 +13,8 @@ Rows: one of each class of ``testing.VERIFY_CLASSES`` among signed rows,
 Row widths: the same rows cut or widened to 63, 64, 65, 66 and 70 bytes
 go through the port's facade and the JAX package's
 (``eges_tpu.crypto.verifier.BatchVerifier.verify``), and through both
-packages' ``verify_batch``."""
+packages' ``verify_batch``; so does a batch of no rows (fault C5), and
+keys in a transposed layout answer as contiguous ones (fault C7)."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -268,6 +269,53 @@ def test_verify_facade_plumbing(monkeypatch):
     st = verifier._stage_acquire(16)
     assert "pubs" in st                       # the pooled verify buffers
     verifier._stage_release(16, st)
+
+
+def test_verify_batch_takes_keys_in_any_layout(rows, twin, host):
+    """C7: keys given as a transposed view (the layout ``ecrecover_batch``
+    returns its ``pubs`` in) answer as the JAX package's fused twins and
+    its host model do, on a row that verifies and one that does not; the
+    port raised ValueError on them."""
+    sigs, hashes, pubs, kinds = rows
+    idx = [kinds.index(next(k for k in kinds if k in tt.VERIFY_VALID)),
+           kinds.index(next(k for k in kinds if k not in tt.VERIFY_VALID))]
+    view = torch.from_numpy(np.ascontiguousarray(pubs[idx].T)).T
+    assert not view.is_contiguous()
+    got = V.verify_batch(torch.from_numpy(sigs[idx]),
+                         torch.from_numpy(hashes[idx]), view).numpy()
+    np.testing.assert_array_equal(got.astype(np.uint32), twin[idx])
+    np.testing.assert_array_equal(got.astype(bool), host[idx])
+    assert host[idx].tolist() == [True, False]
+
+
+@pytest.fixture(scope="module")
+def ref_empty():
+    """The JAX package's ``verify_batch`` of a batch of no rows."""
+    import jax.numpy as jnp
+
+    return RV.verify_batch(jnp.zeros((0, 65), jnp.uint8),
+                           jnp.zeros((0, 32), jnp.uint8),
+                           jnp.zeros((0, 64), jnp.uint8))
+
+
+@pytest.mark.parametrize("width", [64, 65])
+def test_verify_batch_of_no_rows_is_empty(ref_empty, width):
+    """C5: a ``[0, 64]`` or ``[0, 65]`` batch gives the JAX package's
+    shape (ok int32, the port's kept difference) and launches nothing; a
+    ``[0, 63]`` batch still raises ValueError."""
+    from eges_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    got = V.verify_batch(torch.zeros(0, width, dtype=torch.uint8),
+                         torch.zeros(0, 32, dtype=torch.uint8),
+                         torch.zeros(0, 64, dtype=torch.uint8))
+    assert tuple(got.shape) == tuple(ref_empty.shape) == (0,)
+    assert got.dtype == torch.int32
+    assert sum(K.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError):
+        V.verify_batch(torch.zeros(0, 63, dtype=torch.uint8),
+                       torch.zeros(0, 32, dtype=torch.uint8),
+                       torch.zeros(0, 64, dtype=torch.uint8))
 
 
 # -- row widths: the port against the reference --------------------------

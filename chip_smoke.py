@@ -86,6 +86,28 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    8192 and of 1024 rows
    (a traced window that lacks a launch is traced again, three windows
    at most: the profiler has dropped a window's first kernel).
+4b. sched: the block of phase 3 through the verifier scheduler,
+   ``scheduler_for(BatchVerifier())``, from four threads (two by
+   ``recover_signers``, two by ``submit_window`` in windows of 1024
+   rows): every answer equal to the host model's and the synchronous
+   facade's, then the same entries again, served from the cache with no
+   window; nothing served by the host model (no breaker trip, no divert,
+   singleton windows on the card too), every window pipelined through
+   the facade's split-phase trio (18 launches each, the ``sched`` path
+   of the ``kernels`` line), and a device error under the scheduler
+   failing its window instead of being answered on the host; the
+   facade's A2 metric families against those windows,
+   ``verifier.batch`` spans, device memory (``devstats.sample_memory``)
+   and a ``DeviceTraceArmer`` trace armed for two windows of three sent,
+   which must hold both windows' 18 kernels.  Then 20 back-to-back
+   windows of 1024 distinct rows and 10 of 8192 in ABBA rounds: through
+   the trio with two windows in flight, through the trio with one
+   window in flight (the same work, no overlap) and through serial
+   ``recover_addresses`` (verifies/s of each, the card's busy and idle
+   share under the profiler); through a scheduler (its
+   ``pipeline_overlap_ratio``); and one ``commit_recover``'s enqueue
+   time against its done time (it fails if the enqueue takes 0.8 of it,
+   naming the host waits in it).
 5. verify slice: a BASELINE config-3 vote round (256 committee
    signatures against the validators' 64-byte keys) and a config-4 one
    (1024 rows, the consensus verify batch cap), every row class of
@@ -267,6 +289,32 @@ PROFILE_TRIES = 3                   # traced windows a profiled check takes
 LANE_RECOVERY_ROWS = (1024, 8192)
 TABLE_RECOVERY_ROWS = (256, 1024, 4096, 8192)
 MEASURE_BATCHES = (1024, 8192)      # measure_recover's batches
+# phase sched: the config-4 block from this many submitter threads (half
+# by recover_signers, half by submit_window in windows of SCHED_WINDOW)
+SCHED_THREADS, SCHED_WINDOW = 4, 1024
+# DeviceTraceArmer: windows armed, windows sent, seed offset; the trace
+# must hold the armed windows' 18 kernels each (_armed_trace)
+SCHED_TRACE = (2, 3, 31)
+# back-to-back windows of distinct rows: (rows, windows); ABBA rounds of
+# the trio with two windows in flight, the trio with one, and serial
+# recover_addresses
+SCHED_OVERLAP = ((1024, 20), (8192, 10))
+SCHED_ROUNDS = ("pipelined", "trio_serial", "serial",
+                "serial", "trio_serial", "pipelined") * 2
+SCHED_SPLIT_RUNS = 20               # commits timed, enqueue against done
+# commit's enqueue must take under this share of its time until done
+SCHED_ENQUEUE_SHARE = 0.8
+# CPU ops that block the host on the card (the profiler's names)
+HOST_WAIT_OPS = frozenset({
+    "aten::item", "aten::_local_scalar_dense", "aten::nonzero",
+    "cudaStreamSynchronize", "cudaDeviceSynchronize",
+    "cudaEventSynchronize", "cudaMemcpy"})
+# the facade's A2 metric families (eges_tpu/crypto/verifier.py:496-542)
+A2_FAMILIES = ("verifier.device", "verifier.rows", "verifier.padded_rows",
+               "verifier.batches", "verifier.singleton_batches",
+               "verifier.device_seconds", "verifier.pad_waste",
+               "verifier.compile_cache_hits",
+               "verifier.compile_cache_misses")
 CLOCK_SECONDS = 1.5                 # batches the clock sampler sees, s
 MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
 # #21 and #20d against their library calls in one call: rounds in ABBA
@@ -1625,6 +1673,426 @@ def phase_e2e(rows):
     return out
 
 
+def _pipelined(bv, wins):
+    """The rows of ``wins`` through the split-phase trio with two windows
+    in flight, as the scheduler's lane worker runs them: window k+1 is
+    staged and committed before window k is collected."""
+    outs, prev = [], None
+    for s, h in wins:
+        cur = bv.commit_recover(bv.stage_recover(s, h))
+        if prev is not None:
+            outs.append(bv.collect_recover(prev))
+        prev = cur
+    outs.append(bv.collect_recover(prev))
+    return outs
+
+
+def _trio_serial(bv, wins):
+    """The rows of ``wins`` through the trio with one window in flight:
+    the pipelined way's work (the same uploads, launches and two
+    downloads), with no overlap."""
+    return [bv.collect_recover(bv.commit_recover(bv.stage_recover(s, h)))
+            for s, h in wins]
+
+
+def _serial(bv, wins):
+    return [bv.recover_addresses(s, h) for s, h in wins]
+
+
+def _scheduled(sc, wins, close=False):
+    """``wins`` through the scheduler ``sc``: every window submitted at
+    once by ``submit_window``, one kick, every result waited for."""
+    pend = [sc.submit_window(h, s) for s, h in wins]
+    sc.kick()
+    for w in pend:
+        w.result(120)
+    if close:
+        sc.close()
+
+
+def _armed_trace(bv, armed, sent, seed):
+    """``devstats.DEFAULT.trace`` armed for ``armed`` windows, then
+    ``sent`` windows of 256 random rows through a scheduler over ``bv``
+    (all dispatched and recorded on its lane worker): the armer's
+    status, the trace's bytes and the hand-written kernels it holds.
+    The capture runs from the first armed window's dispatch to the last
+    one's record, so it holds all their kernels, and some of the next
+    window's, launched before the last armed one is collected."""
+    import shutil
+
+    from eges_tpu_torch.crypto.scheduler import VerifierScheduler
+    from eges_tpu_torch.utils import devstats
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    trace_dir = os.path.join(root, "build", "devstats_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    devstats.DEFAULT.trace.arm(armed, outdir=trace_dir)
+    _scheduled(VerifierScheduler(bv, max_batch=256, window_ms=10_000.0),
+               _random_windows(np.random.default_rng(SEED + seed), 256,
+                               sent), close=True)
+    st = devstats.DEFAULT.trace.status()
+    path = os.path.join(st["path"] or "", "trace.json")
+    out = {"state": st["state"],
+           "bytes": os.path.getsize(path) if os.path.exists(path) else 0,
+           "kernels": _trace_kernels(path) if os.path.exists(path) else 0}
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return out
+
+
+def _trace_kernels(path):
+    """The hand-written kernels (``k_*``) a Chrome trace holds."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and str(e.get("name", "")).startswith("k_"))
+
+
+def _random_windows(rng, rows, count):
+    """``count`` windows of ``rows`` distinct random rows (v in 0..1):
+    no two alike, so no cache or dedup can serve one."""
+    out = []
+    for _ in range(count):
+        s = rng.integers(0, 256, (rows, 65), dtype=np.uint8)
+        s[:, 64] &= 1
+        out.append((s, rng.integers(0, 256, (rows, 32), dtype=np.uint8)))
+    return out
+
+
+def _busy(fn):
+    """``fn()`` once under the profiler (after a warm-up call): the card's
+    busy share of the wall time (kernels' device time over wall, copies
+    left out, as ``hlo_census`` counts it) and its idle share."""
+    from eges_tpu_torch.harness.hlo_census import census
+    from eges_tpu_torch.harness.profutil import profile_window
+
+    events, wall = profile_window(fn)
+    kernel_ms = census(events)["kernel_us"] / 1e3
+    return {"wall_ms": wall * 1e3, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / (wall * 1e3),
+            "idle_share": 1.0 - kernel_ms / (wall * 1e3)}
+
+
+def _commit_split(bv, s, h):
+    """The host's time to enqueue one ``commit_recover`` against the time
+    until its done event completes (p50 of ``SCHED_SPLIT_RUNS``, each
+    window staged and its upload finished first), and the host waits
+    that one profiled commit makes (CPU ops that block on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    enq, done = [], []
+    for _ in range(SCHED_SPLIT_RUNS):
+        st = bv.stage_recover(s, h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bv.commit_recover(st)
+        t1 = time.perf_counter()
+        st.done.synchronize()
+        t2 = time.perf_counter()
+        bv.collect_recover(st)
+        enq.append(t1 - t0)
+        done.append(t2 - t0)
+    st = bv.stage_recover(s, h)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bv.commit_recover(st)
+    bv.collect_recover(st)
+    waits = sorted({e.name for e in prof.events()
+                    if e.name in HOST_WAIT_OPS})
+    return {"enqueue_ms_p50": float(np.median(enq)) * 1e3,
+            "done_ms_p50": float(np.median(done)) * 1e3,
+            "host_waits_in_commit": waits}
+
+
+def _sched_answers(sched, sigs, hashes):
+    """The block from ``SCHED_THREADS`` submitter threads: even threads
+    by ``recover_signers`` on their share of the rows, odd ones by
+    ``submit_window`` in windows of ``SCHED_WINDOW`` rows.  Returns one
+    answer a row (an address or None), in row order."""
+    import threading
+
+    n = len(sigs)
+    out = [None] * n
+    errs = []
+    shares = np.array_split(np.arange(n), SCHED_THREADS)
+
+    def worker(k, idx):
+        try:
+            if k % 2 == 0:
+                got = sched.recover_signers(
+                    [(bytes(hashes[i]), bytes(sigs[i])) for i in idx])
+                for i, g in zip(idx, got):
+                    out[i] = g
+                return
+            for lo in range(0, len(idx), SCHED_WINDOW):
+                part = idx[lo:lo + SCHED_WINDOW]
+                win = sched.submit_window(hashes[part], sigs[part])
+                sched.kick()
+                for i, g in zip(part, win.result(120)):
+                    if isinstance(g, BaseException):
+                        raise g
+                    out[i] = g
+        except BaseException as exc:
+            errs.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k, idx))
+               for k, idx in enumerate(shares)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errs:
+        raise AssertionError(f"a submitter failed: {errs[0]!r}")
+    return out
+
+
+def _device_error(bv, sigs, hashes):
+    """A device error under a scheduler over ``bv`` (its fault hook
+    raising at the head of ``stage_recover``): the window's rows must
+    fail with it, none answered by the host model, the breaker closed.
+    Returns the scheduler's error counts."""
+    from eges_tpu_torch.crypto.scheduler import VerifierScheduler
+
+    def lost(rows):
+        raise RuntimeError(f"device lost ({rows} rows)")
+
+    sc = VerifierScheduler(bv, max_batch=64, window_ms=10_000.0)
+    bv.failure_hook = lost
+    try:
+        try:
+            got = sc.recover_window(hashes, sigs)
+        except RuntimeError as exc:
+            if "device lost" not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"a device error was answered: {got!r}")
+        st = sc.stats()
+    finally:
+        bv.failure_hook = None
+        sc.close()
+    out = {k: st[k] for k in ("device_errors", "breaker_trips",
+                              "host_diverted", "breaker_diverted")}
+    if out != {"device_errors": 1, "breaker_trips": 0, "host_diverted": 0,
+               "breaker_diverted": 0}:
+        raise AssertionError(f"a device error under the scheduler: {out}")
+    return out
+
+
+def _family_deltas(before, after):
+    """The A2 families' count deltas between two registry snapshots."""
+    def count(snap, name):
+        v = snap.get(name, 0)
+        return v["count"] if isinstance(v, dict) else v
+
+    names = set(before) | set(after)
+    return {name: count(after, name) - count(before, name)
+            for name in sorted(names) if name.startswith(A2_FAMILIES)}
+
+
+def _sched_block(bv, rows, slice_out):
+    """The config-4 block through ``scheduler_for(bv)`` from
+    ``SCHED_THREADS`` threads, every answer against the host model and
+    the synchronous facade, then again from the cache with no device
+    window; no hidden host path (no breaker trip, no divert but
+    singletons, every other window pipelined); the A2 families against
+    the windows; device memory and ``DeviceTraceArmer`` traces
+    (``SCHED_TRACE``).  Returns the block's record and the launches of
+    the scheduler's first pass."""
+    from eges_tpu_torch.crypto.scheduler import scheduler_for
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.utils import devstats, tracing
+    from eges_tpu_torch.utils.metrics import DEFAULT as metrics
+
+    sigs, hashes, answers = rows
+    sync_addrs, sync_ok = slice_out
+    sched = scheduler_for(bv)
+    snap0 = metrics.snapshot()
+    t_run = time.monotonic()
+    K.reset_launches()
+    got = _sched_answers(sched, sigs, hashes)
+    launches = dict(K.LAUNCHES)
+    st = sched.stats()
+    flights = sched.flights()
+    snap1 = metrics.snapshot()
+    for i, (g, ans) in enumerate(zip(got, answers)):
+        want = None if ans is None else ans[0]
+        sync = bytes(sync_addrs[i]) if sync_ok[i] else None
+        if g != want or g != sync:
+            raise AssertionError(f"row {i}: the scheduler's answer {g!r} "
+                                 f"differs from the host model's {want!r} "
+                                 f"or the facade's {sync!r}")
+    # the same entries again: served from the cache, no device window
+    K.reset_launches()
+    again = _sched_answers(sched, sigs, hashes)
+    st2 = sched.stats()
+    if again != got or sum(K.LAUNCHES.values()) or \
+            st2["batches"] != st["batches"]:
+        raise AssertionError(f"second pass: {st2['batches'] - st['batches']}"
+                             f" windows, launches {dict(K.LAUNCHES)}")
+    sched.close()
+    singletons = sum(1 for f in flights if f["rows"] == 1)
+    device_windows = st["batches"]
+    fallback = {k: st[k] for k in ("host_diverted", "breaker_diverted",
+                                   "breaker_trips", "device_errors",
+                                   "breaker_probes")}
+    if any(fallback.values()) or st["breaker"] != "closed":
+        raise AssertionError(f"the scheduler left the device: {fallback}")
+    if st["pipeline_windows"] != device_windows or \
+            sum(launches.values()) != 18 * device_windows:
+        raise AssertionError(f"pipeline_windows {st['pipeline_windows']}, "
+                             f"device windows {device_windows}, launches "
+                             f"{sum(launches.values())}")
+    fam = _family_deltas(snap0, snap1)
+    bucket_rows = sum(f["bucket"] for f in flights)
+    rows_dev = sum(f["rows"] for f in flights)
+    want = {"verifier.batches": device_windows,
+            "verifier.device": device_windows,
+            "verifier.device_seconds": device_windows,
+            "verifier.pad_waste": device_windows,
+            "verifier.rows": rows_dev,
+            "verifier.padded_rows": bucket_rows - rows_dev,
+            "verifier.singleton_batches": singletons}
+    bad = {k: (fam.get(k, 0), v) for k, v in want.items()
+           if fam.get(k, 0) != v}
+    hits = (fam.get("verifier.compile_cache_hits", 0)
+            + fam.get("verifier.compile_cache_misses", 0))
+    by_bucket = sum(v for k, v in fam.items()
+                    if k.startswith("verifier.device_seconds;bucket="))
+    if bad or hits != device_windows or by_bucket != device_windows:
+        raise AssertionError(f"A2 families against {device_windows} "
+                             f"windows: {bad}, cache {hits}, by bucket "
+                             f"{by_bucket}")
+    spans = [sp for sp in tracing.DEFAULT.finished()
+             if sp["name"] == "verifier.batch" and sp["start_s"] >= t_run]
+    if len(spans) != device_windows:
+        raise AssertionError(f"{len(spans)} verifier.batch spans for "
+                             f"{device_windows} device windows")
+    fail = _device_error(bv, sigs[:8], hashes[:8])
+    mem = devstats.sample_memory()
+    armed, sent, seed = SCHED_TRACE
+    trace = _armed_trace(bv, armed, sent, seed)
+    if not mem or trace["state"] != "captured" or not trace["bytes"]:
+        raise AssertionError(f"devstats: memory {mem}, trace {trace}")
+    if not 18 * armed <= trace["kernels"] <= 18 * sent:
+        raise AssertionError(f"a trace armed for {armed} windows holds "
+                             f"{trace['kernels']} kernels")
+    block = {"rows": len(sigs), "threads": SCHED_THREADS,
+             "window_rows": SCHED_WINDOW, "rows_matching_host": len(got),
+             "stats": {k: st[k] for k in (
+                 "batches", "rows", "bucket_rows", "host_diverted",
+                 "pipeline_windows", "pipeline_overlapped",
+                 "pipeline_overlap_ratio", "cache_hits", "cache_misses",
+                 "coalesced_rows", "window_submits", "flush_full",
+                 "flush_kick", "flush_deadline", "breaker_diverted",
+                 "device_errors")},
+             "singleton_windows": singletons, "device_error": fail,
+             "second_pass": {"batches": st2["batches"] - st["batches"],
+                             "cache_hits": st2["cache_hits"]
+                             - st["cache_hits"]},
+             "a2_family_deltas": fam, "batch_spans": len(spans),
+             "devstats": {"memory": mem,
+                          "trace": {"armed": armed, "sent": sent, **trace},
+                          "goodput": devstats.DEFAULT.stats()[
+                              "goodput_ratio"]}}
+    return block, launches
+
+
+def _sched_overlap(bv, records):
+    """Back-to-back windows of distinct rows through the trio with two in
+    flight, through the trio with one, and through serial
+    ``recover_addresses`` (ABBA rounds), each way's busy and idle share,
+    the scheduler over the same windows, and commit's enqueue time
+    against its done time."""
+    from eges_tpu_torch.crypto.scheduler import VerifierScheduler
+    from eges_tpu_torch.utils import devstats
+
+    rng = np.random.default_rng(SEED + 30)
+    runs = {rows: _random_windows(rng, rows, count)
+            for rows, count in SCHED_OVERLAP}
+    ways = {"pipelined": _pipelined, "trio_serial": _trio_serial,
+            "serial": _serial}
+    for rows, wins in runs.items():   # warm-up, and the ways agree
+        s = _serial(bv, wins)
+        for way in ("pipelined", "trio_serial"):
+            for (pa, po), (sa, so) in zip(ways[way](bv, wins), s):
+                if not (np.array_equal(pa, sa) and np.array_equal(po, so)):
+                    raise AssertionError(f"{rows} rows: the trio ({way}) "
+                                         "differs from recover_addresses")
+    rates = {(w, r): [] for w in ways for r in runs}
+    for way in SCHED_ROUNDS:
+        for rows, wins in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ways[way](bv, wins)
+            rates[(way, rows)].append(rows * len(wins)
+                                      / (time.perf_counter() - t0))
+    overlap = {}
+    for rows, wins in runs.items():
+        line = {}
+        for way in ways:
+            v = rates[(way, rows)]
+            line[way] = {"verifies_per_s": float(np.median(v)),
+                         "rounds": v, **_busy(lambda: ways[way](bv, wins))}
+        # the same work with and without overlap, and the trio's work
+        # against recover_addresses' (which also downloads pubs, through
+        # pageable copies)
+        rate = {w: line[w]["verifies_per_s"] for w in ways}
+        line["pipelined_over_trio_serial"] = (rate["pipelined"]
+                                              / rate["trio_serial"])
+        line["trio_serial_over_serial"] = rate["trio_serial"] / rate["serial"]
+        # the scheduler over the same windows: all submitted at once, its
+        # lane worker pipelining them (a fresh scheduler each run, so no
+        # row is served from its cache)
+        sc = VerifierScheduler(bv, max_batch=rows, window_ms=10_000.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _scheduled(sc, wins)
+        dt = time.perf_counter() - t0
+        sst = sc.stats()
+        sc.close()
+        busy = _busy(lambda: _scheduled(VerifierScheduler(
+            bv, max_batch=rows, window_ms=10_000.0), wins, close=True))
+        line["scheduler"] = {
+            "verifies_per_s": rows * len(wins) / dt,
+            "windows": sst["pipeline_windows"],
+            "pipeline_overlap_ratio": sst["pipeline_overlap_ratio"],
+            **busy}
+        overlap[rows] = line
+    split = _commit_split(bv, *runs[1024][0])
+    if split["enqueue_ms_p50"] > SCHED_ENQUEUE_SHARE * split["done_ms_p50"]:
+        raise AssertionError(
+            f"commit_recover enqueues in {split['enqueue_ms_p50']:.3f} ms of "
+            f"the {split['done_ms_p50']:.3f} ms until done: host waits "
+            f"{split['host_waits_in_commit']} hide the overlap")
+    # the roofline of devstats from this run's kernel bounds at 8192 rows
+    bound_8192 = sum(records[k]["bound_ms"] for k in FUSED_RECOVER_LAUNCHES)
+    roof = devstats.set_roofline(
+        devstats.roofline_from_bounds({B_MAIN: bound_8192}),
+        "chip_smoke.py phase kernel bounds, 8192 rows")
+    return {"overlap": {str(k): v for k, v in overlap.items()},
+            "rounds": list(SCHED_ROUNDS), "commit_split_1024": split,
+            "roofline_rows_per_s": roof["ceilings"],
+            "fraction_of_roofline_8192": overlap[B_MAIN]["pipelined"][
+                "verifies_per_s"] / roof["ceilings"][B_MAIN]}
+
+
+def phase_sched(rows, slice_out, records, card):
+    """The config-4 block through ``scheduler_for(BatchVerifier())`` from
+    ``SCHED_THREADS`` threads, every answer against the host model and
+    the synchronous facade, then again from the cache; no hidden host
+    path; the A2 families against the windows; device stats.  Then the
+    overlap (``_sched_overlap``).  Returns the launches of the
+    scheduler's run."""
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    bv = BatchVerifier()
+    block, launches = _sched_block(bv, rows, slice_out)
+    out = {"phase": "sched", "card": card, **block,
+           **_sched_overlap(bv, records),
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(out)
+    return launches
+
+
 def _lane_launches(sigs, hashes) -> dict:
     """One fused recovery of these rows on device tensors under the
     profiler: the device ms of its pow launches and of its ladder, in
@@ -2487,6 +2955,7 @@ def main() -> int:
     paths["recover"], rows, slice_out = phase_slice(rng)
     phase_lanes(dev, clock_hz, info["ptxas"], rows)
     phase_e2e(rows)
+    paths["sched"] = phase_sched(rows, slice_out, records, card)
     paths["verify"], r3, r4 = phase_verify()
     paths["keccak"] = phase_keccak(dev)
     phase_verify_e2e(r3, r4, dev)

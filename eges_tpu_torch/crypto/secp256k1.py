@@ -183,3 +183,10 @@ def ecdsa_verify(msg_hash: bytes, sig: bytes, pub: bytes) -> bool:
         return pt[0] % N == r
     except (ValueError, AssertionError):
         return False
+
+
+def recover_address(msg_hash: bytes, sig: bytes) -> bytes:
+    """Sender recovery: a 65-byte signature -> the signer's 20-byte
+    address (raises ValueError for every invalid class), the per-row
+    result that the batched path computes on the card."""
+    return pubkey_to_address(ecdsa_recover(msg_hash, sig))

@@ -18,7 +18,9 @@ until the caller copies the results back.
 from __future__ import annotations
 
 import functools
+import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -142,6 +144,30 @@ def verify_batch(sigs: torch.Tensor, hashes: torch.Tensor,
     return ec.ecdsa_verify_point(z, r, s, *_limbs(pubs, 0, 32))
 
 
+class _StagedBatch:
+    """One window mid-flight through the split-phase pipeline:
+    ``stage_recover`` filled a buffer pair and started its H2D copy on
+    the verifier's copy stream, ``commit_recover`` queued the recovery
+    and the D2H copies on the current stream, ``collect_recover`` waits
+    for them, unpads and records the batch.  Holding two of these is
+    what lets the next window's fill, upload and launches overlap the
+    current window's compute."""
+
+    __slots__ = ("op", "n", "b", "pair", "done", "t0", "t1", "cached")
+
+
+class _PipePair:
+    """One of a bucket's two buffer pairs: pinned host inputs (plain
+    tensors on the CPU), their device copies, pinned outputs, and the
+    events that say when the pair's buffers are free again: ``h2d``
+    after the upload that last read the host inputs, ``done`` after the
+    recovery that last read the device inputs.  ``window`` is the
+    window staged on the pair and not yet collected."""
+
+    __slots__ = ("host_sigs", "host_hashes", "dev_sigs", "dev_hashes",
+                 "out_addrs", "out_ok", "h2d", "done", "window")
+
+
 class BatchVerifier:
     """Host facade over :func:`ecrecover_batch` and :func:`verify_batch`.
 
@@ -149,9 +175,25 @@ class BatchVerifier:
     pool of host buffers (pinned when the device is a card), runs the
     batch and returns numpy.  Runs on the card unless ``device="cpu"``
     is asked for, and raises when there is no card.
+
+    Every batch records the reference's ``verifier.*`` metric families
+    and ``verifier.batch`` span (:meth:`_record_batch`) into the port's
+    registry and tracer.  Recovery also runs split-phase
+    (``stage_recover`` / ``commit_recover`` / ``collect_recover``) for
+    the scheduler's lane worker: two buffer pairs per bucket, the H2D
+    copies on a copy stream the verifier owns, the recovery and the D2H
+    copies on the caller's current stream, so at most two windows are
+    in flight and window k+1's fill, upload and launches overlap window
+    k's compute.  The trio is driven from one thread at a time.
     """
 
-    def __init__(self, device=None, min_bucket: int = 16):
+    # the verifier scheduler serves no row of this facade from the host
+    # model: a device error fails the window instead of being answered
+    # on the CPU
+    host_fallback = False
+
+    def __init__(self, device=None, min_bucket: int = 16,
+                 debug_timing: bool | None = None):
         self.device = resolve_device(device)
         self._min_bucket = min_bucket
         self._pinned = self.device.type == "cuda"
@@ -159,6 +201,24 @@ class BatchVerifier:
         # the pop and push, so concurrent callers overlap
         self._stage_bufs: dict[int, list[dict[str, torch.Tensor]]] = {}
         self._staging_lock = threading.Lock()
+        # buckets each op has already run: the port's compile-cache
+        # hit/miss (a bucket's first batch pays the first launches of
+        # its shapes); grow-only sets mutated GIL-atomically, a lost add
+        # only stales a 'cached' flag
+        self._compiled_buckets: set[int] = set()  # guarded-by: gil-monotone
+        self._verify_buckets: set[int] = set()  # guarded-by: gil-monotone
+        # the transfer split (h2d_seconds, d2h_seconds) waits on an
+        # event after the upload, which serializes it against the
+        # launches: only under the debug flag
+        if debug_timing is None:
+            debug_timing = os.environ.get("EGES_VERIFIER_TIMING") == "1"
+        self.debug_timing = bool(debug_timing)
+        # split-phase pipeline: two buffer pairs per bucket, toggled per
+        # stage_recover, kept for the verifier's life so the caching
+        # allocator never hands an input buffer to another stream
+        self._pipe_bufs: dict[int, list[_PipePair]] = {}
+        self._pipe_toggle: dict[int, int] = {}
+        self._pipe_stream = None  # the copy stream, made at first stage
         # injectable device-failure hook: called with the row count at
         # the head of every device entry point (fault injection)
         self.failure_hook = None
@@ -202,6 +262,60 @@ class BatchVerifier:
         with self._staging_lock:
             self._stage_bufs.setdefault(b, []).append(st)
 
+    def _event(self):
+        """A CUDA event recorded on the current stream now; ``None`` on
+        the CPU, where every copy and kernel has finished on return."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _record_batch(self, op: str, n: int, b: int, cached: bool,
+                      t0: float, t1: float, t2: float, t3: float) -> None:
+        """Device-batch observability shared by both device paths, as
+        the reference records it (``eges_tpu/crypto/verifier.py``
+        ``_record_batch``): aggregate and per-bucket device time, pad
+        waste, compile-cache behavior, and — under the debug-timing flag
+        only, since measuring them waits on the upload — the transfer
+        halves.
+
+        ``t0`` is taken before the upload, ``t1`` after it (after an
+        event recorded behind the H2D copies under ``debug_timing``),
+        ``t2`` after the event recorded behind the last kernel has
+        completed and ``t3`` after the D2H copy.  In the split-phase
+        path ``t1`` is taken when ``stage_recover`` has queued its
+        upload, with no wait (waiting there would destroy the overlap
+        the pipeline exists for), so the ``h2d_seconds``/``d2h_seconds``
+        split is meaningful only on the synchronous path, as in the
+        reference."""
+        from eges_tpu_torch.utils import tracing
+        from eges_tpu_torch.utils.metrics import DEFAULT as metrics
+
+        metrics.timer("verifier.device").update(t3 - t0)
+        metrics.meter("verifier.rows").mark(n)
+        metrics.counter("verifier.padded_rows").inc(b - n)
+        metrics.counter("verifier.batches").inc()
+        if n == 1:
+            # the steady-state anti-goal: a padded one-row dispatch —
+            # the scheduler diverts these to the host path, so outside
+            # deliberate warmups this counter should stay at zero
+            metrics.counter("verifier.singleton_batches").inc()
+        metrics.histogram("verifier.device_seconds").observe(t2 - t1)
+        metrics.histogram(f"verifier.device_seconds;bucket={b}") \
+            .observe(t2 - t1)
+        if self.debug_timing:
+            metrics.histogram("verifier.h2d_seconds").observe(t1 - t0)
+            metrics.histogram("verifier.d2h_seconds").observe(t3 - t2)
+        metrics.histogram("verifier.pad_waste").observe((b - n) / b)
+        metrics.counter("verifier.compile_cache_hits" if cached
+                        else "verifier.compile_cache_misses").inc()
+        tracing.DEFAULT.record_span(
+            "verifier.batch", t3 - t0, op=op, rows=n, bucket=b,
+            pad_rows=b - n, compile_cache="hit" if cached else "miss",
+            h2d_s=round(t1 - t0, 6), device_s=round(t2 - t1, 6),
+            d2h_s=round(t3 - t2, 6))
+
     def ecrecover(self, sigs: np.ndarray, hashes: np.ndarray):
         """``sigs [N, W]`` u8, ``hashes [N, 32]`` u8 -> ``(addrs [N, 20]
         u8, pubs [N, 64] u8, ok [N] bool)`` as numpy, after the device
@@ -215,6 +329,8 @@ class BatchVerifier:
                     np.zeros((0,), bool))
         self._maybe_fail(n)
         b = self._pad(n)
+        cached = b in self._compiled_buckets
+        self._compiled_buckets.add(b)
         # a batch that lands exactly on its bucket in uint8-contiguous
         # arrays is uploaded as it is, with no staging copy
         direct = (n == b and sigs.dtype == np.uint8
@@ -234,16 +350,26 @@ class BatchVerifier:
                 hh[:n] = torch.from_numpy(np.asarray(hashes, np.uint8))
                 hh[n:] = 0
             async_copy = st is not None and self._pinned
+            t0 = time.monotonic()
             ds = hs.to(self.device, non_blocking=async_copy)
             dh = hh.to(self.device, non_blocking=async_copy)
+            if self.debug_timing and self._pinned:
+                self._event().synchronize()
+            t1 = time.monotonic()
             addrs, pubs, ok = ecrecover_batch(ds, dh)
-            # copying back waits for the device: the staging buffers are
-            # free for the next batch after this
+            done = self._event()
+            if done is not None:
+                done.synchronize()
+            t2 = time.monotonic()
+            # copying back: the staging buffers are free for the next
+            # batch after this
             out = (addrs[:n].cpu().numpy(), pubs[:n].cpu().numpy(),
                    ok[:n].cpu().numpy().astype(bool))
+            t3 = time.monotonic()
         finally:
             if st is not None:
                 self._stage_release(b, st)
+        self._record_batch("ecrecover", n, b, cached, t0, t1, t2, t3)
         return out
 
     def recover_addresses(self, sigs: np.ndarray, hashes: np.ndarray):
@@ -258,14 +384,16 @@ class BatchVerifier:
         the device has finished.  Rows are staged 65 bytes wide: wider
         ones are cut, narrower ones zero-padded, as the reference's
         facade does (``eges_tpu/crypto/verifier.py`` ``verify``).
-        Bucketed and staged like :meth:`ecrecover`; the padded rows of
-        every staging buffer are zeroed, so no row of an earlier batch
-        reaches this one."""
+        Bucketed, staged and recorded like :meth:`ecrecover`; the padded
+        rows of every staging buffer are zeroed, so no row of an earlier
+        batch reaches this one."""
         n = sigs.shape[0]
         if n == 0:
             return np.zeros((0,), bool)
         self._maybe_fail(n)
         b = self._pad(n)
+        cached = b in self._verify_buckets
+        self._verify_buckets.add(b)
         w = min(sigs.shape[1], 65)
         st = self._stage_acquire(b, with_pubs=True)
         try:
@@ -277,14 +405,164 @@ class BatchVerifier:
             hh[n:] = 0
             hq[:n] = torch.from_numpy(np.asarray(pubs, np.uint8))
             hq[n:] = 0
+            t0 = time.monotonic()
             ds, dh, dq = (t.to(self.device, non_blocking=self._pinned)
                           for t in (hs, hh, hq))
+            if self.debug_timing and self._pinned:
+                self._event().synchronize()
+            t1 = time.monotonic()
             ok = verify_batch(ds, dh, dq)
-            # copying back waits for the device: the staging buffers are
-            # free for the next batch after this
+            done = self._event()
+            if done is not None:
+                done.synchronize()
+            t2 = time.monotonic()
+            # copying back: the staging buffers are free for the next
+            # batch after this
             out = ok[:n].cpu().numpy().astype(bool)
+            t3 = time.monotonic()
         finally:
             self._stage_release(b, st)
+        self._record_batch("verify", n, b, cached, t0, t1, t2, t3)
+        return out
+
+    # -- split-phase recovery (the scheduler's pipelined lane) -----------
+
+    def _new_pair(self, b: int) -> _PipePair:
+        p = _PipePair()
+        p.host_sigs = self._host_buf(b, 65)
+        p.host_hashes = self._host_buf(b, 32)
+        # every upload writes all b rows: nothing to clear
+        p.dev_sigs = torch.empty((b, 65), dtype=torch.uint8,
+                                 device=self.device)
+        p.dev_hashes = torch.empty((b, 32), dtype=torch.uint8,
+                                   device=self.device)
+        p.out_addrs = self._host_buf(b, 20)
+        p.out_ok = torch.zeros((b,), dtype=torch.int32,
+                               pin_memory=self._pinned)
+        p.h2d = p.done = p.window = None
+        return p
+
+    def _pipeline_pair(self, b: int) -> _PipePair:
+        # caller holds self._staging_lock; toggle between the bucket's
+        # two buffer pairs so staging window k+1 never scribbles over the
+        # buffers window k is still uploading from or computing on; a
+        # pair whose window is still in flight is refused, and the
+        # toggle stays
+        pairs = self._pipe_bufs.get(b)
+        if pairs is None:
+            pairs = [self._new_pair(b), self._new_pair(b)]
+            self._pipe_bufs[b] = pairs
+        i = self._pipe_toggle.get(b, 0)
+        if pairs[i].window is not None:
+            raise RuntimeError("a third window in flight: collect the "
+                               "window staged two before this one first")
+        self._pipe_toggle[b] = i ^ 1
+        return pairs[i]
+
+    def stage_recover(self, sigs: np.ndarray,
+                      hashes: np.ndarray) -> _StagedBatch:
+        """Phase 1 of the pipelined dispatch: pad, fill one of the
+        bucket's two pinned buffer pairs and start its H2D copy on the
+        verifier's copy stream.  Returns the staged window for
+        :meth:`commit_recover` / :meth:`collect_recover` — the
+        scheduler's lane worker stages window k+1 while window k
+        computes.  Rows are 65 bytes wide (ValueError otherwise).
+
+        A pair is refilled only after the window that last used it has
+        been collected: its done event has completed, and with it the
+        upload that its recovery waited for, so the host inputs are free;
+        the copy stream waits on that done event before it overwrites
+        the device inputs.  So at most two windows are in flight, as on
+        the scheduler's lane: staging a third before the first is
+        collected raises RuntimeError."""
+        n = sigs.shape[0]
+        self._maybe_fail(n)
+        b = self._pad(n)
+        if sigs.shape[1:] != (65,) or hashes.shape[1:] != (32,):
+            raise ValueError(f"staged rows are 65-byte sigs and 32-byte "
+                             f"hashes, got {tuple(sigs.shape)} and "
+                             f"{tuple(hashes.shape)}")
+        st = _StagedBatch()
+        st.op, st.n, st.b = "ecrecover", n, b
+        st.done = None
+        st.cached = b in self._compiled_buckets
+        self._compiled_buckets.add(b)
+        with self._staging_lock:
+            pair = self._pipeline_pair(b)
+            pair.window = st
+            if self.device.type == "cuda" and self._pipe_stream is None:
+                self._pipe_stream = torch.cuda.Stream(device=self.device)
+        st.pair = pair
+        pair.host_sigs[:n] = torch.from_numpy(np.asarray(sigs, np.uint8))
+        pair.host_sigs[n:] = 0
+        pair.host_hashes[:n] = torch.from_numpy(
+            np.asarray(hashes, np.uint8))
+        pair.host_hashes[n:] = 0
+        st.t0 = time.monotonic()
+        if self._pipe_stream is None:
+            pair.dev_sigs.copy_(pair.host_sigs)
+            pair.dev_hashes.copy_(pair.host_hashes)
+        else:
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._pipe_stream):
+                if pair.done is None:
+                    # a new pair: the caching allocator gave its device
+                    # inputs out for the compute stream, where kernels
+                    # queued before may still use the block; the copy
+                    # stream waits for them once
+                    self._pipe_stream.wait_stream(compute)
+                else:
+                    # the device inputs are overwritten only after the
+                    # recovery that last read them
+                    self._pipe_stream.wait_event(pair.done)
+                pair.dev_sigs.copy_(pair.host_sigs, non_blocking=True)
+                pair.dev_hashes.copy_(pair.host_hashes, non_blocking=True)
+                pair.h2d = torch.cuda.Event()
+                pair.h2d.record(self._pipe_stream)
+        st.t1 = time.monotonic()
+        return st
+
+    def commit_recover(self, st: _StagedBatch) -> _StagedBatch:
+        """Phase 2: the current stream waits for the window's upload,
+        runs :func:`ecrecover_batch` on it, queues the D2H copies of
+        ``addrs`` and ``ok`` into the pair's pinned outputs and records
+        the window's done event.  Returns at once: nothing here waits
+        for the card."""
+        pair = st.pair
+        try:
+            if pair.h2d is not None:
+                torch.cuda.current_stream(self.device).wait_event(pair.h2d)
+            addrs, _pubs, ok = ecrecover_batch(pair.dev_sigs,
+                                               pair.dev_hashes)
+            pair.out_addrs.copy_(addrs, non_blocking=self._pinned)
+            pair.out_ok.copy_(ok, non_blocking=self._pinned)
+        except BaseException:
+            # the window is abandoned and lets go of its pair; the next
+            # upload into it is ordered after this one on the copy
+            # stream, and waits for all this stream has queued
+            pair.window = pair.done = None
+            raise
+        st.done = pair.done = self._event()
+        return st
+
+    def collect_recover(self, st: _StagedBatch):
+        """Phase 3: wait for the window's done event, copy its first
+        ``n`` rows out of the pinned outputs into arrays of its own, free
+        the pair and record the batch.  Returns ``(addrs [n, 20] u8, ok
+        [n] bool)``."""
+        pair = st.pair
+        if pair.window is not st:
+            raise RuntimeError("collect_recover of a window that is not in "
+                               "flight (collected, or its commit failed)")
+        if st.done is not None:
+            st.done.synchronize()
+        t2 = time.monotonic()
+        out = (pair.out_addrs[:st.n].numpy().copy(),
+               pair.out_ok[:st.n].numpy().astype(bool))
+        t3 = time.monotonic()
+        pair.window = None
+        self._record_batch(st.op, st.n, st.b, st.cached, st.t0, st.t1,
+                           t2, t3)
         return out
 
 

@@ -35,13 +35,23 @@ through, each by a rule of this checker:
 * the facade's resolve methods (``ecrecover``, ``verify``,
   ``recover_addresses``, ``recover_signers``, ``collect_*``): waiting for
   and copying back the result is their job, and host-sync judges them.
+
+The region ends at the facade: the reverse walk adds no caller of an
+entry method (a resolve method, ``stage_*``, ``commit_*`` or
+``collect_*``) of a class in a module of the architecture manifest's
+facade layer (:mod:`layermap`, ``crypto/verifier.py`` in this repo).
+Those callers use the facade as the harness and ``chip_smoke.py`` do —
+the verifier scheduler's admission thread and lane workers, whose
+clocks and casts order windows, not launches — and a ``commit_*``
+itself, which enqueues the kernels, is still checked.  A method of the
+same name anywhere else passes the region on to its callers.
 """
 
 from __future__ import annotations
 
 import ast
 
-from eges_tpu_torch.harness.analysis import hotpath
+from eges_tpu_torch.harness.analysis import hotpath, layermap
 from eges_tpu_torch.harness.analysis.core import Finding, Project
 
 RULE = "launch-purity"
@@ -59,6 +69,28 @@ STATIC_ATTRS = frozenset({"shape", "ndim", "size", "dtype", "itemsize"})
 SYNC_METHODS = frozenset({"item", "tolist", "cpu", "numpy"})
 RESOLVE_METHODS = frozenset({"ecrecover", "verify", "recover_addresses",
                              "recover_signers"})
+# a method with one of these names, or a resolve method, of a class in
+# the facade layer is a facade entry: the launch region's top
+ENTRY_PREFIXES = ("stage_", "commit_", "collect")
+FACADE_LAYER = "facade"
+
+
+def _facade_paths(project: Project, paths) -> set[str]:
+    """The scanned files in the manifest's facade layer (a layer whose
+    name ends in ``facade``); none without a manifest."""
+    try:
+        manifest = layermap.load(project.root)
+    except layermap.ManifestError:
+        return set()  # the layers rule reports the broken manifest
+    if manifest is None:
+        return set()
+    out = set()
+    for path in paths:
+        module = path[:-3].replace("/", ".").removesuffix(".__init__")
+        layer = manifest.layer_of(module)
+        if layer is not None and layer[1].endswith(FACADE_LAYER):
+            out.add(path)
+    return out
 
 
 def _module_globals(tree: ast.Module) -> set[str]:
@@ -164,11 +196,19 @@ def check(project: Project) -> list[Finding]:
         for c in out:
             callers.setdefault(c, set()).add(key)
 
-    # the launch region: whatever reaches the seed
+    # the launch region: whatever reaches the seed, up to the facade's
+    # entry methods
+    facade = _facade_paths(project, {p for p, _ in funcs})
     region = {SEED}
     work = [SEED]
     while work:
-        for caller in callers.get(work.pop(), ()):
+        key = work.pop()
+        fn, cls = funcs[key]
+        if cls is not None and key[0] in facade and (
+                fn.name in RESOLVE_METHODS
+                or fn.name.startswith(ENTRY_PREFIXES)):
+            continue
+        for caller in callers.get(key, ()):
             if caller not in region:
                 region.add(caller)
                 work.append(caller)

@@ -36,32 +36,45 @@ import os
 # included).  Lower layers must not import higher ones, eagerly OR
 # lazily.  ``ops/curve.py`` lazily imports the host model
 # ``crypto/secp256k1.py`` to build its window tables, so the pure-Python
-# host copies of ``crypto/`` sit in the lowest layer; only
-# ``crypto/verifier.py`` is facade.  The two sub-packages are roots as
-# well as the package, so their ``__init__`` matches exactly and a new
-# module under ``ops/`` or ``crypto/`` is a manifest error until it is
-# placed here.
+# host copies of ``crypto/`` sit in the lowest layer, with the host
+# verify paths (``crypto/native.py``, ``crypto/verify_host.py``) and the
+# copies of the reference's ``utils/`` (metrics, tracing, profiler,
+# ledger, devstats), which the facade and the scheduler publish into.
+# ``crypto/verifier.py`` is the facade; the scheduler sits above it: it
+# drives the facade's methods duck-typed and imports nothing of it.
+# The three sub-packages are roots as well as the package, so their
+# ``__init__`` matches exactly and a new module under ``ops/``,
+# ``crypto/`` or ``utils/`` is a manifest error until it is placed here.
 MANIFEST = {
     "roots": ["eges_tpu_torch", "eges_tpu_torch.ops",
-              "eges_tpu_torch.crypto"],
+              "eges_tpu_torch.crypto", "eges_tpu_torch.utils"],
     "layers": [
         {"name": "L0-kernels",
          "packages": ["eges_tpu_torch", "eges_tpu_torch.ops",
-                      "eges_tpu_torch.crypto",
+                      "eges_tpu_torch.crypto", "eges_tpu_torch.utils",
                       "eges_tpu_torch.ops.build", "eges_tpu_torch.ops.kernels",
                       "eges_tpu_torch.ops.opcount", "eges_tpu_torch.ops.field",
                       "eges_tpu_torch.ops.curve",
                       "eges_tpu_torch.crypto.secp256k1",
                       "eges_tpu_torch.crypto.keccak",
-                      "eges_tpu_torch.crypto.bucketing"]},
+                      "eges_tpu_torch.crypto.bucketing",
+                      "eges_tpu_torch.crypto.native",
+                      "eges_tpu_torch.crypto.verify_host",
+                      "eges_tpu_torch.utils.metrics",
+                      "eges_tpu_torch.utils.tracing",
+                      "eges_tpu_torch.utils.profiler",
+                      "eges_tpu_torch.utils.ledger",
+                      "eges_tpu_torch.utils.devstats"]},
         {"name": "L1-pipeline",
          "packages": ["eges_tpu_torch.ops.bigint", "eges_tpu_torch.ops.ec",
                       "eges_tpu_torch.ops.keccak"]},
         {"name": "L2-facade",
          "packages": ["eges_tpu_torch.crypto.verifier"]},
-        {"name": "L3-registry",
+        {"name": "L3-scheduler",
+         "packages": ["eges_tpu_torch.crypto.scheduler"]},
+        {"name": "L4-registry",
          "packages": ["eges_tpu_torch.models"]},
-        {"name": "L4-harness",
+        {"name": "L5-harness",
          "packages": ["eges_tpu_torch.harness", "eges_tpu_torch.testing"]},
     ],
 }

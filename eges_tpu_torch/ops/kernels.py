@@ -172,8 +172,9 @@ PRELUDE_MAX_PITCH = 256
 # at the same counts (fp_mul also at 16384 and 131072) on cold times: a
 # launch of either takes less than the wrapper's host time, which back
 # to back events would measure.  fp_mul takes 4 lanes a row up to 8192
-# rows, some 8% faster than one, and 2 beyond, within 1% of one lane
-# where bytes bound it; the finish takes 4 lanes in blocks of 128 at
+# rows, some 8% faster than one, 2 up to 16384, and one lane in blocks
+# of 64 past them, where bytes bound it and one lane was 2-3% faster
+# than two (131072 rows, PERF.md: two calls on an H100); the finish takes 4 lanes in blocks of 128 at
 # every count (within 2% of the fastest, about 1.5x faster than one).
 # The GLV split, swept at 256-8192 rows on cold times, takes 4 lanes (two
 # a scalar) in blocks of 128 at every count: within 1% of the fastest,
@@ -197,7 +198,7 @@ LANES_RULE = {
                   (16384, 1, 128), (None, 1, 256)),
     "pow_mod_n": ((256, 4, 128), (2048, 8, 64), (4096, 4, 128),
                   (8192, 2, 128), (None, 1, 128)),
-    "fp_mul": ((8192, 4, 64), (16384, 2, 64), (None, 2, 128)),
+    "fp_mul": ((8192, 4, 64), (16384, 2, 64), (None, 1, 64)),
     "recover_finish": ((None, 4, 128),),
     "glv_digits": ((None, 4, 128),),
     "fp_canon": ((None, 1, 64),),

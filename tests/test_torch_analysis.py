@@ -125,6 +125,74 @@ def test_launch_purity_plain_exemption_and_seed(tmp_path):
     assert rep.findings == []
 
 
+_FACADE_TOML = """roots = ["eges_tpu_torch"]
+
+[[layer]]
+name = "L0-kernels"
+packages = ["eges_tpu_torch", "eges_tpu_torch.ops"]
+
+[[layer]]
+name = "L2-facade"
+packages = ["eges_tpu_torch.ops.front"]
+"""
+
+
+def test_launch_purity_region_ends_at_the_facade_entry(tmp_path):
+    """A caller of a ``commit_*`` of a class in the manifest's facade
+    layer (the scheduler's lane worker reads clocks and casts to order
+    windows) is not in the launch region; the ``commit_*`` itself,
+    which enqueues the kernels, is checked; a ``commit_*`` outside the
+    facade layer, or with no manifest, passes the region on to its
+    callers; and the caller fires once it calls the kernel directly."""
+    root = str(tmp_path / "jit")
+    shutil.copytree(os.path.join(FIXTURES, "jit"), root)
+    ops = os.path.join(root, "eges_tpu_torch", "ops")
+    front = os.path.join(ops, "front.py")
+    with open(front, "w") as fh:
+        fh.write("from eges_tpu_torch.ops.clean_kernel import kernel\n\n\n"
+                 "class Lane:\n"
+                 "    def commit_recover(self, x):\n"
+                 "        return kernel(x)\n")
+    toml = os.path.join(root, "ARCHITECTURE.toml")
+    with open(toml, "w") as fh:
+        fh.write(_FACADE_TOML)
+    path = os.path.join(ops, "clean_kernel.py")
+    src = open(path).read() + (
+        "\n\nclass Pool:\n"
+        "    def commit_window(self, x):\n"
+        "        return kernel(x)\n\n\n"
+        "def lane_loop(lane, x):\n"
+        "    import time\n"
+        "    t0 = time.monotonic()\n"
+        "    lane.commit_recover(x)\n"
+        "    return bool(x), t0\n")
+
+    def flagged(text):
+        with open(path, "w") as fh:
+            fh.write(text)
+        rep = run(root, paths=("eges_tpu_torch",),
+                  rules=("launch-purity",), baseline_path=None)
+        return {f.symbol for f in rep.unsuppressed
+                if f.path.endswith(("clean_kernel.py", "front.py"))}
+
+    assert flagged(src) == set()
+    with open(front, "a") as fh:
+        fh.write("\n    def commit_noisy(self, x):\n"
+                 "        print(x)\n"
+                 "        return kernel(x)\n")
+    assert flagged(src) == {"Lane.commit_noisy"}
+    # the same name outside the facade layer is no facade entry
+    assert flagged(src.replace("lane.commit_recover(x)",
+                               "lane.commit_window(x)")) == {
+        "Lane.commit_noisy", "lane_loop"}
+    assert flagged(src.replace("    lane.commit_recover(x)\n",
+                               "    kernel(x)\n")) == {
+        "Lane.commit_noisy", "lane_loop"}
+    # no manifest, no facade layer: the region runs on to the caller
+    os.remove(toml)
+    assert flagged(src) == {"Lane.commit_noisy", "lane_loop"}
+
+
 # -- host-sync ------------------------------------------------------------
 
 def test_host_sync_flags_lock_and_midpipeline_blocking():

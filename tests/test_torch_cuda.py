@@ -10,6 +10,9 @@ Marked ``gpu``; run on a machine with a card as
 each test skips with its reason.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -783,3 +786,156 @@ def test_profile_window_sessions_back_to_back(dev):
     cold = profutil.cuda_event_ms(lambda: K.fp_mul_pallas(a, a), cold=True,
                                   device=dev)
     assert cold > max(us for _, us in events) / 1e3 / 2
+
+
+def _signed_block(n, seed):
+    """``n`` rows: signed rows tiled, an invalid row of each class."""
+    rng = np.random.default_rng(seed)
+    sigs, hashes, _ = tt.signed_rows(rng, 32)
+    bad = tt.invalid_rows(rng, sigs[0], hashes[0])
+    s = np.resize(np.concatenate([sigs, bad[0]]), (n, 65))
+    h = np.resize(np.concatenate([hashes, bad[1]]), (n, 32))
+    return np.ascontiguousarray(s), np.ascontiguousarray(h)
+
+
+def test_split_phase_two_windows_in_flight(dev):
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    bv = BatchVerifier()
+    wins = [_signed_block(n, 30 + n) for n in (1000, 1024, 700)]
+    want = [bv.recover_addresses(*w) for w in wins]
+    K.reset_launches()
+    st = [bv.commit_recover(bv.stage_recover(*wins[0]))]
+    got = []
+    for k in range(1, len(wins)):
+        st.append(bv.commit_recover(bv.stage_recover(*wins[k])))
+        got.append(bv.collect_recover(st[k - 1]))
+    got.append(bv.collect_recover(st[-1]))
+    assert sum(K.LAUNCHES.values()) == 18 * len(wins)
+    assert st[0].pair is not st[1].pair and st[0].pair is st[2].pair
+    assert st[0].pair.host_sigs.is_pinned()
+    for (a, ok), (wa, wok) in zip(got, want):
+        np.testing.assert_array_equal(a, wa)
+        np.testing.assert_array_equal(ok, wok)
+
+
+def test_split_phase_refill_while_computing(dev):
+    """Window 1's pair is refilled by window 3 while window 2 computes,
+    and window 2's by window 4 while window 3 computes: every window
+    still gives its own rows.  A third window in flight is refused."""
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    bv = BatchVerifier()
+    wins = [_signed_block(8192, 40 + k) for k in range(4)]
+    for w, k in zip(wins, range(4)):
+        w[1][:, 0] = k  # a hash byte per window: the rows differ
+    want = [bv.recover_addresses(*w) for w in wins]
+    s1 = bv.commit_recover(bv.stage_recover(*wins[0]))
+    s2 = bv.commit_recover(bv.stage_recover(*wins[1]))
+    with pytest.raises(RuntimeError, match="third window in flight"):
+        bv.stage_recover(*wins[2])
+    got = [bv.collect_recover(s1)]
+    s3 = bv.commit_recover(bv.stage_recover(*wins[2]))  # s1's pair
+    got.append(bv.collect_recover(s2))
+    s4 = bv.commit_recover(bv.stage_recover(*wins[3]))  # s2's pair
+    got += [bv.collect_recover(s) for s in (s3, s4)]
+    assert s3.pair is s1.pair and s4.pair is s2.pair
+    for (a, ok), (wa, wok) in zip(got, want):
+        np.testing.assert_array_equal(a, wa)
+        np.testing.assert_array_equal(ok, wok)
+
+
+def test_split_phase_new_pair_while_the_card_computes(dev):
+    """A window of a bucket not seen before, staged while an 8192-row
+    window computes: its new pair's device inputs come from the caching
+    allocator for the current stream, so its upload waits for what that
+    stream has queued (a copy racing ahead of the queue gave rows of
+    zeros, every address invalid)."""
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    bv = BatchVerifier()
+    big, small = _signed_block(8192, 60), _signed_block(1000, 61)
+    want = [bv.recover_addresses(*w) for w in (big, small)]
+    for k in range(3):
+        fresh = BatchVerifier()
+        s1 = fresh.commit_recover(fresh.stage_recover(*big))
+        s2 = fresh.commit_recover(fresh.stage_recover(*small))
+        for st, (wa, wok) in zip((s1, s2), want):
+            a, ok = fresh.collect_recover(st)
+            np.testing.assert_array_equal(a, wa)
+            np.testing.assert_array_equal(ok, wok)
+
+
+def _trace_kernels(path):
+    """The hand-written kernels (``k_*``) a Chrome trace holds."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and str(e.get("name", "")).startswith("k_"))
+
+
+def test_scheduler_on_card_and_devstats(dev, tmp_path):
+    """Three windows through the scheduler's lane on the card answer as
+    the facade; a trace armed for 2 windows holds both of their 18
+    launches; a singleton goes to the card, not to the host model."""
+    from eges_tpu_torch.crypto.scheduler import scheduler_for
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.utils import devstats
+
+    bv = BatchVerifier()
+    s, h = _signed_block(600, 50)
+    addrs, ok = bv.recover_addresses(s, h)
+    want = [bytes(addrs[i]) if ok[i] else None for i in range(len(s))]
+    # 37 distinct rows (the others repeat them): three windows of 16
+    sched = scheduler_for(bv, max_batch=16, window_ms=10_000.0)
+    captures = devstats.DEFAULT.trace.status()["captures"]
+    armed = devstats.DEFAULT.trace.arm(2, outdir=str(tmp_path))
+    assert armed["state"] in ("armed", "tracing")
+    try:
+        got = sched.recover_window(h, s)
+        assert got == want
+        st = sched.stats()
+        assert st["pipeline_windows"] == st["batches"] >= 3
+        assert st["breaker_diverted"] == st["device_errors"] == 0
+        K.reset_launches()
+        fresh = _signed_block(1, 51)
+        assert sched.recover_window(fresh[1], fresh[0]) == [
+            bytes(a) if o else None
+            for a, o in zip(*bv.recover_addresses(*fresh))][:1]
+        assert sum(K.LAUNCHES.values()) == 2 * 18  # the window, the check
+        assert sched.stats()["host_diverted"] == 0
+    finally:
+        sched.close()
+    trace = devstats.DEFAULT.trace.status()
+    assert trace["captures"] == captures + 1, trace
+    kernels = _trace_kernels(os.path.join(trace["path"], "trace.json"))
+    assert kernels >= 2 * 18, kernels
+    assert devstats.sample_memory()[0]["bytes_in_use"] > 0
+
+
+def test_scheduler_on_card_fails_on_a_device_error(dev):
+    """A device error under the scheduler fails the window's rows: the
+    host model answers none of them and the breaker stays closed."""
+    from eges_tpu_torch.crypto.scheduler import VerifierScheduler
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+
+    bv = BatchVerifier()
+
+    def lost(rows):
+        raise RuntimeError(f"device lost ({rows} rows)")
+
+    bv.failure_hook = lost
+    sched = VerifierScheduler(bv, max_batch=64, window_ms=10_000.0)
+    s, h = _signed_block(40, 52)
+    try:
+        K.reset_launches()
+        with pytest.raises(RuntimeError, match="device lost"):
+            sched.recover_window(h, s)
+        with pytest.raises(RuntimeError, match="device lost"):
+            sched.recover_signers([(bytes(h[0]), bytes(s[0]))])
+        st = sched.stats()
+        assert st["device_errors"] == 2 and st["breaker_trips"] == 0
+        assert st["host_diverted"] == st["breaker_diverted"] == 0
+        assert sum(K.LAUNCHES.values()) == 0
+    finally:
+        sched.close()

@@ -1,8 +1,10 @@
 """Drive eges_tpu_torch's paths on one CUDA card: batched sender
 recovery, classic ECDSA verify and Keccak-256, the un-fused
 recovery and verify of stacked windows, the same paths under the
-reference's TPU-tiling configuration, the profiling harness, and the
-static-analysis gate with the analysis fixture's kernel (#21).
+reference's TPU-tiling configuration, the profiling harness, the
+static-analysis gate with the analysis fixture's kernel (#21), a
+simulated 64-validator Geec cluster over the card's verifier and the
+PoW engine's nonce sweep.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
@@ -192,6 +194,29 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
    times the host clock) on one (8, 128) tile through
    ``mul_scalar_f32``, against its plain version.
 
+13. sim: BASELINE config 2 on the port, ``SimCluster(64,
+   n_candidates=8, n_acceptors=16, txn_per_block=1000, txpool=True,
+   columnar=True, verifier=BatchVerifier())`` with SIM_BLOCKS x 1000
+   signed transfers from 100 funded senders, which every pool admits in
+   flooder windows of 250 through the columnar seam before the first
+   block (``testing.flood_sim``), until every node's chain holds every
+   transfer; the same committee with a flooder that gossips
+   SIM_GOSSIP's transfers over the network, which every node admits
+   and relays; then a 64-node signed-vote sim to height 5
+   (``tests/test_scale.py:63``'s setting).  Each run on the card under
+   the profiler, then its twin over the port's ``NativeBatchVerifier``
+   on the same seed, one after the other in this process, after phases
+   2-12: heights, block hashes, the height of each transfer, txpool
+   stats, network counts and the canonical journal dump without
+   ``testing.VERIFIER_ONLY`` events, node for node; ``host_diverted`` 0
+   and 18 launches a device window.  One line a run: wall seconds,
+   device windows, rows, cache hits, rows a window (p50, max), rows a
+   second, the card's idle share (its kernels' device time by
+   ``torch.profiler`` over the wall), launches.
+14. pow: ``PowEngine()`` on the card (sweeps of 4096 nonces, one
+   keccak_block launch each) mines 3 blocks at difficulty 2^15 with the
+   headers of ``PowEngine(use_device=False)``'s host loop.
+
 Every kernel's time, and each cold time, must lie above its bound:
 a bound the card beats is no floor, and the run fails.
 
@@ -316,6 +341,27 @@ A2_FAMILIES = ("verifier.device", "verifier.rows", "verifier.padded_rows",
                "verifier.compile_cache_hits",
                "verifier.compile_cache_misses")
 CLOCK_SECONDS = 1.5                 # batches the clock sampler sees, s
+# native/Makefile's flags less -fopenmp, for a toolchain without libgomp
+NATIVE_CXXFLAGS = "-O3 -fPIC -std=c++17 -Wall"
+# phase sim: BASELINE config 2 (a 64-validator committee, 1000 txn a
+# block; candidates and acceptors as tests/test_scale.py) over
+# SimCluster(verifier=BatchVerifier()); SIM_BLOCKS blocks' worth of
+# signed transfers from SIM_SENDERS funded accounts, SIM_WINDOW a
+# flooder window; the gossip run: SIM_GOSSIP's transfers gossiped by the
+# flooder (blocks of as many txns: a 1000-txn block costs the host about
+# two minutes a height at 64 nodes); then the signed-vote run of
+# tests/test_scale.py:63 to its height.  Each run's native-verifier twin
+# runs after it on the same seed.
+SIM_NODES, SIM_CANDIDATES, SIM_ACCEPTORS = 64, 8, 16
+SIM_TXN_PER_BLOCK, SIM_BLOCKS, SIM_SENDERS, SIM_WINDOW = 1000, 1, 100, 250
+SIM_SEED = 14
+SIM_GOSSIP = {"transfers": 20, "window": 20, "txn_per_block": 20,
+              "seed": 15}
+SIM_SIGNED = {"txn_per_block": 2, "seed": 33, "height": 5}
+# phase pow: PowEngine() on the card at its default sweep of 4096 nonces,
+# POW_BLOCKS blocks on a chain whose genesis difficulty makes a block
+# take about POW_DIFFICULTY / 4096 sweeps
+POW_BLOCKS, POW_DIFFICULTY = 3, 1 << 15
 MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
 # #21 and #20d against their library calls in one call: rounds in ABBA
 # order, each round events over AB_F32_REPS calls and AB_F32_COLD cold ones
@@ -382,8 +428,17 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 SMS, LANES_PER_CLOCK = 132, 128
 
 
+STARTED = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout; on stderr, the seconds since the start
+    beside the line's phase (where the script's time goes)."""
     print(json.dumps(obj), flush=True)
+    if isinstance(obj, dict) and "phase" in obj:
+        print(f"chip_smoke: {time.monotonic() - STARTED:.1f} s "
+              f"{obj['phase']} {obj.get('run', '')}".rstrip(),
+              file=sys.stderr, flush=True)
 
 
 def smi(query: str) -> str:
@@ -464,9 +519,33 @@ def ladder_args(dig, neg, rows, ladder_doublings=0.0):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """The kernels' build, and beside it the native host crypto library
+    (``make -C native``: the sims' signing, hashing and native-verifier
+    twins run on it, as the reference's do)."""
+    from eges_tpu_torch.crypto import native
     from eges_tpu_torch.ops import build, kernels as K
 
-    info = build.build()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    make = subprocess.Popen(["make", "-C", os.path.join(root, "native")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        info = build.build()
+    finally:
+        log, _ = make.communicate()
+    openmp = make.returncode == 0
+    if not openmp:
+        # a toolchain without libgomp: the same sources without OpenMP
+        # (one pragma, the batch recovery's loop, then runs serially)
+        log = subprocess.run(
+            ["make", "-B", "-C", os.path.join(root, "native"),
+             "CXXFLAGS=" + NATIVE_CXXFLAGS, "LDFLAGS=-shared"],
+            capture_output=True, text=True).stdout
+    native_s = time.monotonic() - t0
+    if not native.available():
+        raise AssertionError(f"native library build failed: {log[-2000:]}")
+    native.self_check()
     K.library()
     launched = {g: info["ptxas"].get(g) for kernel in LANE_GLOBALS
                 for g in launched_instances(kernel)}
@@ -474,6 +553,7 @@ def phase_build():
                      for g in (LANE_GLOBALS[k].format(t)
                                for t in lanes_of(k))})
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
+          "native_seconds": round(native_s, 3), "native_openmp": openmp,
           "compiled": info["built"], "library": os.path.basename(
               info["path"]), "ptxas": info["ptxas"],
           "lane_kernels_launched": launched})
@@ -2934,6 +3014,226 @@ def phase_analysis(dev):
     return launches
 
 
+def _sim_run(run: str, verifier):
+    """One run of phase sim over ``verifier``: ``"config2"`` (the
+    transfers admitted before the first block, ``testing.flood_sim``),
+    ``"gossip"`` (the transfers gossiped by the flooder and relayed by
+    every node) or ``"signed"`` (signed votes, no transfers).  Returns
+    its outcome (``testing.sim_outcome``, the verifier-only events
+    dropped), the scheduler's stats, the rows of each flushed window and
+    the wall seconds."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.sim.cluster import SimCluster
+
+    committee = {"n_candidates": SIM_CANDIDATES,
+                 "n_acceptors": SIM_ACCEPTORS}
+    if run == "signed":
+        txs = ()
+        t0 = time.monotonic()
+        c = SimCluster(SIM_NODES, signed=True, verifier=verifier,
+                       seed=SIM_SIGNED["seed"],
+                       txn_per_block=SIM_SIGNED["txn_per_block"],
+                       **committee)
+        c.start()
+        c.run(300, stop_condition=lambda: (
+            c.min_height() >= SIM_SIGNED["height"]))
+        for sn in c.nodes:
+            sn.node.stop()
+    else:
+        g = SIM_GOSSIP
+        n, seed, window, per_block = (
+            (SIM_BLOCKS * SIM_TXN_PER_BLOCK, SIM_SEED, SIM_WINDOW,
+             SIM_TXN_PER_BLOCK) if run == "config2" else
+            (g["transfers"], g["seed"], g["window"], g["txn_per_block"]))
+        txs, alloc = tt.sim_transfers(n, SIM_SENDERS, seed)
+        t0 = time.monotonic()
+        c = tt.flood_sim(verifier, txs, alloc, nodes=SIM_NODES,
+                         window=window, seed=seed, txn_per_block=per_block,
+                         gossip=run == "gossip",
+                         start_s=0.01 if run == "gossip" else 0.0,
+                         columnar=True, signed=False, **committee)
+    wall = time.monotonic() - t0
+    stats = c.verifier.stats()
+    c.verifier.close()
+    flushes = [e["rows"] for evs in c.journals().values() for e in evs
+               if e.get("type") == "verifier_flush"]
+    return (tt.sim_outcome(c, txs, tt.verifier_only), stats, flushes,
+            wall)
+
+
+def _first_difference(a: str, b: str) -> str:
+    for i, (x, y) in enumerate(zip(a.splitlines(), b.splitlines())):
+        if x != y:
+            return f"line {i}: {x[:300]} != {y[:300]}"
+    return f"lengths {len(a)} and {len(b)}"
+
+
+def _sim_device_run(run: str):
+    """One phase sim run on the card, ``SimCluster(verifier=
+    BatchVerifier())``, the wrappers' launches counted from 0 around it
+    and its kernels' device time taken by the profiler (CUDA activity
+    only).  Returns ``_sim_run``'s four values, the launches, the
+    kernels' seconds and the devstats snapshot (goodput: rows over padded
+    rows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.ops import kernels as K
+    from eges_tpu_torch.utils import devstats
+
+    bv = BatchVerifier()
+    devstats.DEFAULT.rebase()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outcome, stats, flushes, wall = _sim_run(run, bv)
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and e.name.startswith("k_")) / 1e6
+    good = devstats.DEFAULT.snap()["devices"]
+    return outcome, stats, flushes, wall, launches, busy, good
+
+
+def phase_sim(card):
+    """BASELINE config 2 on the port: 64 nodes with txpools, columnar
+    ingress and 1000 txn a block, SIM_BLOCKS blocks' worth of signed
+    transfers admitted by every pool in flooder windows; the same
+    committee with SIM_GOSSIP's transfers gossiped by the flooder and
+    relayed by every node; then 64 nodes with signed votes to
+    SIM_SIGNED's height.  Each run over ``SimCluster(verifier=
+    BatchVerifier())`` on the card, then over the port's
+    ``NativeBatchVerifier`` on the same seed, one after the other: the
+    two must agree node for node in heights, the block hash at every
+    height, the height at which each transfer is included, txpool
+    stats, network counts and the canonical journal dump without
+    ``testing.VERIFIER_ONLY`` events; no row served by the host, 18
+    launches per device window.  Returns the launches of the card's
+    runs."""
+    from eges_tpu_torch import testing as tt
+    from eges_tpu_torch.crypto.verify_host import NativeBatchVerifier
+    from eges_tpu_torch.ops import kernels as K
+
+    total = dict.fromkeys(K.KERNELS, 0)
+    for run in ("signed", "gossip", "config2"):
+        (outcome, stats, flushes, wall, launches, busy,
+         good) = _sim_device_run(run)
+        want, twin_stats, _, twin_wall = _sim_run(run,
+                                                  NativeBatchVerifier())
+        windows = stats["pipeline_windows"]
+        rows = stats["rows"]
+        out = {
+            "phase": "sim", "run": run, "card": card,
+            "nodes": SIM_NODES, "heights": sorted(set(
+                outcome["heights"])),
+            "wall_s": round(wall, 3), "twin_wall_s": round(twin_wall, 3),
+            "device_windows": windows, "batches": stats["batches"],
+            "rows": rows, "cache_hits": stats["cache_hits"],
+            "host_diverted": stats["host_diverted"],
+            "gossip_msgs": outcome["net"]["gossip"],
+            "gossip_bytes": outcome["net"]["gossip_bytes"],
+            "direct_msgs": outcome["net"]["direct"],
+            "device_errors": stats["device_errors"],
+            "rows_per_window_p50": (statistics.median(flushes)
+                                    if flushes else None),
+            "rows_per_window_max": max(flushes, default=None),
+            "device_rows_per_s": round(rows / wall, 1),
+            "rows_per_busy_s": round(rows / busy, 1) if busy else None,
+            "busy_s": round(busy, 6),
+            "idle_share": round(1.0 - busy / wall, 6),
+            "devstats": good,
+            "twin": {k: twin_stats[k] for k in
+                     ("batches", "rows", "cache_hits", "host_diverted")},
+            "dropped_events": tt.VERIFIER_ONLY,
+            "launches": {k: v for k, v in launches.items() if v}}
+        if run != "signed":
+            out["transfers"] = len(outcome["included"][0])
+            out["transfer_heights"] = sorted(
+                set(outcome["included"][0]), key=str)
+            out["wall_s_per_transfer"] = round(wall / out["transfers"], 4)
+        emit(out)
+        for key in ("heights", "hashes", "included", "pool", "net"):
+            if outcome[key] != want[key]:
+                raise AssertionError(f"sim {run}: {key} differs from "
+                                     "the native-verifier twin")
+        if outcome["dump"] != want["dump"]:
+            raise AssertionError(
+                f"sim {run}: journal differs from the native twin at "
+                + _first_difference(outcome["dump"], want["dump"]))
+        if None in sum(outcome["included"], []):
+            raise AssertionError(f"sim {run}: a transfer was not included")
+        if min(outcome["heights"]) < (SIM_SIGNED["height"]
+                                      if run == "signed" else 1):
+            raise AssertionError(f"sim {run}: heights "
+                                 f"{out['heights']}")
+        if stats["host_diverted"] or stats["device_errors"] or not windows:
+            raise AssertionError(f"sim {run}: host_diverted "
+                                 f"{stats['host_diverted']}, device "
+                                 f"errors {stats['device_errors']}, "
+                                 f"windows {windows}")
+        want_launches = {k: n * windows
+                         for k, n in FUSED_RECOVER_LAUNCHES.items()}
+        if {k: v for k, v in launches.items() if v} != want_launches:
+            raise AssertionError(f"sim {run}: launches {launches}, want "
+                                 f"18 a window: {want_launches}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def phase_pow(card):
+    """``PowEngine()`` on the card (sweeps of 4096 nonces through
+    ``keccak256_fixed``, one launch of #13 each) mines POW_BLOCKS blocks
+    on a chain whose genesis has difficulty POW_DIFFICULTY; the host
+    loop, ``PowEngine(use_device=False)``, mines the same chain from the
+    same genesis: the headers must be equal, and every launch of the run
+    a keccak_block.  Seconds of each way's ``mine_next`` calls (the
+    preview, the seal hash and the chain's check of the seal included).
+    Returns the launches of the device run."""
+    import dataclasses
+
+    from eges_tpu_torch.core.chain import BlockChain, make_genesis
+    from eges_tpu_torch.core.engine import PowEngine
+    from eges_tpu_torch.core.types import new_block
+    from eges_tpu_torch.ops import kernels as K
+
+    g = make_genesis()
+    genesis = new_block(dataclasses.replace(g.header,
+                                            difficulty=POW_DIFFICULTY))
+    heads = {}
+    for way, eng in (("device", PowEngine()),
+                     ("host", PowEngine(use_device=False))):
+        chain = BlockChain(genesis=genesis, engine=eng)
+        K.reset_launches()
+        t0 = time.monotonic()
+        heads[way] = [eng.mine_next(chain).header for _ in range(POW_BLOCKS)]
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = dict(K.LAUNCHES)
+        if way == "device":
+            dev_launches, dev_s = launches, seconds
+            if not eng.use_device:
+                raise AssertionError("pow: the engine left the card")
+        else:
+            host_s = seconds
+    sweeps = dev_launches["keccak_block"]
+    emit({"phase": "pow", "card": card, "blocks": POW_BLOCKS,
+          "difficulty": POW_DIFFICULTY, "sweep_batch": 4096,
+          "sweeps": sweeps, "device_s": round(dev_s, 4),
+          "host_loop_s": round(host_s, 4),
+          "mine_ms_per_sweep": round(dev_s * 1e3 / max(sweeps, 1), 4),
+          "nonces": [int.from_bytes(h.nonce, "big") for h in heads["device"]],
+          "launches": {k: v for k, v in dev_launches.items() if v}})
+    if heads["device"] != heads["host"]:
+        raise AssertionError("pow: the card's headers differ from the host "
+                             "loop's")
+    if {k for k, v in dev_launches.items() if v} != {"keccak_block"} \
+            or sweeps < POW_BLOCKS:
+        raise AssertionError(f"pow: launches {dev_launches}")
+    return dev_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2968,6 +3268,8 @@ def main() -> int:
     paths["profile"] = phase_profile(dev)
     records.update(phase_profile_kernels(dev, clock_hz, info["ptxas"]))
     paths["analysis"] = phase_analysis(dev)
+    paths["sim"] = phase_sim(card)
+    paths["pow"] = phase_pow(card)
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name in K.KERNELS:

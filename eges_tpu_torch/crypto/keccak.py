@@ -1,6 +1,8 @@
 """Keccak-256 (Ethereum's pre-NIST padding), pure Python.
 
-The host oracle for the keccak kernel and for ``chip_smoke.py``.  Note
+As in the reference, ``keccak256`` dispatches to the native library
+(``crypto/native.py``) when it is built; the pure-Python function stays
+as ``keccak256_py``.  The host oracle for the keccak kernel and for ``chip_smoke.py``.  Note
 ``hashlib.sha3_256`` is NIST SHA-3 (domain byte 0x06) and gives other
 digests; Ethereum's Keccak-256 pads with 0x01.
 """
@@ -58,7 +60,7 @@ def keccak_f1600(lanes: list[int]) -> list[int]:
     return a
 
 
-def keccak256(data: bytes) -> bytes:
+def keccak256_py(data: bytes) -> bytes:
     """Ethereum-style Keccak-256 digest of ``data``."""
     state = [0] * 25
     padded = bytearray(data)
@@ -75,3 +77,21 @@ def keccak256(data: bytes) -> bytes:
     for i in range(4):  # 32 bytes = 4 lanes
         out += state[i].to_bytes(8, "little")
     return bytes(out)
+
+
+def _dispatch_keccak256():
+    """Prefer the native C++ core when built (the reference's asm-core
+    role, crypto/sha3/keccakf_amd64.s); pure Python stays the golden
+    fallback."""
+    try:
+        from eges_tpu_torch.crypto import native
+
+        if native.available():
+            return lambda data: native.keccak256(bytes(data))
+    # analysis: allow-swallow(optional native-accel probe; falls back to python)
+    except Exception:
+        pass
+    return keccak256_py
+
+
+keccak256 = _dispatch_keccak256()

@@ -159,12 +159,12 @@ def self_check() -> None:
     from eges_tpu_torch.crypto import keccak as pk
     from eges_tpu_torch.crypto import secp256k1 as ps
 
-    assert keccak256(b"") == pk.keccak256(b"")
-    assert keccak256(b"abc" * 100) == pk.keccak256(b"abc" * 100)
+    assert keccak256(b"") == pk.keccak256_py(b"")
+    assert keccak256(b"abc" * 100) == pk.keccak256_py(b"abc" * 100)
     priv = bytes(range(1, 33))
-    msg = pk.keccak256(b"native self check")
-    assert ec_pubkey(priv) == ps.privkey_to_pubkey(priv)
+    msg = pk.keccak256_py(b"native self check")
+    assert ec_pubkey(priv) == ps.privkey_to_pubkey_py(priv)
     sig = ec_sign(msg, priv)
-    assert sig == ps.ecdsa_sign(msg, priv), "sign mismatch vs golden model"
-    assert ec_recover(msg, sig) == ps.privkey_to_pubkey(priv)
-    assert ec_verify(msg, sig[:64], ps.privkey_to_pubkey(priv))
+    assert sig == ps.ecdsa_sign_py(msg, priv), "sign mismatch vs golden model"
+    assert ec_recover(msg, sig) == ps.ecdsa_recover_py(msg, sig)
+    assert ec_verify(msg, sig[:64], ps.privkey_to_pubkey_py(priv))

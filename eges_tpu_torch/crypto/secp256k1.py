@@ -1,6 +1,10 @@
 """secp256k1 ECDSA in pure Python: the host model of the port.
 
-It builds the fixed-base window tables of ``ops/ec.py`` and is the
+As in the reference, ``ecdsa_sign``, ``ecdsa_recover``, ``ecdsa_verify``
+and ``privkey_to_pubkey`` dispatch to the native library
+(``crypto/native.py``) when it is built; the pure-Python functions stay
+under ``*_py`` names, and ``native.self_check`` holds the library
+against them.  It builds the fixed-base window tables of ``ops/ec.py`` and is the
 oracle ``chip_smoke.py`` holds the card's results against.  Signatures
 use the Ethereum 65-byte wire format ``r[32] || s[32] || v[1]`` with
 ``v`` the recovery id.  Nonces are deterministic (RFC 6979 with
@@ -190,3 +194,50 @@ def recover_address(msg_hash: bytes, sig: bytes) -> bytes:
     address (raises ValueError for every invalid class), the per-row
     result that the batched path computes on the card."""
     return pubkey_to_address(ecdsa_recover(msg_hash, sig))
+
+
+# ---------------------------------------------------------------------------
+# native dispatch: prefer the C++ library when built (the reference's
+# cgo-vs-pure-Go split, crypto/signature_cgo.go:17); the pure-Python
+# implementations above remain the golden model and are kept under
+# ``*_py`` names for cross-checking.
+# ---------------------------------------------------------------------------
+
+ecdsa_sign_py = ecdsa_sign
+ecdsa_recover_py = ecdsa_recover
+ecdsa_verify_py = ecdsa_verify
+privkey_to_pubkey_py = privkey_to_pubkey
+
+try:
+    from eges_tpu_torch.crypto import native as _native
+
+    if _native.available():
+        def ecdsa_sign(msg_hash: bytes, priv: bytes) -> bytes:  # noqa: F811
+            if len(msg_hash) != 32 or len(priv) != 32:
+                raise ValueError("hash and key must be 32 bytes")
+            return _native.ec_sign(bytes(msg_hash), bytes(priv))
+
+        def ecdsa_recover(msg_hash: bytes, sig: bytes) -> bytes:  # noqa: F811
+            if len(sig) != 65 or len(msg_hash) != 32:
+                raise ValueError("need 32-byte hash and 65-byte signature")
+            return _native.ec_recover(bytes(msg_hash), bytes(sig))
+
+        def ecdsa_verify(msg_hash: bytes, sig: bytes, pub: bytes) -> bool:  # noqa: F811
+            if len(msg_hash) != 32 or len(sig) < 64:
+                return False
+            try:
+                pub64 = pub[-64:] if len(pub) in (64, 65) else pub
+                if len(pub64) != 64:
+                    return False
+                return _native.ec_verify(bytes(msg_hash), bytes(sig[:64]),
+                                         bytes(pub64))
+            except Exception:
+                return False
+
+        def privkey_to_pubkey(priv: bytes) -> bytes:  # noqa: F811
+            if len(priv) != 32:
+                raise ValueError("private key must be 32 bytes")
+            return _native.ec_pubkey(bytes(priv))
+# analysis: allow-swallow(optional native-accel probe; pure-python defs stand)
+except Exception:  # pragma: no cover - native lib absent
+    pass

@@ -22,8 +22,9 @@ a manifest error (exit 2), not a silent skip — a new module must be
 placed in the map before it can land.
 
 The reference's ``perimeter`` and ``facade`` keys (the ingress surface
-that ``perimeter-breach`` checks) are not read: the port has no ingress
-code yet, so its map declares neither, and a fixture manifest that
+that ``perimeter-breach`` checks) are not read: the port's gate has no
+``perimeter-breach`` rule yet (its ``ingress/`` copy is placed as a
+layer), so its map declares neither, and a fixture manifest that
 declares them is checked for its layers alone.
 """
 
@@ -42,6 +43,13 @@ import os
 # ledger, devstats), which the facade and the scheduler publish into.
 # ``crypto/verifier.py`` is the facade; the scheduler sits above it: it
 # drives the facade's methods duck-typed and imports nothing of it.
+# The host copies follow the reference's order above the registry:
+# ``core/`` (chain, state, EVM, txpool, engines; the PoW sweep reaches
+# ``ops/keccak.py``), ``consensus/`` over it, ``ingress/`` over both,
+# and ``sim/`` at the top with the harness (it wires every layer into a
+# cluster); their host helpers (log, limits, journal, timeseries, keys,
+# bn254) sit in the lowest layer with the other ``utils/`` and
+# ``crypto/`` copies.
 # The three sub-packages are roots as well as the package, so their
 # ``__init__`` matches exactly and a new module under ``ops/``,
 # ``crypto/`` or ``utils/`` is a manifest error until it is placed here.
@@ -64,7 +72,13 @@ MANIFEST = {
                       "eges_tpu_torch.utils.tracing",
                       "eges_tpu_torch.utils.profiler",
                       "eges_tpu_torch.utils.ledger",
-                      "eges_tpu_torch.utils.devstats"]},
+                      "eges_tpu_torch.utils.devstats",
+                      "eges_tpu_torch.utils.log",
+                      "eges_tpu_torch.utils.limits",
+                      "eges_tpu_torch.utils.journal",
+                      "eges_tpu_torch.utils.timeseries",
+                      "eges_tpu_torch.crypto.keys",
+                      "eges_tpu_torch.crypto.bn254"]},
         {"name": "L1-pipeline",
          "packages": ["eges_tpu_torch.ops.bigint", "eges_tpu_torch.ops.ec",
                       "eges_tpu_torch.ops.keccak"]},
@@ -74,8 +88,15 @@ MANIFEST = {
          "packages": ["eges_tpu_torch.crypto.scheduler"]},
         {"name": "L4-registry",
          "packages": ["eges_tpu_torch.models"]},
-        {"name": "L5-harness",
-         "packages": ["eges_tpu_torch.harness", "eges_tpu_torch.testing"]},
+        {"name": "L5-core",
+         "packages": ["eges_tpu_torch.core"]},
+        {"name": "L6-consensus",
+         "packages": ["eges_tpu_torch.consensus"]},
+        {"name": "L7-ingress",
+         "packages": ["eges_tpu_torch.ingress"]},
+        {"name": "L8-harness",
+         "packages": ["eges_tpu_torch.sim", "eges_tpu_torch.harness",
+                      "eges_tpu_torch.testing"]},
     ],
 }
 

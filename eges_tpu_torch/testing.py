@@ -3,8 +3,10 @@ the extremes, GLV scalars and values to canonicalise with theirs, curve
 points, signed recovery rows and one row of each
 invalid class, and classic-verify rows of every class with the host
 model's answer.  Everything is made from a ``numpy.random.Generator``,
-so a seed fixes every byte.  Also the pinned launch counts of each path
-and the switch into the reference's TPU-tiling configuration.
+so a seed fixes every byte.  Also the pinned launch counts of each path,
+the switch into the reference's TPU-tiling configuration, and the
+transfer-flood sims the tests and ``chip_smoke.py`` phase ``sim`` run
+(:func:`flood_sim`, :func:`sim_outcome`, :func:`canonical_dump`).
 """
 
 from __future__ import annotations
@@ -489,3 +491,163 @@ TILING_VERIFY_LAUNCHES = {
 TILING_UNFUSED_RECOVER_LAUNCHES = {
     ("pow_mod_rows8" if k == "pow_mod" else k): v
     for k, v in UNFUSED_RECOVER_LAUNCHES.items()}
+
+
+# -- simulated clusters ---------------------------------------------------
+
+# journal attrs measured in wall-clock time, per event type: a copy of
+# the reference's harness/chaos.py VOLATILE_KEYS (the port may not import
+# it), stripped before two runs' journals are compared
+VOLATILE_KEYS = {
+    "verifier_flush": ("waited_ms",),
+    "block_committed": ("dt",),
+    "verifier_mesh_dispatch": ("queue_wait_ms", "device", "occupancy",
+                               "rows", "diverted"),
+    "verifier_aot_load": ("load_s", "compile_s", "cold_start_s"),
+    "telemetry_sample": ("metrics",),
+    "commit_anatomy": ("wait_ms", "stage_ms", "compute_ms", "lane",
+                       "trace", "traces"),
+    "slo_firing": ("phase", "phase_share", "lane"),
+    "ingress_ledger": ("costs",),
+    "sched_adapt": ("window_ms", "target_rows", "burn_fast",
+                    "burn_slow", "p99_ms", "wait_p50_ms", "decision"),
+}
+
+# Events that describe the verifier's windows, not the protocol: left
+# out where a sim over the card is compared with one over a host
+# verifier.  ``verifier_flush`` is one event per scheduler window: its
+# rows, bucket and flush reason follow the 2 ms wall-clock deadline,
+# and a host target serves singleton windows on the host (``diverted``)
+# where the card takes them.  The ``verify_window`` stage of
+# ``commit_anatomy`` mirrors each ``verifier_flush``.
+VERIFIER_ONLY = {
+    "verifier_flush": "one per scheduler window: rows, bucket and reason "
+                      "follow the wall-clock deadline; a host target "
+                      "diverts singletons, the card takes them",
+    "commit_anatomy:verify_window": "mirrors verifier_flush, window by "
+                                    "window",
+}
+
+
+def verifier_only(ev: dict) -> bool:
+    """Whether a journal event is one of :data:`VERIFIER_ONLY`."""
+    kind = ev.get("type")
+    return kind in VERIFIER_ONLY or (
+        f"{kind}:{ev.get('stage')}" in VERIFIER_ONLY)
+
+
+def canonical_dump(by_node: dict, drop=None) -> bytes:
+    """The reference's ``harness/chaos.py`` ``canonical_dump``: sorted
+    node order, sorted JSON keys, :data:`VOLATILE_KEYS` stripped; events
+    for which ``drop(ev)`` is true are left out."""
+    import json
+
+    lines = []
+    for name in sorted(by_node):
+        for ev in by_node[name]:
+            if drop is not None and drop(ev):
+                continue
+            gone = VOLATILE_KEYS.get(ev.get("type"), ())
+            ev = {k: v for k, v in ev.items() if k not in gone}
+            lines.append(json.dumps(ev, sort_keys=True))
+    return ("\n".join(lines) + "\n").encode()
+
+
+def sim_transfers(n: int, senders: int, seed: int = 0):
+    """``n`` signed value transfers, round robin over ``senders`` accounts
+    whose keys come from ``seed`` (consecutive nonces each), and the
+    genesis ``alloc`` that funds them."""
+    from eges_tpu_torch.core.types import Transaction
+    from eges_tpu_torch.crypto.keccak import keccak256
+
+    privs = [keccak256(b"eges-sim-sender" + seed.to_bytes(8, "big")
+                       + i.to_bytes(4, "big")) for i in range(senders)]
+    alloc = {host.pubkey_to_address(host.privkey_to_pubkey(p)): 10 ** 21
+             for p in privs}
+    txs = [Transaction(nonce=i // senders, gas_price=1, gas_limit=21000,
+                       to=b"\x5e" * 20, value=i + 1).signed(
+                           privs[i % senders]) for i in range(n)]
+    return txs, alloc
+
+
+def flood_sim(verifier, txs, alloc, *, nodes: int, window: int,
+              seed: int = 0, height: int = 0, gossip: bool = False,
+              start_s: float = 0.01, max_s: float = 900.0, **kw):
+    """A ``SimCluster(nodes, txpool=True, alloc=alloc, verifier=verifier,
+    **kw)`` that a flooder peer hands ``txs`` in windows of ``window``,
+    one window a virtual millisecond from ``start_s`` on; run until every
+    node holds every transfer in its chain and is at ``height`` at least.
+    Returns the cluster, stopped.
+
+    With ``gossip`` the flooder gossips each window over the sim's
+    network, as ``tests/test_columnar_ingest.py`` does: every node admits
+    it through its gossip handler and relays each transfer it admitted to
+    every peer once, nodes x transfers x (nodes - 1) deliveries.  Without
+    it each pool admits the windows directly through the columnar seam
+    that the gossip handler calls (``ingress.admit_remotes_window``), and
+    nothing is relayed."""
+    import eges_tpu_torch.consensus.messages as M
+    from eges_tpu_torch.ingress import admit_remotes_window, columns_of
+    from eges_tpu_torch.sim.cluster import SimCluster
+    from eges_tpu_torch.utils import ledger
+
+    c = SimCluster(nodes, seed=seed, txpool=True, alloc=alloc,
+                   verifier=verifier, **kw)
+    if gossip:
+        c.net.join("flooder", "10.0.0.99", 9999, lambda d: None,
+                   lambda d: None)
+    fired = [0]
+    n_win = -(-len(txs) // window)
+
+    def deliver(k: int) -> None:
+        part = txs[k * window:(k + 1) * window]
+        if gossip:
+            c.net.deliver_gossip("flooder", M.pack_gossip(
+                M.GOSSIP_TXNS, M.TxnsMsg(txns=tuple(part))))
+        else:
+            for sn in c.live_nodes():
+                with ledger.bind(sn.node.ledger, "peer:flooder"):
+                    admit_remotes_window(sn.node.txpool, columns_of(part))
+        fired[0] += 1
+
+    for k in range(n_win):
+        c.clock.call_later(start_s + 0.001 * k,
+                           (lambda k: lambda: deliver(k))(k))
+    hashes = [t.hash for t in txs]
+    seen = {"h": -1, "done": False}
+
+    def done() -> bool:
+        if fired[0] < n_win:
+            return False
+        h = c.min_height()
+        if h != seen["h"]:
+            seen["h"] = h
+            seen["done"] = h >= height and all(
+                sn.chain.store.tx_loc(x) is not None
+                for sn in c.nodes for x in hashes)
+        return seen["done"]
+
+    c.start()
+    c.run(max_s, stop_condition=done)
+    for sn in c.live_nodes():
+        sn.node.stop()
+    return c
+
+
+def sim_outcome(c, txs=(), drop=None) -> dict:
+    """What two runs of one sim must share, as JSON values: heights, each
+    node's block hash at every height, the height at which each node's
+    chain holds each of ``txs`` (None where it does not), txpool stats,
+    the network's delivery counts, and the canonical journal dump
+    (``drop`` as in :func:`canonical_dump`)."""
+    out = {"heights": c.heights(), "hashes": [], "included": [],
+           "pool": [], "net": c.net_stats()}
+    for sn in c.nodes:
+        out["hashes"].append(
+            [(sn.chain.store.get_hash_by_number(h) or b"").hex()
+             for h in range(sn.chain.height() + 1)])
+        out["included"].append([sn.chain.store.tx_loc(t.hash) for t in txs])
+        out["pool"].append(dict(sn.node.txpool.stats)
+                           if sn.node.txpool is not None else None)
+    out["dump"] = canonical_dump(c.journals(), drop).decode()
+    return out

@@ -939,3 +939,69 @@ def test_scheduler_on_card_fails_on_a_device_error(dev):
         assert sum(K.LAUNCHES.values()) == 0
     finally:
         sched.close()
+
+
+# the 18 launches of one fused recovery, by kernel
+FUSED_RECOVER = {"recover_prelude": 1, "pow_mod": 4, "y_fix": 1, "u1u2": 1,
+                 "glv_digits": 1, "point_table": 1, "fp_mul": 5,
+                 "fp_canon": 1, "strauss_tab": 1, "recover_finish": 1,
+                 "keccak_rows": 1}
+
+
+def _flood(verifier, signed: bool, gossip: bool):
+    """A 4-node txpool sim, 60 signed transfers from 6 senders in windows
+    of 20 (``testing.flood_sim``), signed or unsigned votes, the windows
+    admitted by every pool or gossiped by the flooder."""
+    txs, alloc = tt.sim_transfers(60, 6, seed=5)
+    c = tt.flood_sim(verifier, txs, alloc, nodes=4, window=20, seed=5,
+                     height=4, txn_per_block=25, signed=signed,
+                     gossip=gossip)
+    stats = c.verifier.stats()
+    c.verifier.close()
+    return tt.sim_outcome(c, txs, tt.verifier_only), stats
+
+
+@pytest.mark.parametrize("signed,gossip", [(False, False), (True, False),
+                                           (False, True)],
+                         ids=["unsigned", "signed", "gossip"])
+def test_sim_on_card_equals_native_twin(dev, signed, gossip):
+    """Phase sim at 4 nodes: ``SimCluster(verifier=BatchVerifier())`` on
+    the card gives its native-verifier twin's chain, included transfers,
+    txpool stats and journal (verifier-only events dropped); no row is
+    served by the host, and each device window is 18 launches."""
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.crypto.verify_host import NativeBatchVerifier
+
+    native, _ = _flood(NativeBatchVerifier(), signed, gossip)
+    K.reset_launches()
+    card, st = _flood(BatchVerifier(), signed, gossip)
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    assert card == native
+    assert None not in sum(card["included"], [])
+    assert st["host_diverted"] == st["device_errors"] == 0
+    windows = st["pipeline_windows"]
+    assert windows >= 1
+    assert launches == {k: n * windows for k, n in FUSED_RECOVER.items()}
+
+
+def test_pow_sweep_on_card_equals_host_loop(dev):
+    """Phase pow: the card's sweeps (one keccak_block launch each) seal
+    the host loop's headers."""
+    import dataclasses
+
+    from eges_tpu_torch.core.chain import BlockChain, make_genesis
+    from eges_tpu_torch.core.engine import PowEngine
+    from eges_tpu_torch.core.types import new_block
+
+    genesis = new_block(dataclasses.replace(make_genesis().header,
+                                            difficulty=1 << 12))
+    heads = []
+    for eng in (PowEngine(sweep_batch=1024), PowEngine(sweep_batch=1024,
+                                                       use_device=False)):
+        chain = BlockChain(genesis=genesis, engine=eng)
+        K.reset_launches()
+        heads.append([eng.mine_next(chain).header for _ in range(3)])
+        if eng.use_device:
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    assert heads[0] == heads[1]
+    assert set(launches) == {"keccak_block"} and launches["keccak_block"] >= 3

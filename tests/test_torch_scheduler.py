@@ -3,13 +3,12 @@ held against the reference's (``eges_tpu/crypto/scheduler.py``).
 
 Every case of the reference's ``tests/test_scheduler.py``,
 ``tests/test_mesh_scheduler.py``, ``tests/test_adaptive_sched.py`` and
-the pipeline cases of ``tests/test_aotstore.py`` that needs neither a
-sim cluster nor a device runs here on both packages (``pkg`` is
-``"ref"`` or ``"port"``): each package's scheduler over its own
-``NativeBatchVerifier``, ``PipelinedNativeVerifier`` and
-``NativeMeshVerifier``, answers held against the reference's host
-model.  The cases that drive ``SimCluster`` wait for the port's copy of
-the sim.
+the pipeline cases of ``tests/test_aotstore.py`` that needs no device
+runs here on both packages (``pkg`` is ``"ref"`` or ``"port"``): each
+package's scheduler over its own ``NativeBatchVerifier``,
+``PipelinedNativeVerifier`` and ``NativeMeshVerifier``, answers held
+against the reference's host model.  The two cases that drive
+``SimCluster`` run each package's own sim copy.
 
 The differential cases run the same seeded entries, kick by kick,
 through both packages' schedulers over each of the three targets and
@@ -217,6 +216,51 @@ def test_shutdown_drains_every_future_and_joins_thread(pkg):
     assert f.result(0) == _host_model(entries[:1])[0]
 
 
+def test_cluster_sim_no_singleton_batches_and_warm_cache(pkg):
+    """4-node signed cluster over one shared scheduler: the chain
+    advances, no steady-state one-row device batch ever happens, the
+    recovery cache absorbs gossip re-verification, and every cached
+    answer is bit-identical to a fresh synchronous batch-verifier run."""
+    SimCluster = importlib.import_module(
+        f"{pkg.root.__name__}.sim.cluster").SimCluster
+    metrics = pkg.metrics
+
+    single0 = metrics.counter("verifier.singleton_batches").value
+    c = SimCluster(4, txn_per_block=2, seed=3, signed=True,
+                   verifier=pkg.Native())
+    c.start()
+    c.run(120, stop_condition=lambda: c.min_height() >= 5)
+    assert c.min_height() >= 5, c.heights()
+    h = c.min_height()
+    assert len({sn.chain.get_block_by_number(h).hash
+                for sn in c.nodes}) == 1
+
+    st = c.verifier.stats()
+    assert metrics.counter("verifier.singleton_batches").value == single0
+    assert st["cache_hits"] > 0, st
+    assert st["rows"] + st["cache_hits"] >= st["cache_misses"]
+    # flush decisions landed in the first node's journal
+    flushes = [e for e in c.nodes[0].node.journal.events()
+               if e["type"] == "verifier_flush"]
+    assert len(flushes) == st["batches"]
+
+    # bit-identical: replay a sample of the scheduler's cached answers
+    # through a fresh synchronous verifier
+    with c.verifier._lock:
+        sample = list(c.verifier._cache.items())[:32]
+    entries = [k for k, _ in sample]
+    sync = pkg.Native()
+    sigs = np.zeros((len(entries), 65), np.uint8)
+    hashes = np.zeros((len(entries), 32), np.uint8)
+    for i, (hh, ss) in enumerate(entries):
+        sigs[i] = np.frombuffer(ss, np.uint8)
+        hashes[i] = np.frombuffer(hh, np.uint8)
+    addrs, ok = sync.recover_addresses(sigs, hashes)
+    for i, (_, cached) in enumerate(sample):
+        assert cached == (bytes(addrs[i]) if ok[i] else None)
+    c.verifier.close()
+
+
 def test_bucket16_model(pkg):
     bucket_round = pkg.bucketing.bucket_round
     assert pkg.sched._bucket16 is bucket_round
@@ -376,6 +420,33 @@ def test_scheduler_for_attaches_mesh_scheduler_once(pkg):
 
 
 # -- tests/test_adaptive_sched.py -----------------------------------------
+
+def test_mesh_cluster_sim_advances_and_uses_lanes(pkg):
+    """4-node signed sim over an 8-lane virtual mesh (the
+    ``mesh_devices`` wiring in sim/cluster.py): consensus converges and
+    the shared scheduler reports the per-device surface."""
+    SimCluster = importlib.import_module(
+        f"{pkg.root.__name__}.sim.cluster").SimCluster
+
+    c = SimCluster(4, txn_per_block=2, seed=5, signed=True,
+                   mesh_devices=8)
+    c.start()
+    c.run(120, stop_condition=lambda: c.min_height() >= 4)
+    assert c.min_height() >= 4, c.heights()
+    h = c.min_height()
+    assert len({sn.chain.get_block_by_number(h).hash
+                for sn in c.nodes}) == 1
+    st = c.verifier.stats()
+    assert st["lanes"] == 8
+    assert sum(d["rows"] for d in st["devices"]) == st["rows"]
+    # mesh dispatch decisions landed in the journal stream
+    events = [e for sn in c.nodes for e in sn.node.journal.events()
+              if e["type"] == "verifier_mesh_dispatch"]
+    assert sum(d["batches"] for d in st["devices"]) == st["batches"]
+    assert events, "mesh dispatch events missing from the journal"
+    assert all(e["rows"] >= 1 and "device" in e for e in events)
+    c.verifier.close()
+
 
 def test_config_env_overrides(pkg):
     cfg = pkg.SchedulerConfig.from_env({

@@ -3,8 +3,9 @@ recovery, classic ECDSA verify and Keccak-256, the un-fused
 recovery and verify of stacked windows, the same paths under the
 reference's TPU-tiling configuration, the profiling harness, the
 static-analysis gate with the analysis fixture's kernel (#21), a
-simulated 64-validator Geec cluster over the card's verifier and the
-PoW engine's nonce sweep.
+simulated 64-validator Geec cluster over the card's verifier, the
+PoW engine's nonce sweep and a 3-node chain of node processes on the
+card.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a card and the CUDA toolkit.  Phases, one JSON line each:
@@ -216,6 +217,29 @@ machine with a card and the CUDA toolkit.  Phases, one JSON line each:
 14. pow: ``PowEngine()`` on the card (sweeps of 4096 nonces, one
    keccak_block launch each) mines 3 blocks at difficulty 2^15 with the
    headers of ``PowEngine(use_device=False)``'s host loop.
+15. node: BASELINE config 1 on the port's node service: the port's
+   ``harness/cluster.py`` banks the kernel library in the artifact store
+   (``warm_kernel_store``: the build directory's library since phase 1)
+   and takes it out of the build directory, then starts 3 ``python -m
+   eges_tpu_torch.node --verifier torch`` processes on localhost (real
+   sockets on free port bases, 1000 txn a block, signed votes, RPC on),
+   each loading the library from the store as in a new checkout; 1000
+   signed transfers from 100 senders over ``eth_sendRawTransaction``
+   round robin on the three RPC ports and 300 UDP Geec txns through
+   ``txn_client`` into node 0, sent before the transfers (ROADMAP C9:
+   a card node under the transfers' flood wins few elections, and only
+   its own blocks take its UDP txns); every transfer
+   mined with status 0x1, every sender's nonce its transfers' count,
+   balances, nonces and the head hash at a common height equal across
+   nodes, 80% of the UDP txns on chain; each node's ``thw_metrics``:
+   device rows, a device share above 0.95 (host rows beside it), no
+   host-diverted row, the card's name (``verifier.device_name``), 18
+   launches a device batch over the traffic, the cold start and the
+   store's loads and builds; a ``thw_device_trace`` armed on node 0 for
+   2 windows holding 18 kernels a window; then the same traffic on a
+   ``--verifier native`` twin cluster, which must mine the same
+   transfers to the same balances and nonces.  Wall seconds, heights,
+   device windows, rows a window and the p50 send-to-receipt time.
 
 Every kernel's time, and each cold time, must lie above its bound:
 a bound the card beats is no floor, and the run fails.
@@ -349,19 +373,31 @@ NATIVE_CXXFLAGS = "-O3 -fPIC -std=c++17 -Wall"
 # signed transfers from SIM_SENDERS funded accounts, SIM_WINDOW a
 # flooder window; the gossip run: SIM_GOSSIP's transfers gossiped by the
 # flooder (blocks of as many txns: a 1000-txn block costs the host about
-# two minutes a height at 64 nodes); then the signed-vote run of
+# two minutes a height at 64 nodes; 5 transfers, 64 x 5 x 63 relays, so
+# that the script with phase node stays well inside its limit); then the
+# signed-vote run of
 # tests/test_scale.py:63 to its height.  Each run's native-verifier twin
 # runs after it on the same seed.
 SIM_NODES, SIM_CANDIDATES, SIM_ACCEPTORS = 64, 8, 16
 SIM_TXN_PER_BLOCK, SIM_BLOCKS, SIM_SENDERS, SIM_WINDOW = 1000, 1, 100, 250
 SIM_SEED = 14
-SIM_GOSSIP = {"transfers": 20, "window": 20, "txn_per_block": 20,
+SIM_GOSSIP = {"transfers": 5, "window": 5, "txn_per_block": 5,
               "seed": 15}
 SIM_SIGNED = {"txn_per_block": 2, "seed": 33, "height": 5}
 # phase pow: PowEngine() on the card at its default sweep of 4096 nonces,
 # POW_BLOCKS blocks on a chain whose genesis difficulty makes a block
 # take about POW_DIFFICULTY / 4096 sweeps
 POW_BLOCKS, POW_DIFFICULTY = 3, 1 << 15
+# phase node: BASELINE config 1 (a 3-node bootstrap Geec chain, 1000 txn
+# a block) as real node processes on the card, with its traffic: signed
+# transfers over RPC from a thread pool, UDP Geec txns at udp_rate a
+# second; the seconds it may take to serve RPC at height 1, to mine
+# every transfer, and to let the UDP txns commit; the trace's windows
+NODE_CLUSTER = {"nodes": 3, "txn_per_block": 1000, "transfers": 1000,
+                "senders": 100, "udp": 300, "udp_rate": 2000.0,
+                "rpc_threads": 12, "seed": 16, "start_s": 90.0,
+                "mine_s": 60.0, "settle_s": 2.0, "trace_windows": 2}
+NODE_BUDGET_S = 150                 # phase node's whole time, twin included
 MUL_SCALAR_BIG = 1 << 24            # #21's large case: 64 MiB of float32
 # #21 and #20d against their library calls in one call: rounds in ABBA
 # order, each round events over AB_F32_REPS calls and AB_F32_COLD cold ones
@@ -3234,6 +3270,394 @@ def phase_pow(card):
     return dev_launches
 
 
+def _rpc_batch(port: int, calls, timeout: float = 30.0) -> list:
+    """One batched JSON-RPC request to a localhost node: the results in
+    the calls' order; an error answer raises."""
+    import urllib.request
+
+    body = json.dumps([{"jsonrpc": "2.0", "id": i, "method": m,
+                        "params": p} for i, (m, p) in enumerate(calls)])
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}", data=body.encode(),
+        headers={"Content-Type": "application/json"})
+    out = json.loads(urllib.request.urlopen(req, timeout=timeout).read())
+    by_id = {r["id"]: r for r in out}
+    for i, (m, _) in enumerate(calls):
+        if "error" in by_id[i]:
+            raise AssertionError(f"rpc {m} on port {port}: "
+                                 f"{by_id[i]['error']}")
+    return [by_id[i]["result"] for i in range(len(calls))]
+
+
+def _alive(pid: int) -> bool:
+    """Whether a process runs (a zombie has ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _stop_nodes(d: str, pids) -> None:
+    """SIGTERM every process of the cluster in ``d``, then SIGKILL what
+    still runs after 10 s, and reap them."""
+    import signal
+
+    from eges_tpu_torch.harness import cluster as hc
+
+    hc.kill_cluster(d)
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline and any(_alive(p) for p in pids):
+        time.sleep(0.1)
+    for pid in pids:
+        if _alive(pid):
+            os.kill(pid, signal.SIGKILL)
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+
+
+def _node_transfers():
+    """NODE_CLUSTER's signed transfers: ``senders`` keys from the seed,
+    each sending ``transfers / senders`` zero-value, zero-price transfers
+    (consecutive nonces) to a recipient of its own: a node's genesis
+    funds no account, as the reference's; the txns, the senders'
+    addresses and the recipients'."""
+    from eges_tpu_torch.core.types import Transaction
+    from eges_tpu_torch.crypto import secp256k1 as secp
+    from eges_tpu_torch.crypto.keccak import keccak256
+
+    c = NODE_CLUSTER
+    privs = [keccak256(b"eges-node-sender" + c["seed"].to_bytes(8, "big")
+                       + i.to_bytes(4, "big")) for i in range(c["senders"])]
+    senders = [secp.pubkey_to_address(secp.privkey_to_pubkey(k))
+               for k in privs]
+    recips = [keccak256(b"eges-node-recipient" + a)[:20] for a in senders]
+    txs = [Transaction(nonce=i // c["senders"], gas_price=0,
+                       gas_limit=21000, to=recips[i % c["senders"]],
+                       value=0).signed(privs[i % c["senders"]])
+           for i in range(c["transfers"])]
+    return txs, senders, recips
+
+
+def _count(v) -> float:
+    """A metric's count: a counter's or gauge's value, a meter's or
+    histogram's count; 0 where absent."""
+    if isinstance(v, dict):
+        return v.get("count", 0)
+    return v or 0
+
+
+def _node_cluster(d: str, torch_nodes: set, trace_windows: int = 0):
+    """One run of phase node's cluster in directory ``d``: NODE_CLUSTER's
+    nodes started by the port's harness (``torch_nodes`` on
+    ``--verifier torch``, the others native), its UDP Geec txns into
+    node 0's ``--geecTxnPort`` through ``txn_client``, then its transfers
+    sent by ``eth_sendRawTransaction`` round robin over the nodes' RPC
+    ports from a thread pool; waits until every transfer has a receipt on
+    the node it was sent to (a receipt lookup decodes its block, some
+    ms of a node's loop, so each is read once), then until every node
+    is past the last transfer's block and node 0 holds no UDP txn back
+    from its proposals.  A node that dies, or an RPC that
+    fails, fails the run.  Returns what phase node checks and prints."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from eges_tpu_torch.harness import cluster as hc
+    from eges_tpu_torch.harness import txn_client
+
+    c = NODE_CLUSTER
+    n = c["nodes"]
+    # free port bases: another checkout's cluster may run on this host
+    bases = hc.Ports.free(n)
+    ports = [bases.rpc + i for i in range(n)]
+    txs, senders, recips = _node_transfers()
+    t0 = time.monotonic()
+    pids = hc.start_cluster(d, n, txn_per_block=c["txn_per_block"],
+                            torch_nodes=torch_nodes, ports=bases)
+    out = {"pids": pids}
+    try:
+        def check_alive():
+            for i, pid in enumerate(pids):
+                if not _alive(pid):
+                    with open(os.path.join(d, f"node{i}.log"), "rb") as fh:
+                        tail = fh.read()[-3000:].decode(errors="replace")
+                    raise AssertionError(f"node {i} died:\n{tail}")
+
+        def wait(cond, limit, what):
+            deadline = time.monotonic() + limit
+            while True:
+                check_alive()
+                got = cond()
+                if got:
+                    return got
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"node cluster: {what} not within "
+                                         f"{limit} s")
+                time.sleep(0.2)
+
+        def answers():
+            try:
+                return [int(_rpc_batch(p, [("eth_blockNumber", [])],
+                                       timeout=5)[0], 16) for p in ports]
+            except OSError:     # not listening yet
+                return None
+
+        hs = wait(lambda: (lambda h: h if h and min(h) >= 1 else None)(
+            answers()), c["start_s"], "RPC on every node and height 1")
+        out["start_s"] = round(time.monotonic() - t0, 3)
+        before = [_rpc_batch(p, [("thw_metrics", [])])[0] for p in ports]
+        if trace_windows:
+            tdir = os.path.join(d, "trace")
+            armed = _rpc_batch(ports[0], [("thw_device_trace", [
+                {"windows": trace_windows, "dir": tdir}])])[0]
+            out["trace_armed"] = armed["state"]
+        sent = [0.0] * len(txs)
+
+        def send(i):
+            raw = "0x" + txs[i].encode().hex()
+            sent[i] = time.monotonic()
+            h = _rpc_batch(ports[i % n], [("eth_sendRawTransaction",
+                                           [raw])])[0]
+            if h != "0x" + txs[i].hash.hex():
+                raise AssertionError(f"transfer {i}: hash {h}")
+
+        # the UDP txns first: node 0 puts them in a block only when it
+        # wins an election, which a card node under the RPC flood may
+        # not do for many blocks (C9, open in ROADMAP.md)
+        txn_client.run_rate("127.0.0.1", bases.txn, c["udp_rate"],
+                            100, c["udp"])
+        t_send = time.monotonic()
+        with ThreadPoolExecutor(c["rpc_threads"]) as pool:
+            list(pool.map(send, range(len(txs))))
+        out["send_s"] = round(time.monotonic() - t_send, 3)
+        seen = [None] * len(txs)
+        status, in_block = [None] * len(txs), [0] * len(txs)
+
+        def mined():
+            for i, port in enumerate(ports):
+                todo = [j for j in range(i, len(txs), n) if seen[j] is None]
+                if not todo:
+                    continue
+                recs = _rpc_batch(port, [
+                    ("eth_getTransactionReceipt",
+                     ["0x" + txs[j].hash.hex()]) for j in todo])
+                now = time.monotonic()
+                for j, r in zip(todo, recs):
+                    if r is not None:
+                        seen[j], status[j] = now, r["status"]
+                        in_block[j] = int(r["blockNumber"], 16)
+            return all(s is not None for s in seen)
+
+        wait(mined, c["mine_s"], "every transfer's receipt")
+        out["mine_s"] = round(time.monotonic() - t_send, 3)
+        lat = sorted(s - t for s, t in zip(seen, sent))
+        out["send_to_receipt_p50_s"] = round(statistics.median(lat), 4)
+        out["send_to_receipt_max_s"] = round(lat[-1], 4)
+        out["statuses"] = sorted(set(status))
+        # every node past the last transfer's block (and the UDP txns,
+        # which land in the next blocks, committed): equal block hashes
+        # there mean equal blocks and receipt roots below it on every
+        # node, so the receipts read on the node each transfer was sent
+        # to hold on every node
+        last = max(in_block)
+        time.sleep(c["settle_s"])
+        wait(lambda: _rpc_batch(ports[0], [("thw_status", [])])[0][
+            "pendingGeecTxns"] == 0, c["mine_s"],
+            "node 0's UDP txns drained into its proposals")
+        heights = wait(lambda: (lambda h: h if min(h) >= last else None)(
+            [int(_rpc_batch(p, [("eth_blockNumber", [])])[0], 16)
+             for p in ports]), c["mine_s"], f"every node at height {last}")
+        after = [_rpc_batch(p, [("thw_metrics", [])])[0] for p in ports]
+        out["heights"], out["last_transfer_block"] = heights, last
+        common = min(heights)
+        heads = [_rpc_batch(p, [("eth_getBlockByNumber",
+                                 [hex(common), False])])[0]["hash"]
+                 for p in ports]
+        out["common_height"], out["heads_equal"] = common, len(set(heads)) == 1
+        accounts = senders + recips + [
+            bytes.fromhex(b["account"]) for b in json.load(open(
+                os.path.join(d, "genesis.json")))["config"]["thw"][
+                "bootstrap"]]
+        out["state"] = [_rpc_batch(p, [
+            (m, ["0x" + a.hex(), "latest"]) for a in accounts
+            for m in ("eth_getBalance", "eth_getTransactionCount")])
+            for p in ports]
+        out["nonces"] = [[int(v, 16) for v in st[1:2 * len(senders):2]]
+                         for st in out["state"]]
+        blocks = _rpc_batch(ports[0], [("eth_getBlockByNumber",
+                                        [hex(b), False])
+                                       for b in range(1, common + 1)])
+        out["geec_on_chain"] = sum(b["geecTxnCount"] for b in blocks)
+        out["mined"] = sorted({h for b in blocks
+                               for h in b["transactions"]})
+        out["before"], out["after"] = before, after
+        if trace_windows:
+            out["trace_status"] = _rpc_batch(ports[0], [("thw_health", [])])[
+                0]["devstats"]["trace"]
+        out["flights"] = [_rpc_batch(p, [("thw_flight", [4096])])[0]
+                          for p in ports]
+        out["elections_won"] = [_rpc_batch(p, [("thw_health", [])])[0][
+            "electionsWon"] for p in ports]
+        check_alive()
+        out["wall_s"] = round(time.monotonic() - t0, 3)
+    finally:
+        _stop_nodes(d, pids)
+    return out
+
+
+def phase_node(card):
+    """BASELINE config 1 on the port's node service: NODE_CLUSTER's
+    3-node chain of real ``python -m eges_tpu_torch.node`` processes on
+    localhost, started by the port's ``harness/cluster.py`` (1000 txn a
+    block, RPC on), every node ``--verifier torch`` on this card, after
+    the harness has put the kernel library into the artifact store
+    (``warm_kernel_store``) and the phase has taken it out of the build
+    directory, so the nodes' warm loads it from the store.  The traffic
+    of ``_node_cluster``; then the same traffic on a ``--verifier
+    native`` twin cluster.  It fails unless every transfer is mined with
+    status 0x1 (read on the node it was sent to; every node's block hash
+    at a height past the last transfer's block is the same, so every
+    node holds the same blocks and receipts), every sender's nonce
+    equals its transfers
+    (a wrong sender would move another account's), balances, nonces and
+    the head hash at a common height agree across nodes, at least 80% of
+    the UDP txns are on chain; each node's ``thw_metrics`` shows device
+    rows, a device share above 0.95, no host-diverted row, its card's
+    name (C8) and, over the traffic, 18 launches a device batch; the
+    trace armed on node 0 for NODE_CLUSTER's windows holds 18 kernels a
+    window; and the twin mines the same transfers to the same balances
+    and nonces.  Returns the card nodes' launches over the traffic."""
+    import shutil
+
+    from eges_tpu_torch.harness import cluster as hc
+    from eges_tpu_torch.ops import build, kernels as K
+
+    c = NODE_CLUSTER
+    t0 = time.monotonic()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "node_cluster")
+    shutil.rmtree(root, ignore_errors=True)
+    t_warm = time.monotonic()
+    warm = hc.warm_kernel_store()
+    warm_s = time.monotonic() - t_warm
+    # the card nodes start as in a new checkout of these sources: the
+    # build directory holds no library (this process keeps its open
+    # copy), the artifact store does, so their warm is a store load
+    os.unlink(build.library_path())
+    card_run = _node_cluster(os.path.join(root, "torch"),
+                             set(range(c["nodes"])), c["trace_windows"])
+    twin = _node_cluster(os.path.join(root, "native"), set())
+    name = torch.cuda.get_device_name(0)
+    launches = dict.fromkeys(K.KERNELS, 0)
+    nodes = []
+    for i, (b, a) in enumerate(zip(card_run["before"], card_run["after"])):
+        sched = a.get("verifier.scheduler", {})
+        delta = {k: v - b.get("kernels.launches", {}).get(k, 0)
+                 for k, v in a.get("kernels.launches", {}).items()}
+        batches = _count(a.get("verifier.batches")) - _count(
+            b.get("verifier.batches"))
+        rows = _count(a.get("verifier.rows")) - _count(b.get("verifier.rows"))
+        flights = [f["rows"] for f in card_run["flights"][i]]
+        nodes.append({
+            "node": i, "device_name": a.get("verifier.device_name"),
+            "device_share": a.get("verifier.device_share"),
+            "host_rows": a.get("verifier.host_rows", 0),
+            "rows": _count(a.get("verifier.rows")),
+            "host_diverted": sched.get("host_diverted"),
+            "device_errors": sched.get("device_errors"),
+            "windows": sched.get("pipeline_windows"),
+            "cache_hits": sched.get("cache_hits"),
+            "traffic_batches": batches, "traffic_rows": rows,
+            "rows_per_window_p50": (statistics.median(flights)
+                                    if flights else None),
+            "rows_per_window_max": max(flights, default=None),
+            "cold_start_s": a.get("verifier.cold_start_seconds"),
+            "library": a.get("verifier.aot_library"),
+            "aot_loads": _count(a.get("verifier.aot_loads")),
+            "aot_compiles": _count(a.get("verifier.aot_compiles")),
+            "aot_load_s": (a.get("verifier.aot_load_seconds") or {}).get(
+                "max"),
+            "traffic_launches": {k: v for k, v in delta.items() if v}})
+        for k, v in delta.items():
+            launches[k] += v
+    trace = card_run.get("trace_status", {})
+    tpath = os.path.join(trace.get("path") or "", "trace.json")
+    trace_kernels = _trace_kernels(tpath) if os.path.exists(tpath) else 0
+    out = {"phase": "node", "card": card, "nodes": c["nodes"],
+           "txn_per_block": c["txn_per_block"], "transfers": c["transfers"],
+           "senders": c["senders"], "udp": c["udp"],
+           "warm_store_s": round(warm_s, 3), "warm_store": warm,
+           "card_wall_s": card_run["wall_s"],
+           **{k: card_run[k] for k in (
+               "start_s", "send_s", "mine_s", "heights",
+               "last_transfer_block", "common_height", "heads_equal",
+               "geec_on_chain", "elections_won",
+               "send_to_receipt_p50_s", "send_to_receipt_max_s")},
+           "per_node": nodes,
+           "trace": {"state": trace.get("state"), "kernels": trace_kernels,
+                     "windows": c["trace_windows"]},
+           "twin": {k: twin[k] for k in (
+               "wall_s", "start_s", "send_s", "mine_s", "heights",
+               "last_transfer_block", "geec_on_chain", "elections_won",
+               "send_to_receipt_p50_s", "send_to_receipt_max_s")},
+           "launches": {k: v for k, v in launches.items() if v}}
+    out["wall_s"] = round(time.monotonic() - t0, 3)
+    emit(out)
+    per = c["transfers"] // c["senders"]
+    for run in (card_run, twin):
+        if run["statuses"] != ["0x1"]:
+            raise AssertionError(f"node: transfer receipts with status "
+                                 f"{run['statuses']}")
+        if any(ns != [per] * c["senders"] for ns in run["nonces"]):
+            raise AssertionError("node: a sender's nonce is not its "
+                                 "transfers' count")
+        if len({json.dumps(st) for st in run["state"]}) != 1 \
+                or not run["heads_equal"]:
+            raise AssertionError("node: balances, nonces or the head at "
+                                 f"height {run['common_height']} differ "
+                                 "across nodes")
+        if run["geec_on_chain"] < int(0.8 * c["udp"]):
+            raise AssertionError(f"node: {run['geec_on_chain']} of "
+                                 f"{c['udp']} UDP txns on chain")
+    if card_run["mined"] != twin["mined"] or \
+            card_run["state"][0] != twin["state"][0]:
+        raise AssertionError("node: the native twin mined other transfers "
+                             "or reached other balances")
+    for nd in nodes:
+        # rows of the traffic: the lifetime count holds the warm's too
+        if not nd["traffic_rows"] or (nd["device_share"] or 0) <= 0.95 \
+                or nd["host_diverted"] != 0 or nd["device_errors"] != 0 \
+                or nd["device_name"] != name:
+            raise AssertionError(f"node {nd['node']}: {nd}")
+        b = nd["traffic_batches"]
+        if not b or nd["traffic_launches"] != {
+                k: v * b for k, v in FUSED_RECOVER_LAUNCHES.items()}:
+            raise AssertionError(f"node {nd['node']}: launches "
+                                 f"{nd['traffic_launches']} over {b} "
+                                 "batches, want 18 a batch")
+        # a node that finds the library another node has just written
+        # opens it as a build-directory hit
+        if nd["aot_compiles"] != 0 or (nd["library"], nd["aot_loads"]) \
+                not in (("load", 1), ("build_dir", 0)):
+            raise AssertionError(f"node {nd['node']}: the library was "
+                                 "neither loaded from the artifact store "
+                                 "nor found in the build directory")
+    if warm["aot_compiles"] != 0 or not any(
+            nd["aot_loads"] for nd in nodes):
+        raise AssertionError("node: nvcc ran for the store, or no node "
+                             "loaded the library from it")
+    w = c["trace_windows"]
+    if trace.get("state") != "captured" or \
+            not 18 * w <= trace_kernels <= 18 * (w + 1):
+        raise AssertionError(f"node: a trace armed for {w} windows holds "
+                             f"{trace_kernels} kernels ({trace})")
+    if out["wall_s"] > NODE_BUDGET_S:
+        raise AssertionError(f"node: {out['wall_s']} s, over the "
+                             f"{NODE_BUDGET_S} s budget")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3270,6 +3694,7 @@ def main() -> int:
     paths["analysis"] = phase_analysis(dev)
     paths["sim"] = phase_sim(card)
     paths["pow"] = phase_pow(card)
+    paths["node"] = phase_node(card)
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for name in K.KERNELS:

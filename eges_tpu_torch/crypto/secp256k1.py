@@ -61,6 +61,28 @@ def point_mul(k: int, p: Point) -> Point:
     return acc
 
 
+def ecdh_shared(priv: bytes, peer_pub: bytes) -> bytes:
+    """ECDH shared secret: keccak256 of the x-coordinate of
+    ``priv * peer_pub`` (the RLPx-handshake role, ref: p2p/rlpx.go
+    secp256k1 ECDH; keccak in place of its NIST KDF), as the reference's
+    (the gossip plane's v3 handshake, ``net/transports.py``).
+    ``peer_pub`` is a 64-byte uncompressed public key; raises ValueError
+    off-curve."""
+    if len(peer_pub) != 64:
+        raise ValueError("pubkey must be 64 bytes")
+    x = int.from_bytes(peer_pub[:32], "big")
+    y = int.from_bytes(peer_pub[32:], "big")
+    if x >= P or y >= P or (y * y - (x * x * x + 7)) % P != 0:
+        raise ValueError("point not on curve")
+    d = int.from_bytes(priv, "big")
+    if not 1 <= d < N:
+        raise ValueError("private key out of range")
+    s = point_mul(d, (x, y))
+    if s is None:
+        raise ValueError("degenerate shared point")
+    return keccak256(s[0].to_bytes(32, "big"))
+
+
 def privkey_to_pubkey(priv: bytes) -> bytes:
     """64-byte uncompressed public key (x || y) of a 32-byte private key."""
     d = int.from_bytes(priv, "big")

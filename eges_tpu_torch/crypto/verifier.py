@@ -222,6 +222,12 @@ class BatchVerifier:
         # injectable device-failure hook: called with the row count at
         # the head of every device entry point (fault injection)
         self.failure_hook = None
+        # the artifact store's load-vs-build account and whether this
+        # verifier has its library (aot_prewarm); under _staging_lock
+        self._aot_stats = {"aot_loads": 0, "aot_compiles": 0,
+                           "load_s": 0.0, "compile_s": 0.0}
+        self._aot_library: str | None = None  # guarded-by: _staging_lock
+        self._aot_inflight = False  # guarded-by: _staging_lock
 
     def _maybe_fail(self, n: int) -> None:
         hook = self.failure_hook
@@ -232,12 +238,161 @@ class BatchVerifier:
     def device_kind(self) -> str:
         """Platform plus hardware name, e.g. ``cuda:NVIDIA H100 80GB
         HBM3`` or ``cpu:cpu``."""
+        return f"{self.device.type}:{self.device_name}"
+
+    @property
+    def device_name(self) -> str:
+        """The card's name (``torch.cuda.get_device_name``), or ``cpu``:
+        the ``verifier.device_name`` gauge that names the hardware."""
         if self.device.type == "cuda":
-            return f"cuda:{torch.cuda.get_device_name(self.device)}"
-        return "cpu:cpu"
+            return torch.cuda.get_device_name(self.device)
+        return "cpu"
 
     def _pad(self, n: int) -> int:
         return bucket_round(max(n, 1), self._min_bucket)
+
+    # -- warm-up and the artifact store ------------------------------------
+
+    def _zero_args(self, b: int) -> tuple:
+        return np.zeros((b, 65), np.uint8), np.zeros((b, 32), np.uint8)
+
+    def _warm_bucket(self, b: int) -> bool:
+        """One recovery of ``b`` zero rows on the verifier's device, once
+        per bucket; whether it ran.  It goes through the facade's own
+        entry, so it also warms the upload and the copy back, and is
+        recorded as a device batch: the bucket's compile-cache miss."""
+        if b in self._compiled_buckets:
+            return False
+        self.recover_addresses(*self._zero_args(b))
+        return True
+
+    def prewarm(self, buckets=(16, 32, 64), background: bool = True):
+        """Run the small power-of-two recover buckets once off the
+        critical path, so the first block does not pay the library's
+        load and the first launches; the library comes from
+        ``ops/build.py`` alone, without the artifact store.  Returns the
+        warmer thread in background mode, ``None`` after a synchronous
+        warm."""
+        buckets = tuple(dict.fromkeys(self._pad(b) for b in buckets))
+        if not background:
+            self._prewarm(buckets)
+            return None
+        t = threading.Thread(target=self._prewarm, args=(buckets,),
+                             name="verifier-prewarm", daemon=True)
+        t.start()
+        return t
+
+    def _prewarm(self, buckets) -> None:
+        from eges_tpu_torch.utils.metrics import DEFAULT as metrics
+
+        for b in buckets:
+            if self._warm_bucket(b):
+                metrics.counter("verifier.prewarmed_buckets").inc()
+
+    def _library_needed(self) -> bool:
+        """Whether this verifier's batches launch the CUDA kernels: the
+        plain versions on the CPU need no library."""
+        return self.device.type == "cuda"
+
+    def _build_library(self) -> dict:
+        """``ops/build.py``'s build: nvcc unless the build directory
+        holds the library for these sources; ``{"path", "built", ...}``.
+        A failed build raises."""
+        from eges_tpu_torch.ops import build
+        return build.build()
+
+    def _library_target(self) -> str:
+        """Where ``ops/build.py`` loads the library from."""
+        from eges_tpu_torch.ops import build
+        return str(build.library_path())
+
+    def _open_library(self) -> None:
+        K.library()
+
+    def aot_prewarm(self, buckets=(16, 32, 64), store=None,
+                    background: bool = False):
+        """Warm the verifier through the artifact store — the restart
+        path's replacement for :meth:`prewarm`.  Puts the kernel library
+        where ``ops/build.py`` loads it (``aotstore.load_or_build``: the
+        build directory's own copy, else the store's, else an nvcc
+        build saved for the next checkout), then runs one recovery per
+        bucket on that many zero rows on the verifier's device.
+        Synchronous calls return the reference's info dict
+        (``buckets``, ``device_kind``, ``aot_loads``/``aot_compiles`` —
+        the library loaded from the store / built by nvcc —,
+        ``load_s``, ``compile_s``) for the ``verifier_aot_load`` journal
+        event, plus ``library``, the mode (``"load"``, ``"compile"``,
+        ``"build_dir"``, or ``None`` where no library was needed or this
+        verifier had it); background mode returns the warmer thread.
+        The library is this verifier's once: later calls only warm
+        buckets not yet run."""
+        if store is None:
+            from eges_tpu_torch.crypto.aotstore import default_store
+            store = default_store()
+        buckets = tuple(dict.fromkeys(self._pad(b) for b in buckets))
+        if background:
+            t = threading.Thread(target=self._aot_prewarm,
+                                 args=(buckets, store),
+                                 name="verifier-aot-prewarm", daemon=True)
+            t.start()
+            return t
+        return self._aot_prewarm(buckets, store)
+
+    def _aot_prewarm(self, buckets, store) -> dict:
+        info = {"buckets": list(buckets), "device_kind": self.device_kind,
+                "aot_loads": 0, "aot_compiles": 0,
+                "load_s": 0.0, "compile_s": 0.0, "library": None}
+        if self._library_needed():
+            mode, dt = self._aot_library_once(store)
+            info["library"] = mode
+            if mode == "load":
+                info["aot_loads"], info["load_s"] = 1, dt
+            elif mode == "compile":
+                info["aot_compiles"], info["compile_s"] = 1, dt
+        self._prewarm(buckets)
+        return info
+
+    def _aot_library_once(self, store):
+        """Get the library unless this verifier has it (or another
+        thread is getting it).  Returns ``("load"|"compile"|"build_dir",
+        seconds)`` or ``(None, 0.0)``; a build-directory hit counts as
+        neither a load nor a compile."""
+        from eges_tpu_torch.crypto.aotstore import load_or_build
+        from eges_tpu_torch.utils.metrics import DEFAULT as metrics
+
+        with self._staging_lock:
+            if self._aot_library is not None or self._aot_inflight:
+                return None, 0.0
+            self._aot_inflight = True
+        try:
+            mode, dt, _ = load_or_build(store, self.device_kind,
+                                        self._build_library,
+                                        self._library_target())
+            self._open_library()
+            with self._staging_lock:
+                self._aot_library = mode
+                if mode == "load":
+                    self._aot_stats["aot_loads"] += 1
+                    self._aot_stats["load_s"] += dt
+                elif mode == "compile":
+                    self._aot_stats["aot_compiles"] += 1
+                    self._aot_stats["compile_s"] += dt
+            if mode == "load":
+                metrics.counter("verifier.aot_loads").inc()
+                metrics.histogram("verifier.aot_load_seconds").observe(dt)
+            elif mode == "compile":
+                metrics.counter("verifier.aot_compiles").inc()
+                metrics.histogram("verifier.aot_export_seconds").observe(dt)
+            return mode, dt
+        finally:
+            with self._staging_lock:
+                self._aot_inflight = False
+
+    def aot_stats(self) -> dict:
+        """Load-vs-build accounting since construction (the restart
+        test's "zero rebuilds" witness)."""
+        with self._staging_lock:
+            return dict(self._aot_stats)
 
     def _stage_acquire(self, b: int,
                        with_pubs: bool = False) -> dict[str, torch.Tensor]:
@@ -566,7 +721,14 @@ class BatchVerifier:
         return out
 
 
-@functools.lru_cache(maxsize=1)
-def default_verifier() -> BatchVerifier:
-    """The process-wide verifier on the default card."""
-    return BatchVerifier()
+@functools.lru_cache(maxsize=None)
+def default_verifier(device=None) -> BatchVerifier:
+    """The process-wide verifier on ``device`` (the default card unless
+    the caller asks for the CPU).  It sets the ``verifier.device_name``
+    gauge to the card's name, as the reference's does, so a cluster
+    run's device share names its hardware (``thw_metrics``)."""
+    from eges_tpu_torch.utils.metrics import DEFAULT as metrics
+
+    v = BatchVerifier(device=device)
+    metrics.gauge("verifier.device_name").set(v.device_name)
+    return v

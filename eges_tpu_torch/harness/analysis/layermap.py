@@ -44,12 +44,15 @@ import os
 # ``crypto/verifier.py`` is the facade; the scheduler sits above it: it
 # drives the facade's methods duck-typed and imports nothing of it.
 # The host copies follow the reference's order above the registry:
-# ``core/`` (chain, state, EVM, txpool, engines; the PoW sweep reaches
-# ``ops/keccak.py``), ``consensus/`` over it, ``ingress/`` over both,
-# and ``sim/`` at the top with the harness (it wires every layer into a
-# cluster); their host helpers (log, limits, journal, timeseries, keys,
-# bn254) sit in the lowest layer with the other ``utils/`` and
-# ``crypto/`` copies.
+# ``core/`` (chain, state, EVM, txpool, engines, the EVM tracer; the
+# PoW sweep reaches ``ops/keccak.py``), ``consensus/`` with the network
+# planes ``net/`` over it, the node layer over both (``ingress/``, the
+# node service ``node/``, ``rpc/`` and ``bootnode/``, as the
+# reference's L3-node), and ``sim/`` at the top with the harness (it
+# wires every layer into a cluster); their host helpers (log, limits,
+# journal, timeseries, debug, keys, bn254, the artifact store over
+# ``ops/build.py``) sit in the lowest layer with the other ``utils/``
+# and ``crypto/`` copies.
 # The three sub-packages are roots as well as the package, so their
 # ``__init__`` matches exactly and a new module under ``ops/``,
 # ``crypto/`` or ``utils/`` is a manifest error until it is placed here.
@@ -78,7 +81,9 @@ MANIFEST = {
                       "eges_tpu_torch.utils.journal",
                       "eges_tpu_torch.utils.timeseries",
                       "eges_tpu_torch.crypto.keys",
-                      "eges_tpu_torch.crypto.bn254"]},
+                      "eges_tpu_torch.crypto.bn254",
+                      "eges_tpu_torch.crypto.aotstore",
+                      "eges_tpu_torch.utils.debug"]},
         {"name": "L1-pipeline",
          "packages": ["eges_tpu_torch.ops.bigint", "eges_tpu_torch.ops.ec",
                       "eges_tpu_torch.ops.keccak"]},
@@ -91,9 +96,10 @@ MANIFEST = {
         {"name": "L5-core",
          "packages": ["eges_tpu_torch.core"]},
         {"name": "L6-consensus",
-         "packages": ["eges_tpu_torch.consensus"]},
-        {"name": "L7-ingress",
-         "packages": ["eges_tpu_torch.ingress"]},
+         "packages": ["eges_tpu_torch.consensus", "eges_tpu_torch.net"]},
+        {"name": "L7-node",
+         "packages": ["eges_tpu_torch.ingress", "eges_tpu_torch.node",
+                      "eges_tpu_torch.rpc", "eges_tpu_torch.bootnode"]},
         {"name": "L8-harness",
          "packages": ["eges_tpu_torch.sim", "eges_tpu_torch.harness",
                       "eges_tpu_torch.testing"]},

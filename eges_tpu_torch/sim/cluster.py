@@ -4,9 +4,10 @@ The port's copy of ``eges_tpu/sim/cluster.py``: the shared scheduler
 wraps whatever verifier the caller passes.  ``verifier=None`` keeps
 the host crypto; ``SimCluster(verifier=BatchVerifier())`` puts the
 port's facade on the card behind ``scheduler_for``, which over it
-serves no row from the host model.  The restart path's ``aot_prewarm``
-probe finds nothing on the port's facade (no artifact store yet) and
-is skipped, as for a native verifier.
+serves no row from the host model.  The restart path warms the
+port's facade through ``aot_prewarm``, as the reference's does: the
+kernel library through the artifact store (``crypto/aotstore.py``)
+and the 16-row bucket; a native verifier has no ``aot_prewarm``.
 
 The in-process analogue of the reference's ``test.py`` local 3-node
 harness (ref: test.py:1-138 — bootnode + N geth processes on distinct
@@ -235,12 +236,13 @@ class SimCluster:
                                        direct_sink(node))
         sn.node = node
         sn.crashed = False
-        # AOT prewarm before serving: a verifier with an artifact store
-        # reloads its built (op, bucket) executables from it — and the
-        # rejoin cost lands in the journal for the observatory and the
-        # chaos rejoin bound.  Native verifiers and the port's facade
-        # (no artifact store yet) have no aot_prewarm; the no-op keeps
-        # chaos runs byte-deterministic.
+        # AOT prewarm before serving: the port's facade gets its
+        # kernel library (the build directory's, the artifact store's,
+        # or an nvcc build saved to the store) and runs the 16-row
+        # bucket — and the rejoin cost lands in
+        # the journal for the observatory and the chaos rejoin bound.
+        # Native verifiers have no aot_prewarm; the no-op keeps chaos
+        # runs byte-deterministic.
         backing = self.verifier
         if backing is not None:
             backing = getattr(backing, "_verifier", backing)

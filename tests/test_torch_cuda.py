@@ -1005,3 +1005,96 @@ def test_pow_sweep_on_card_equals_host_loop(dev):
             launches = {k: v for k, v in K.LAUNCHES.items() if v}
     assert heads[0] == heads[1]
     assert set(launches) == {"keccak_block"} and launches["keccak_block"] >= 3
+
+
+def test_node_service_on_card_mines_a_transfer(dev, tmp_path, monkeypatch):
+    """The node service in its default mode on the card: node 0 of a
+    3-node localhost chain (the other two native) warms through the
+    artifact store (the library saved into an empty store, then loaded
+    by the service's verifier into an empty build directory), admits a
+    signed transfer through its scheduler and every node mines it; node
+    0's windows run the 18 fused launches each and no row is served by
+    the host; ``verifier.device_name`` names the card (C8)."""
+    import asyncio
+    import json as _json
+    import socket
+    import time
+
+    from eges_tpu_torch.consensus.config import NodeConfig
+    from eges_tpu_torch.core.types import Transaction
+    from eges_tpu_torch.crypto import secp256k1 as secp
+    from eges_tpu_torch.crypto.verifier import BatchVerifier
+    from eges_tpu_torch.harness import cluster as hc
+    from eges_tpu_torch.node.service import NodeService, ServiceConfig
+    from eges_tpu_torch.utils.metrics import DEFAULT as metrics
+
+    from eges_tpu_torch.crypto.verifier import default_verifier
+
+    monkeypatch.setenv("EGES_AOT_DIR", str(tmp_path / "aot"))
+    default_verifier.cache_clear()  # the service's verifier starts fresh
+    first = BatchVerifier().aot_prewarm(buckets=(16,))
+    assert first["library"] in ("compile", "build_dir")
+    assert first["aot_loads"] == 0
+    # the service starts as in a new checkout: no library in the build
+    # directory, so its warm loads the stored one
+    from eges_tpu_torch.ops import build
+    os.unlink(build.library_path())
+    socks = [socket.socket() for _ in range(6)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    gports, cports = ports[:3], ports[3:]
+    boot = [{"account": secp.pubkey_to_address(secp.privkey_to_pubkey(
+        hc.node_key(i))).hex(), "ip": "127.0.0.1", "port": str(p)}
+        for i, p in enumerate(cports)]
+    gen = tmp_path / "genesis.json"
+    gen.write_text(_json.dumps({"config": {"thw": {
+        "bootstrap": boot, "signed_votes": True}}, "timestamp": "0x0"}))
+    sender = hc.node_key(9)
+    frm = secp.pubkey_to_address(secp.privkey_to_pubkey(sender))
+    t = Transaction(nonce=0, gas_price=0, gas_limit=21000, to=b"\x09" * 20,
+                    value=0).signed(sender)
+
+    async def run():
+        svcs = [NodeService(ServiceConfig(
+            datadir=str(tmp_path / f"n{i}"), genesis_path=str(gen),
+            key_hex=hc.node_key(i).hex(), gossip_port=gports[i],
+            peers=tuple(("127.0.0.1", p) for p in gports),
+            node=NodeConfig(consensus_port=cports[i], total_nodes=3,
+                            txn_per_block=10, block_timeout_s=5.0),
+            verbosity=1, verifier_mode="" if i == 0 else "native"))
+            for i in range(3)]
+        for s in svcs:
+            await s.start()
+        try:
+            svcs[0]._prewarm_thread.join()
+            K.reset_launches()
+            svcs[0].txpool.add_locals([t])
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 60:
+                await asyncio.sleep(0.1)
+                if all(s.chain.lookup_txn(t.hash) for s in svcs):
+                    break
+            found = [s.chain.lookup_txn(t.hash) for s in svcs]
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            st = svcs[0].chain.verifier.stats()
+            nonces = [s.chain.state_at(s.chain.head().hash).nonce(frm)
+                      for s in svcs]
+            stats = svcs[0]._raw_verifier.aot_stats()
+            return found, launches, st, nonces, stats
+        finally:
+            for s in svcs:
+                s.close()
+
+    found, launches, st, nonces, aot = asyncio.run(run())
+    assert all(found) and {f[2].status for f in found} == {1}
+    assert nonces == [1, 1, 1]
+    assert aot["aot_loads"] == 1 and aot["aot_compiles"] == 0
+    assert st["host_diverted"] == st["device_errors"] == 0
+    batches = launches.get("keccak_rows", 0)
+    assert batches >= 1
+    assert launches == {k: n * batches for k, n in FUSED_RECOVER.items()}
+    assert metrics.snapshot()["verifier.device_name"] == \
+        torch.cuda.get_device_name(0)

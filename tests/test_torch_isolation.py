@@ -68,19 +68,22 @@ def test_the_walk_covers_the_harness_subpackage():
         "eges_tpu_torch.harness", *(f"eges_tpu_torch.harness.{n}" for n in (
             "profutil", "profile_mulchain", "profile_mul8b", "profile_floor",
             "profile_kernels2", "profile_stages", "measure_recover",
-            "hlo_census")),
+            "hlo_census", "cluster", "txn_client")),
         "eges_tpu_torch.harness.analysis", *(
             f"eges_tpu_torch.harness.analysis.{n}" for n in (
                 "__main__", "core", "layermap", "layers", "hotpath",
                 "jit_purity", "host_sync", "transfer", "dtypes"))}
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     """Every entry point that runs on a device takes the card unless asked
-    for the CPU.  The static-analysis gate
-    (``eges_tpu_torch.harness.analysis``) stands outside this rule: it
-    reads source files and has no device, and it runs without loading
-    torch at all (``test_the_analysis_gate_has_no_device``)."""
+    for the CPU: the kernels' callers, the harness's mains, the node
+    (``python -m eges_tpu_torch.node``: its default verifier mode) and
+    the cluster harness's torch nodes and kernel-store warm.  The
+    static-analysis gate (``eges_tpu_torch.harness.analysis``) and the
+    bootnode stand outside this rule: they have no device, and run
+    without loading torch at all (``test_the_analysis_gate_has_no_device``,
+    ``test_the_bootnode_has_no_device``)."""
     from eges_tpu_torch import resolve_device
     from eges_tpu_torch.crypto.verifier import BatchVerifier, default_verifier
     from eges_tpu_torch.harness import (hlo_census, measure_recover,
@@ -98,6 +101,28 @@ def test_entry_points_default_to_the_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         default_verifier()
+    # the node: the default verifier mode is the torch verifier on the card
+    from eges_tpu_torch.harness import cluster
+    from eges_tpu_torch.node import __main__ as node_main
+
+    gen = tmp_path / "genesis.json"
+    cluster.write_genesis(str(gen), 3)
+    argv = ["--datadir", str(tmp_path / "d"), "--genesis", str(gen),
+            "--keyhex", cluster.node_key(0).hex()]
+    for extra in ([], ["--verifier", "torch"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            node_main.main(argv + extra)
+    # the cluster harness: a torch node asks for no other device, and the
+    # store warm (a child process) fails without a card
+    cmd = cluster._node_cmd(0, 3, str(tmp_path), str(gen),
+                            cluster.parse_hosts("", 3), txn_per_block=10,
+                            txn_size=100, block_timeout=5.0, mine=True,
+                            extra_args=["--verifier", "torch"])
+    assert "--verifierDevice" not in cmd
+    assert cmd[cmd.index("-m") + 1] == "eges_tpu_torch.node"
+    with pytest.raises(subprocess.CalledProcessError) as err:
+        cluster.warm_kernel_store(timeout_s=120)
+    assert "CUDA" in err.value.stderr
     for main in (profile_mulchain.main, profile_mul8b.main,
                  profile_floor.main, profile_kernels2.main,
                  profile_stages.main, measure_recover.main, hlo_census.main,
@@ -124,4 +149,22 @@ def test_the_analysis_gate_has_no_device():
     unsuppressed, mods = json.loads(out.splitlines()[-1])
     assert unsuppressed == 0
     for root in ("torch", "numpy", "jax", "eges_tpu", "harness"):
+        assert not [m for m in mods if m == root or m.startswith(root + ".")]
+
+
+def test_the_bootnode_has_no_device():
+    """The discovery bootnode (``python -m eges_tpu_torch.bootnode``)
+    serves UDP and has no device: its module loads no torch, no jax and
+    nothing of the reference."""
+    code = ("import json, sys\n"
+            "import eges_tpu_torch.bootnode.__main__ as m\n"
+            "assert callable(m.main)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    mods = json.loads(out.splitlines()[-1])
+    assert "eges_tpu_torch.net.discovery" in mods
+    for root in ("torch", "jax", "eges_tpu", "harness"):
         assert not [m for m in mods if m == root or m.startswith(root + ".")]
